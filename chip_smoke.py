@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (rmem_ocu_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+1. environment: card name and power limit, torch and CUDA versions;
+2. build: compiles every CUDA kernel of the main path with nvcc (sm_90a);
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main-path shapes, with its time, the plain version's time, one
+   library call's time as a yardstick, and the least time the card could
+   take (bound);
+4. engine, fp32, card against CPU: r50_deaotl with seeded random weights,
+   one reference frame and 12 frames at write gap 1 (eviction fires),
+   holding eviction ids, masks and kernel launch counts;
+5. main path, bf16: r50_deaotl, 353x625, 3 objects, write gap 5, at 1 and
+   8 streams: frames/s, p50 frame latency and peak memory.
+
+The last lines are one JSON object listing the kernels, the card's
+`nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
+no CUDA device, or without the package beside it, the script exits non-zero
+and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# published peaks of one H100 SXM (NVIDIA data sheet, dense)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+
+H, W = 353, 625                 # DAVIS 480p long edge 624 -> 16k+1 grid
+GRID = ((H - 1) // 16 + 1, (W - 1) // 16 + 1)        # 23 x 40
+N_OBJ = 3
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, burst: int = 10, samples: int = 21) -> float:
+    """Median device time of one call, from CUDA events around bursts of
+    `burst` calls queued behind a sleep kernel (so host overhead between
+    calls does not count)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        start.record()
+        for _ in range(burst):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / burst)
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_flops: float, dtype: str):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = n_flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------- kernels
+def b1_case(torch, batch: int, dtype, precise: bool, seed: int):
+    """Main-path B1 inputs: 1 head, D=128, two 512-wide banks, T=10 with a
+    dead slot in the middle, HWq = HWk = 920, temporal PE."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    hw, t_cap, d, cv = GRID[0] * GRID[1], 10, 128, 512
+    rnd = lambda *s: torch.randn(*s, generator=g, device='cuda').to(dtype)
+    q, k = rnd(batch, hw, d), rnd(batch, t_cap, hw, d)
+    v1, v2 = rnd(batch, t_cap, hw, cv), rnd(batch, t_cap, hw, cv)
+    pe = rnd(1, t_cap, d) * 0.05
+    valid = torch.ones(batch, t_cap, dtype=torch.bool, device='cuda')
+    valid[:, 5] = False
+    n_live = int(valid[0].sum())
+    e = torch.finfo(dtype).bits // 8
+    n_bytes = batch * (e * (hw * d + n_live * hw * d + n_live * d
+                            + n_live * hw * 2 * cv + hw * 2 * cv)
+                       + 4 * t_cap + 4 * hw * t_cap)
+    n_flops = 2 * batch * hw * n_live * (hw * (d + 2 * cv) + d)
+    args = (q, k, (v1, v2), valid, 1, d ** -0.5)
+    kw = dict(mem_pe=pe, precise=precise)
+    return args, kw, n_bytes, n_flops
+
+
+def b1_library(torch, args, kw):
+    """SDPA over V||ID_V with the slot mask and the PE added to the keys
+    (no mass output)."""
+    import torch.nn.functional as F
+    q, k, (v1, v2), valid, _, scale = args
+    b, t_cap, hw, d = k.shape
+    kk = (k + kw['mem_pe'][:, :, None, :]).reshape(b, 1, t_cap * hw, d)
+    vv = torch.cat([v1, v2], -1).reshape(b, 1, t_cap * hw, -1)
+    mask = valid.repeat_interleave(hw, dim=1)[:, None, None, :]
+    qq = q[:, None]
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                                  scale=scale)
+
+
+def b2_case(torch, batch: int, dtype, seed: int):
+    """Main-path B2 inputs: 23x40 grid, D=128, E=1024 (V||ID_V)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    (h, w), d, e_dim, md = GRID, 128, 1024, 7
+    hw, ws2 = h * w, (2 * md + 1) ** 2
+    rnd = lambda *s: torch.randn(*s, generator=g, device='cuda')
+    q = (rnd(batch, hw, d) * d ** -0.5).to(dtype)
+    k, v = rnd(batch, hw, d).to(dtype), rnd(batch, hw, e_dim).to(dtype)
+    rel = rnd(batch, hw, ws2)
+    qy, qx = np.divmod(np.arange(hw), w)
+    rows = np.minimum(qy + md, h - 1) - np.maximum(qy - md, 0) + 1
+    cols = np.minimum(qx + md, w - 1) - np.maximum(qx - md, 0) + 1
+    n_pairs = int((rows * cols).sum())
+    e = torch.finfo(dtype).bits // 8
+    n_bytes = batch * (e * (2 * hw * d + 2 * hw * e_dim) + 4 * hw * ws2)
+    n_flops = 2 * batch * n_pairs * (d + e_dim)
+    args = (q, k, v, rel, (h, w), md, dtype == torch.float32)
+    return args, n_bytes, n_flops
+
+
+def b2_library(torch, args):
+    """SDPA with a dense [HW, HW] float mask holding the bias and -inf."""
+    import torch.nn.functional as F
+    from rmem_ocu_tpu_torch.ops.kernels.local_attn import _local_window_maps
+    q, k, v, rel, (h, w), md, _ = args
+    md_mask, idx = _local_window_maps(h, w, md)
+    # columns of the padded grid that are image pixels, in row-major order
+    hp, wp = h + 2 * md, w + 2 * md
+    ky, kx = np.divmod(np.arange(hp * wp), wp)
+    img_cols = np.flatnonzero((ky >= md) & (ky < h + md)
+                              & (kx >= md) & (kx < w + md))
+    idx = torch.from_numpy(idx[:, img_cols]).cuda()
+    inside = torch.from_numpy(md_mask[:, img_cols]).cuda()
+    bias = torch.gather(torch.nn.functional.pad(rel, (0, 1)), 2,
+                        idx.expand(q.shape[0], -1, -1))
+    mask = torch.where(inside, bias, float('-inf')).to(q.dtype)[:, None]
+    qq, kk, vv = q[:, None], k[:, None], v[:, None]
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                                  scale=1.0)
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+# Kernel against plain: every element must satisfy
+#     |got - want| <= atol + rtol * |want|,   atol = ATOL_RMS * rms(want).
+# bf16 outputs differ by one bf16 ulp where the final rounding flips (B1
+# also rounds p at different running maxima), so rtol is two bf16 ulps
+# (2^-7) and atol 2% of the output's RMS, for the elements near zero. Each
+# row also shows that the check rejects the plain output with one live
+# slot (B1) or one window key (B2) dropped. f32 outputs differ only in the
+# order of f32 sums: an absolute 1e-5.
+BF16_TOL = dict(rtol=2 ** -7, atol_rms=0.02, atol=0.0)
+F32_TOL = dict(rtol=0.0, atol_rms=0.0, atol=1e-5)
+
+
+def compare(outs, wants, rtol, atol_rms, atol):
+    """(max abs err, rms of the plain output, passes the tolerance)."""
+    err, rms, ok = 0.0, 0.0, True
+    for got, want in zip(outs, wants):
+        g, w = got.float(), want.float()
+        r = float(w.square().mean().sqrt())
+        diff = (g - w).abs()
+        lim = max(atol, atol_rms * r) + rtol * w.abs()
+        ok = ok and bool((diff <= lim).all())
+        err, rms = max(err, float(diff.max())), max(rms, r)
+    return err, rms, ok
+
+
+def phase_kernels(torch):
+    from rmem_ocu_tpu_torch.ops.kernels.local_attn import (
+        local_window_attention, local_window_attention_plain)
+    from rmem_ocu_tpu_torch.ops.kernels.memory_read import (
+        memory_read_fused, memory_read_fused_plain)
+    rows = {}
+    for name, batch, dtype, precise, tol in (
+            ('b1_bf16_B1', 1, torch.bfloat16, False, BF16_TOL),
+            ('b1_f32_precise_B1', 1, torch.float32, True, F32_TOL),
+            ('b1_bf16_B8', 8, torch.bfloat16, False, BF16_TOL)):
+        args, kw, n_bytes, n_flops = b1_case(torch, batch, dtype, precise, 1)
+        (o1, o2), mass = memory_read_fused(*args, **kw)
+        (p1, p2), pmass = memory_read_fused_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, rms, ok = compare((o1, o2), (p1, p2), **tol)
+        err_mass = max_err(mass, pmass)
+        check(bool(torch.isfinite(o1.float()).all()), f'{name}: not finite')
+        check(ok and err_mass <= 1e-4,
+              f'{name}: max abs err {err} (rms {rms}, tol {tol}), mass '
+              f'{err_mass}')
+        # sensitivity: the plain output with live slot 3 dropped must fail
+        q, k, vs, valid, heads, scale = args
+        dropped = valid.clone()
+        dropped[:, 3] = False
+        (d1, d2), _ = memory_read_fused_plain(q, k, vs, dropped, heads,
+                                              scale, **kw)
+        d_err, _, d_ok = compare((d1, d2), (p1, p2), **tol)
+        check(not d_ok, f'{name}: tolerance accepts a dropped slot '
+                        f'(max abs err {d_err})')
+        print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
+              f'output rms {rms:.4e}; one live slot dropped gives '
+              f'{d_err:.3e} and is rejected')
+        b_ms, b_by = bound_ms(n_bytes, n_flops,
+                              'bfloat16' if dtype == torch.bfloat16
+                              else 'float32')
+        row = dict(max_abs_err=max(err, err_mass),
+                   ms=time_ms(torch, lambda: memory_read_fused(*args, **kw)),
+                   plain_ms=time_ms(torch, lambda: memory_read_fused_plain(
+                       *args, **kw), burst=2),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=time_ms(torch, b1_library(torch, args, kw)))
+        print(f'kernel {name}: ok, tol {tol}, {json.dumps(row)}')
+        rows[name] = row
+
+    for name, batch, dtype, tol in (
+            ('b2_bf16_B1', 1, torch.bfloat16, BF16_TOL),
+            ('b2_f32_B1', 1, torch.float32, F32_TOL),
+            ('b2_bf16_B8', 8, torch.bfloat16, BF16_TOL)):
+        args, n_bytes, n_flops = b2_case(torch, batch, dtype, 2)
+        out = local_window_attention(*args)
+        want = local_window_attention_plain(*args)
+        torch.cuda.synchronize()
+        err, rms, ok = compare((out,), (want,), **tol)
+        check(bool(torch.isfinite(out.float()).all()), f'{name}: not finite')
+        check(ok, f'{name}: max abs err {err} (rms {rms}, tol {tol})')
+        # sensitivity: the plain output without the key at offset (0, +1)
+        # (bias -1e9, so its weight is 0) must fail
+        q, k, v, rel, size_2d, md, precise = args
+        rel_drop = rel.clone()
+        rel_drop[..., md * (2 * md + 1) + md + 1] = -1e9
+        d_err, _, d_ok = compare(
+            (local_window_attention_plain(q, k, v, rel_drop, size_2d, md,
+                                          precise),), (want,), **tol)
+        check(not d_ok, f'{name}: tolerance accepts a dropped key '
+                        f'(max abs err {d_err})')
+        print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
+              f'output rms {rms:.4e}; one window key dropped gives '
+              f'{d_err:.3e} and is rejected')
+        b_ms, b_by = bound_ms(n_bytes, n_flops,
+                              'bfloat16' if dtype == torch.bfloat16
+                              else 'float32')
+        row = dict(max_abs_err=err,
+                   ms=time_ms(torch, lambda: local_window_attention(*args)),
+                   plain_ms=time_ms(torch, lambda: local_window_attention_plain(
+                       *args), burst=2),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=time_ms(torch, b2_library(torch, args)))
+        print(f'kernel {name}: ok, tol {tol}, {json.dumps(row)}')
+        rows[name] = row
+    return rows
+
+
+# ---------------------------------------------------------------- engine
+def make_inputs(batch: int, n_frames: int, seed: int):
+    rng = np.random.RandomState(seed)
+    img0 = rng.randn(batch, H, W, 3).astype(np.float32)
+    mask0 = (rng.rand(batch, H, W) * (N_OBJ + 1)).astype(np.int64)
+    frames = [(img0 + 0.5 * rng.randn(batch, H, W, 3)).astype(np.float32)
+              for _ in range(n_frames)]
+    return img0, mask0, frames
+
+
+def reset_counts():
+    from rmem_ocu_tpu_torch.ops.kernels import local_attn, memory_read
+    memory_read.memory_read_fused.launches = 0
+    local_attn.local_window_attention.launches = 0
+
+
+def read_counts():
+    from rmem_ocu_tpu_torch.ops.kernels import local_attn, memory_read
+    return (memory_read.memory_read_fused.launches,
+            local_attn.local_window_attention.launches)
+
+
+def phase_engine_fp32(torch):
+    """fp32 card against CPU, same weights, same inputs, in lock-step."""
+    from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exp = get_config('pre_vost_2', model='r50_deaotl')
+    cpu_model = build_vos_model(exp.model, device='cpu', seed=0)
+    gpu_model = build_vos_model(exp.model, seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    n_frames = 12
+    img0, mask0, frames = make_inputs(1, n_frames, seed=3)
+    engines = [InferEngine(m, exp, long_term_mem_gap=1)
+               for m in (cpu_model, gpu_model)]
+    states = [e.init_state(1, GRID) for e in engines]
+    reset_counts()
+    for i, e in enumerate(engines):
+        states[i] = e.add_reference_frame(
+            states[i], torch.from_numpy(img0), torch.from_numpy(mask0),
+            torch.tensor([N_OBJ]))
+    budget = exp.model.former_mem_len + exp.model.latter_mem_len
+    worst_logit, worst_agree = 0.0, 1.0
+    for t, f in enumerate(frames):
+        preds, logits_all = [], []
+        for i, e in enumerate(engines):
+            logits, states[i] = e.propagate(states[i], torch.from_numpy(f))
+            pred = e.predict_mask(logits, (H, W))
+            states[i] = e.update_memory(states[i], pred)
+            preds.append(pred.cpu())
+            logits_all.append(logits.float().cpu())
+        ids = [s.bank.frame_ids.cpu() for s in states]
+        ordered = [s.bank.ordered_frame_ids.cpu() for s in states]
+        agree = float((preds[0] == preds[1]).float().mean())
+        diff = float((logits_all[0][..., :N_OBJ + 1]
+                      - logits_all[1][..., :N_OBJ + 1]).abs().max())
+        worst_logit, worst_agree = max(worst_logit, diff), min(worst_agree,
+                                                               agree)
+        print(f'engine fp32 frame {t}: ordered ids {ordered[1][0].tolist()} '
+              f'mask agreement {agree:.6f} max |logit diff| {diff:.3e}')
+        check(torch.equal(ids[0], ids[1]) and torch.equal(*ordered),
+              f'frame {t}: eviction ids differ {ordered}')
+        check(agree > 0.999, f'frame {t}: mask agreement {agree}')
+        check(int(ordered[1][0, 0]) == 0, 'reference frame left slot 0')
+        check(int(states[1].bank.length[0]) == min(t + 2, budget),
+              f'frame {t}: bank length {states[1].bank.length.tolist()}')
+        check(bool(torch.isfinite(logits_all[1]).all()), 'non-finite logits')
+    b1, b2 = read_counts()
+    # the CPU engine runs the plain versions, which count nothing
+    check(b1 == 3 * n_frames and b2 == 3 * (n_frames + 1),
+          f'kernel launches B1 {b1}, B2 {b2} for {n_frames} frames')
+    print(f'engine fp32 card vs CPU: ok, {n_frames} frames, eviction ids '
+          f'identical, worst mask agreement {worst_agree:.6f}, worst '
+          f'|logit diff| {worst_logit:.3e}, launches B1 {b1} B2 {b2}')
+
+
+# kernel-name fragments -> group, first match wins (cuDNN's implicit-GEMM
+# convolutions before cuBLAS's GEMMs)
+KERNEL_GROUPS = (
+    ('B1 memory_read', ('memory_read',)),
+    ('B2 local_attn', ('local_attn',)),
+    ('convolution', ('conv', 'fprop', 'implicit', 'winograd', 'cudnn')),
+    ('matmul', ('gemm', 'cutlass', 'cublas', 'xmma')),
+    ('normalisation', ('norm',)),
+    ('softmax', ('softmax',)),
+    ('other', ('',)),
+)
+
+
+def profile_frames(torch, eng, state, frames, batch: int, n: int = 5):
+    """torch.profiler over n frames: device time by kernel group, kernels
+    launched per frame and the device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for i in range(n):
+            logits, state = eng.propagate(state, frames[i % len(frames)])
+            state = eng.update_memory(state, eng.predict_mask(logits, (H, W)))
+        end.record()
+        torch.cuda.synchronize()
+    window = start.elapsed_time(end)
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    busy, launches, kernels = 0.0, 0, []
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith('CUDA'):
+            continue
+        ms = evt.self_device_time_total / 1e3
+        busy += ms
+        launches += evt.count
+        kernels.append((ms, evt.count, evt.key))
+        name = evt.key.lower()
+        for group, keys in KERNEL_GROUPS:
+            if any(k in name for k in keys):
+                groups[group] += ms
+                break
+    if busy == 0.0:
+        print(f'profile streams={batch}: device time not measured (the '
+              f'profiler saw no kernels)')
+        return
+    parts = ', '.join(f'{g} {t / n:.3f} ms ({100 * t / busy:.1f}%)'
+                      for g, t in sorted(groups.items(), key=lambda x: -x[1]))
+    print(f'profile streams={batch}: {window / n:.3f} ms/frame window, '
+          f'device busy {busy / n:.3f} ms/frame, idle share '
+          f'{max(0.0, 1 - busy / window):.3f}, {launches / n:.0f} kernels/'
+          f'frame; by group per frame: {parts}')
+    for ms, count, name in sorted(kernels, reverse=True)[:8]:
+        print(f'  top kernel streams={batch}: {ms / n:.3f} ms/frame, '
+              f'{count / n:.0f}/frame, {name[:90]}')
+
+
+def phase_main_path(torch, batch: int, n_warm: int = 5, n_timed: int = 30):
+    """The bf16 main path at `batch` streams; returns the kernel launch
+    counts of the run."""
+    from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
+    exp = get_config('pre_vost_2', model='r50_deaotl',
+                     compute_dtype='bfloat16')
+    model = build_vos_model(exp.model, seed=0).to(torch.bfloat16)
+    eng = InferEngine(model, exp, long_term_mem_gap=5)
+    img0, mask0, frames = make_inputs(batch, 8, seed=5)
+    frames = [torch.from_numpy(f).cuda() for f in frames]
+    state = eng.init_state(batch, GRID)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = eng.add_reference_frame(state, torch.from_numpy(img0),
+                                    torch.from_numpy(mask0),
+                                    torch.full((batch,), N_OBJ))
+    events = []
+    for i in range(n_warm + n_timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, state = eng.propagate(state, frames[i % len(frames)])
+        pred = eng.predict_mask(logits, (H, W))
+        state = eng.update_memory(state, pred)
+        end.record()
+        if i >= n_warm:
+            events.append((start, end))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_prop = n_warm + n_timed
+    check(counts == (3 * n_prop, 3 * (n_prop + 1)),
+          f'kernel launches {counts} for {n_prop} frames')
+    check(tuple(logits.shape) == (batch, 4 * GRID[0] - 3, 4 * GRID[1] - 3,
+                                  exp.model.max_obj_num + 1),
+          f'logits shape {tuple(logits.shape)}')
+    check(bool(torch.isfinite(logits[..., :N_OBJ + 1].float()).all()),
+          'non-finite logits')
+    budget = exp.model.former_mem_len + exp.model.latter_mem_len
+    lengths = state.bank.length
+    check(bool(((lengths >= 1) & (lengths <= budget)).all()),
+          f'bank length {lengths.tolist()}')
+    check(bool((state.bank.ordered_frame_ids[:, 0] == 0).all()),
+          'reference frame left slot 0')
+    per_frame = [s.elapsed_time(e) for s, e in events]
+    total_ms = events[0][0].elapsed_time(events[-1][1])
+    fps = batch * n_timed / (total_ms / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f'main path bf16 {H}x{W} {N_OBJ} objects gap 5 streams={batch}: '
+          f'{fps:.2f} frames/s aggregate, p50 frame latency '
+          f'{statistics.median(per_frame):.3f} ms, peak memory {peak:.3f} '
+          f'GiB, {n_timed} timed frames after {n_warm} warm-up')
+    profile_frames(torch, eng, state, frames, batch)
+    return counts
+
+
+KERNELS = (
+    ('memory_read_fused', 'rmem_ocu_tpu_torch/csrc/memory_read.cu',
+     'rmem_ocu_tpu/ops/pallas/memory_read.py:281', 'b1_bf16_B1', 0),
+    ('local_window_attention', 'rmem_ocu_tpu_torch/csrc/local_attn.cu',
+     'rmem_ocu_tpu/ops/pallas/local_attn.py:91', 'b2_bf16_B1', 1),
+)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    try:
+        from rmem_ocu_tpu_torch.ops.kernels import build
+    except ImportError as e:
+        print(f'chip_smoke: the rmem_ocu_tpu_torch package is missing: {e}',
+              file=sys.stderr)
+        return 1
+    t_start = time.time()
+    smi = nvidia_smi()
+    print(f'device: {smi}; torch {torch.__version__}, CUDA '
+          f'{torch.version.cuda}, {torch.cuda.get_device_name(0)}')
+
+    t0 = time.time()
+    build.build(['memory_read', 'local_attn'])
+    print(f'build: {time.time() - t0:.1f} s')
+    for name, log in build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if 'registers' in line or 'spill' in line:
+                print(f'ptxas {name}: {line.strip()}')
+
+    rows = phase_kernels(torch)
+    phase_engine_fp32(torch)
+    counts = phase_main_path(torch, 1)
+    phase_main_path(torch, 8)
+
+    kernels = []
+    for name, src, replaces, row_name, idx in KERNELS:
+        # every check above raised on failure, so reaching here is 'ok'
+        kernels.append(dict(name=name, route='cuda', source=src,
+                            replaces=replaces, launches=counts[idx],
+                            **rows[row_name], verdict='ok'))
+    print(f'total: {time.time() - t_start:.1f} s')
+    print(json.dumps({'kernels': kernels}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

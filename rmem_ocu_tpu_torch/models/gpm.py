@@ -1,0 +1,182 @@
+"""Dual-branch Gated Propagation Module (DeAOT) over the memory bank.
+
+Counterpart of the JAX package's `models/gpm.py` (reference
+aot_plus/networks/layers/transformer.py:700-1249). The visual branch (tgt)
+and the id branch (tgt_id) propagate jointly; memory holds (K, V, ID_V) per
+layer. With more than one bank slot the long-term read is kernel B1, which
+also returns the per-slot attention mass that drives RMem eviction; the
+short-term read is kernel B2. Eval only: dropout and drop-path are left
+out.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rmem_ocu_tpu_torch.ops.attention import (GatedPropagation,
+                                              LocalGatedPropagation)
+from rmem_ocu_tpu_torch.ops.layers import EPS, GroupNorm1D
+
+
+class GPMBlock(nn.Module):
+    """GatedPropagationModule (reference transformer.py:1010-1249)."""
+
+    def __init__(self, d_model: int, self_heads: int = 1, att_heads: int = 1,
+                 layer_idx: int = 0, expand_ratio: float = 2.0,
+                 max_local_dis: int = 7):
+        super().__init__()
+        d = d_model
+        self.att_heads = att_heads
+        self.expand_d_model = int(d * expand_ratio)
+        # d_att: d/2 for one head, d/heads otherwise (reference :1033)
+        self.d_att = d // 2 if att_heads == 1 else d // att_heads
+        self.norm1 = nn.LayerNorm(d, eps=EPS)
+        self.linear_QV = nn.Linear(d, self.d_att * att_heads
+                                   + self.expand_d_model)
+        self.linear_U = nn.Linear(d, self.expand_d_model)
+        if layer_idx == 0:
+            self.linear_ID_V = nn.Linear(d, self.expand_d_model)
+        else:
+            self.id_norm1 = nn.LayerNorm(d, eps=EPS)
+            self.linear_ID_V = nn.Linear(2 * d, self.expand_d_model)
+            self.linear_ID_U = nn.Linear(d, self.expand_d_model)
+        self.long_term_attn = GatedPropagation(
+            d_qk=d, d_vu=d * 2, num_heads=att_heads, use_linear=False,
+            d_att=self.d_att, expand_ratio=expand_ratio)
+        self.short_term_attn = LocalGatedPropagation(
+            d_qk=d, d_vu=d * 2, num_heads=att_heads, d_att=self.d_att,
+            max_dis=max_local_dis, expand_ratio=expand_ratio)
+        self.norm2 = nn.LayerNorm(d, eps=EPS)
+        self.id_norm2 = nn.LayerNorm(d, eps=EPS)
+        self.self_attn = GatedPropagation(
+            d_qk=d * 2, d_vu=d * 2, num_heads=self_heads, d_att=self.d_att,
+            expand_ratio=expand_ratio)
+
+    def forward(self, tgt, tgt_id, long_mem, short_kv, curr_id_emb,
+                size_2d: Tuple[int, int], temporal_pe,
+                need_mass: bool = False):
+        """tgt: [B, HW, C]; tgt_id: [B, HW, C] or None (first layer).
+        long_mem: (k [B,T,HW,Datt], v [B,T,HW,E], id_v [B,T,HW,E],
+        valid [B,T] live physical slots) or None when curr_id_emb is given.
+        short_kv: (k, v, id_v) each [B, HW, *] or None.
+        temporal_pe: (cur_pe [Datt], mem_pe [B|1, T, Datt]) or None.
+        Returns (tgt, tgt_id, memories dict, mass or None)."""
+        b = tgt.shape[0]
+        _tgt = self.norm1(tgt)
+        curr_q, curr_v = self.linear_QV(_tgt).split(
+            [self.d_att * self.att_heads, self.expand_d_model], dim=-1)
+        curr_k = curr_q
+        curr_v = F.silu(curr_v)
+        curr_u = self.linear_U(_tgt)
+
+        if tgt_id is None:
+            cat_curr_u = torch.cat([F.silu(curr_u), torch.ones_like(curr_u)],
+                                   dim=-1)
+            curr_id_v = None
+        else:
+            curr_id_v = self.id_norm1(tgt_id)
+            curr_id_u = self.linear_ID_U(curr_id_v)
+            cat_curr_u = F.silu(torch.cat([curr_u, curr_id_u], dim=-1))
+
+        mems = {'curr_k': curr_k, 'curr_v': curr_v, 'curr_id_v': curr_id_v}
+        if curr_id_emb is not None:
+            global_id_v = self.fuse_value_id(curr_id_v, curr_id_emb)
+            mem_k, mem_v, mem_id_v = (curr_k[:, None], curr_v[:, None],
+                                      global_id_v[:, None])
+            valid = torch.ones((b, 1), dtype=torch.bool, device=tgt.device)
+            local_k, local_v, local_id_v = curr_k, curr_v, global_id_v
+            mems['global_id_v_fused'] = global_id_v
+        else:
+            mem_k, mem_v, mem_id_v, valid = long_mem
+            local_k, local_v, local_id_v = short_kv
+
+        capacity = mem_k.shape[1]
+        if temporal_pe is not None:
+            cur_pe, mem_pe = temporal_pe
+            mem_pe = mem_pe[..., :capacity, :]
+            if mem_pe.dim() == 2:
+                mem_pe = mem_pe[None]
+            q_time = curr_q + cur_pe
+        else:
+            mem_pe, q_time = None, curr_q
+
+        mass = None
+        if capacity > 1:
+            cat_tgt2, mass = self.long_term_attn.bank_read(
+                q_time, mem_k, mem_v, mem_id_v, cat_curr_u, valid, size_2d,
+                mem_pe=mem_pe)
+            if not need_mass:
+                mass = None
+        else:
+            # the reference frame reads only itself: plain attention, with
+            # the PE added to its keys
+            if mem_pe is not None:
+                mem_k = mem_k + mem_pe[:, :, None, :]
+            cat_tgt2 = self.long_term_attn.multi_value_call(
+                q_time, mem_k[:, 0], (mem_v[:, 0], mem_id_v[:, 0]),
+                cat_curr_u, size_2d)
+
+        cat_local_v = torch.cat([local_v, local_id_v], dim=-1)
+        cat_tgt3 = self.short_term_attn(curr_q, local_k, cat_local_v,
+                                        cat_curr_u, size_2d)
+
+        tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)
+        tgt3, tgt_id3 = cat_tgt3.chunk(2, dim=-1)
+        tgt = tgt + (tgt2 + tgt3)
+        tgt_id = (tgt_id2 + tgt_id3 if tgt_id is None
+                  else tgt_id + (tgt_id2 + tgt_id3))
+
+        cat_q = torch.cat([self.norm2(tgt), self.id_norm2(tgt_id)], dim=-1)
+        cat_tgt2 = self.self_attn(cat_q, cat_q, cat_q, cat_q, size_2d)
+        tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)
+        return tgt + tgt2, tgt_id + tgt_id2, mems, mass
+
+    def fuse_value_id(self, value, id_emb):
+        """ID-value fusion (reference transformer.py:1238-1244)."""
+        if value is None:
+            return F.silu(self.linear_ID_V(id_emb))
+        return F.silu(self.linear_ID_V(torch.cat([value, id_emb], dim=-1)))
+
+
+class GPMStack(nn.Module):
+    """DualBranchGPM (reference transformer.py:700-824). DeAOT decodes only
+    the last layer, so the only decoder norm is the final GroupNorm(2) over
+    the concatenated [tgt, tgt_id] channels."""
+
+    def __init__(self, num_layers: int = 3, d_model: int = 256,
+                 self_heads: int = 1, att_heads: int = 1):
+        super().__init__()
+        self.layers = nn.ModuleList([
+            GPMBlock(d_model, self_heads, att_heads, layer_idx=idx)
+            for idx in range(num_layers)])
+        self.decoder_norms = nn.ModuleList([GroupNorm1D(2 * d_model, 2)])
+
+    def forward(self, tgt, long_mem, short_mem, curr_id_emb, size_2d,
+                temporal_pe, need_mass: bool = False
+                ) -> Tuple[List[torch.Tensor], List[dict],
+                           Optional[torch.Tensor]]:
+        """long_mem: (k, v, id_v per-layer lists, valid) or None;
+        short_mem: (k, v, id_v per-layer lists) or None. Returns
+        (per-layer [B, HW, 2C] outputs with the last one normed, per-layer
+        memories, layer-0 eviction mass or None)."""
+        intermediates, memories = [], []
+        mass0 = None
+        out, out_id = tgt, None
+        for idx, block in enumerate(self.layers):
+            lm = None if long_mem is None else (
+                long_mem[0][idx], long_mem[1][idx], long_mem[2][idx],
+                long_mem[3])
+            sm = None if short_mem is None else (
+                short_mem[0][idx], short_mem[1][idx], short_mem[2][idx])
+            out, out_id, mems, mass = block(
+                out, out_id, lm, sm, curr_id_emb, size_2d, temporal_pe,
+                need_mass=need_mass and idx == 0)
+            if idx == 0:
+                mass0 = mass
+            intermediates.append(torch.cat([out, out_id], dim=-1))
+            memories.append(mems)
+        intermediates[-1] = self.decoder_norms[-1](intermediates[-1])
+        return intermediates, memories, mass0

@@ -24,3 +24,8 @@ import pytest  # noqa: E402
 @pytest.fixture(scope='session')
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'cuda: needs an NVIDIA GPU; skipped without one')
