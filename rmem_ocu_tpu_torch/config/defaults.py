@@ -1,10 +1,11 @@
 """Typed configuration for the PyTorch port.
 
-A copy of the parts of the JAX package's `config/defaults.py` that the
-DeAOT streaming-inference slice reads: the fields of `ModelConfig` /
-`ExpConfig` it uses, the `r50_deaotl` registry entry and the `pre_vost` /
-`pre_vost_2` stages. Values are the reference's (aot_plus/configs), so the
-two packages agree field by field; the CPU tests hold them to that.
+A copy of the parts of the JAX package's `config/defaults.py` that
+streaming inference reads: the fields of `ModelConfig` / `ExpConfig` it
+uses, the `r50_deaotl` (DeAOT) and `r50_aotl` (AOT) registry entries and
+the `pre_vost` / `pre_vost_2` stages. Values are the reference's
+(aot_plus/configs), so the two packages agree field by field; the CPU tests
+hold them to that.
 """
 from __future__ import annotations
 
@@ -19,10 +20,13 @@ class ModelConfig:
 
     model_name: str = 'aott'
     vos: str = 'aot'                      # 'aot' | 'deaot'
+    engine: str = 'aotengine'             # 'aotengine' | 'deaotengine'
     align_corners: bool = True
     encoder: str = 'mobilenetv2'
     encoder_dim: Tuple[int, ...] = (24, 32, 96, 1280)  # 4x, 8x, 16x, 16x
     encoder_embedding_dim: int = 256
+    decoder_intermediate_lstt: bool = True
+    linear_q: bool = True
     max_obj_num: int = 10
     ignore_token: bool = True
     self_heads: int = 8
@@ -35,6 +39,7 @@ class ModelConfig:
     latter_mem_len: int = 8
     use_temporal_pe: bool = False
     temporal_pe_slot_4: bool = True       # 4-slot learnable memory PE vs 2
+    gru_memory: bool = False
     no_long_memory: bool = False
     no_memory_gap: bool = False
     reverse_loss: float = 0.4
@@ -65,7 +70,8 @@ class ExpConfig:
 
 def _deaot_defaults(**kw) -> ModelConfig:
     """Reference: configs/models/default_deaot.py:4-18."""
-    base = dict(vos='deaot', self_heads=1, att_heads=1)
+    base = dict(vos='deaot', engine='deaotengine',
+                decoder_intermediate_lstt=False, self_heads=1, att_heads=1)
     base.update(kw)
     return ModelConfig(**base)
 
@@ -76,6 +82,8 @@ _RMEM = dict(former_mem_len=1, latter_mem_len=8, use_temporal_pe=True,
              temporal_pe_slot_4=True)
 
 MODEL_REGISTRY: Dict[str, ModelConfig] = {
+    # r50_aotl carries the RMem flags in the reference fork
+    'r50_aotl': ModelConfig(model_name='r50_aotl', **_R50, **_RMEM),
     'r50_deaotl': _deaot_defaults(model_name='r50_deaotl', **_R50, **_RMEM),
 }
 
@@ -104,7 +112,7 @@ def _stage_default(model: ModelConfig, exp_name: str) -> ExpConfig:
 def _stage_pre_vost(model, exp, stage_name):
     # Reference: configs/pre_vost.py, pre_vost_2.py. The stages differ only
     # in training settings, which the port does not have yet.
-    model = replace(model, ignore_token=True)
+    model = replace(model, linear_q=False, ignore_token=True)
     return replace(_stage_default(model, exp), stage_name=stage_name)
 
 

@@ -1,4 +1,4 @@
-"""Per-video streaming inference engine (DeAOT).
+"""Per-video streaming inference engine (AOT and DeAOT).
 
 Counterpart of the JAX package's `engine/infer_engine.py` (reference
 aot_plus/networks/engines/aot_engine.py). The per-video state is an
@@ -36,16 +36,24 @@ UNUSED_ID_LOGIT = -1e10
 class EngineState:
     bank: membank.MemoryBank
     short: membank.ShortTermMemory
-    # per-layer memories captured at the last propagation, [B, HW, C] each
-    pending_k: List[torch.Tensor]
-    pending_v: List[torch.Tensor]
-    pending_id_v: List[torch.Tensor]      # layer 0 holds zeros (unused)
+    # per-layer memories captured at the last propagation, [B, HW, C] each.
+    # DeAOT writes the same K/V to both memories; AOT's short-term pair is
+    # its own (local_k, local_v)
+    pending_long_k: List[torch.Tensor]
+    pending_long_v: List[torch.Tensor]
+    pending_short_k: List[torch.Tensor]
+    pending_short_v: List[torch.Tensor]
+    # DeAOT curr_id_v, layer 0 holds zeros (unused); None for AOT
+    pending_id_v: Optional[List[torch.Tensor]]
     pending_mass: torch.Tensor            # [B, HW, T_cap] eviction mass
     pred_logits_4x: torch.Tensor          # [B, H4, W4, O+1]
     frame_step: int
     last_mem_step: int
     mem_gap: int                          # long-term write interval
     obj_nums: torch.Tensor                # [B]
+    # ConvGRU hidden states (AOT gru_memory), else None
+    gru_hidden_k: Optional[List[torch.Tensor]] = None
+    gru_hidden_v: Optional[List[torch.Tensor]] = None
 
 
 def _mask_unused_ids(logits: torch.Tensor, obj_nums: torch.Tensor
@@ -58,8 +66,8 @@ def _mask_unused_ids(logits: torch.Tensor, obj_nums: torch.Tensor
 
 
 class InferEngine:
-    """Binds a DeAOT model and its experiment config to the streaming
-    loop. The device is the model's."""
+    """Binds a model and its experiment config to the streaming loop. The
+    device is the model's."""
 
     def __init__(self, model: VOSModel, exp_cfg: ExpConfig,
                  long_term_mem_gap: Optional[int] = None,
@@ -74,19 +82,37 @@ class InferEngine:
         self.dtype = (torch.bfloat16 if exp_cfg.compute_dtype == 'bfloat16'
                       else torch.float32)
         self.device = next(model.parameters()).device
+        self.is_deaot = self.cfg.vos == 'deaot'
+        self._self_pos = {}
 
     def _dims(self):
-        d = self.cfg.encoder_embedding_dim
-        d_att = d // 2 if self.cfg.att_heads == 1 else d // self.cfg.att_heads
-        return d_att * self.cfg.att_heads, 2 * d
+        """(key width, value width, the bank holds ID_V)."""
+        cfg = self.cfg
+        d = cfg.encoder_embedding_dim
+        if not self.is_deaot:
+            return d, d, False
+        d_att = d // 2 if cfg.att_heads == 1 else d // cfg.att_heads
+        return d_att * cfg.att_heads, 2 * d, True
+
+    def _self_pos_emb(self, size_2d, dtype):
+        """The LSTT's sine position embedding on the device, made once per
+        grid size (AOT only; the GPM uses none)."""
+        if self.is_deaot:
+            return None
+        key = (size_2d, dtype)
+        if key not in self._self_pos:
+            self._self_pos[key] = self.model.get_pos_emb(size_2d).to(
+                self.device, dtype)
+        return self._self_pos[key]
 
     def init_state(self, batch: int, size_2d: Tuple[int, int]
                    ) -> EngineState:
         """Empty state for `batch` streams on the encoder grid size_2d."""
         cfg = self.cfg
         hw = size_2d[0] * size_2d[1]
-        ck, cv = self._dims()
+        ck, cv, with_id = self._dims()
         n_layers, cap = cfg.lstt_num, cfg.mem_bank_capacity
+        gru = cfg.gru_memory and not self.is_deaot
         dev, dt = self.device, self.dtype
 
         def zeros(c):
@@ -95,18 +121,23 @@ class InferEngine:
         h4 = 4 * size_2d[0] - 3 if cfg.align_corners else 4 * size_2d[0]
         w4 = 4 * size_2d[1] - 3 if cfg.align_corners else 4 * size_2d[1]
         return EngineState(
-            bank=membank.init_bank(n_layers, batch, cap, hw, ck, cv, dt, dev),
+            bank=membank.init_bank(n_layers, batch, cap, hw, ck, cv, dt, dev,
+                                   with_id=with_id),
             short=membank.init_short_term(n_layers, batch, self.skip, hw, ck,
-                                          cv, dt, dev),
-            pending_k=zeros(ck), pending_v=zeros(cv),
-            pending_id_v=zeros(cfg.encoder_embedding_dim),
+                                          cv, dt, dev, with_id=with_id),
+            pending_long_k=zeros(ck), pending_long_v=zeros(cv),
+            pending_short_k=zeros(ck), pending_short_v=zeros(cv),
+            pending_id_v=(zeros(cfg.encoder_embedding_dim) if with_id
+                          else None),
             pending_mass=torch.zeros((batch, hw, cap), dtype=torch.float32,
                                      device=dev),
             pred_logits_4x=torch.zeros((batch, h4, w4, cfg.max_obj_num + 1),
                                        dtype=dt, device=dev),
             frame_step=0, last_mem_step=-1,
             mem_gap=self.gap,
-            obj_nums=torch.ones(batch, dtype=torch.long, device=dev))
+            obj_nums=torch.ones(batch, dtype=torch.long, device=dev),
+            gru_hidden_k=zeros(ck) if gru else None,
+            gru_hidden_v=zeros(cv) if gru else None)
 
     def _id_emb_from_label(self, label: torch.Tensor, dtype: torch.dtype):
         return self.model.get_id_emb(label_to_one_hot(
@@ -136,10 +167,12 @@ class InferEngine:
                             ) -> EngineState:
         """img: [B, H, W, 3]; mask: int [B, H, W]; obj_nums: [B]. Re-adding
         a reference frame resets the memory (reference init_LSTT_memory,
-        aot_engine.py:321-323)."""
+        aot_engine.py:321-323) and the ConvGRU hidden states."""
         membank.reset_bank(state.bank)
         membank.reset_short_term(state.short)
         state.pending_mass.zero_()
+        for hidden in (state.gru_hidden_k or []) + (state.gru_hidden_v or []):
+            hidden.zero_()
         img = img.to(self.device, self.dtype)
         xs = self.model.encode_image(img)
         b, _, h, w = xs[-1].shape
@@ -150,15 +183,25 @@ class InferEngine:
         if tpe is not None:
             tpe = (tpe[0], tpe[1][:, :1])            # one virtual slot
         inters, mems, _ = self.model.lstt_forward(
-            xs[-1], None, None, id_emb, size_2d, temporal_pe=tpe)
+            xs[-1], None, None, id_emb,
+            self._self_pos_emb(size_2d, img.dtype), size_2d, temporal_pe=tpe)
         obj_nums = obj_nums.to(self.device)
         logits = _mask_unused_ids(self.model.decode_id_logits(inters, xs),
                                   obj_nums)
-        ks = [m['curr_k'] for m in mems]
-        vs = [m['curr_v'] for m in mems]
-        id_vs = [m['global_id_v_fused'] for m in mems]
-        membank.append_frame(state.bank, ks, vs, id_vs, state.frame_step)
-        membank.push_short_term(state.short, ks, vs, id_vs)
+
+        def stack(key):
+            return [m[key] for m in mems]
+        long_k = stack('curr_k')
+        if self.is_deaot:
+            long_v, long_id_v = stack('curr_v'), stack('global_id_v_fused')
+            short_k, short_v, short_id_v = long_k, long_v, long_id_v
+        else:
+            long_v, long_id_v = stack('global_v_fused'), None
+            short_k, short_v, short_id_v = (stack('local_k'),
+                                            stack('local_v'), None)
+        membank.append_frame(state.bank, long_k, long_v, long_id_v,
+                             state.frame_step)
+        membank.push_short_term(state.short, short_k, short_v, short_id_v)
         state.pred_logits_4x = logits
         state.last_mem_step = state.frame_step
         state.obj_nums = obj_nums
@@ -175,19 +218,32 @@ class InferEngine:
         _, _, h, w = xs[-1].shape
         bank = state.bank
         tpe = self._temporal_pe(bank.length, bank.pos)
-        long_mem = (bank.k, bank.v, bank.id_v, bank.slot_valid)
+        short_k, short_v, short_id_v = state.short.read()
+        if self.is_deaot:
+            long_mem = (bank.k, bank.v, bank.id_v, bank.slot_valid)
+            short_mem = (short_k, short_v, short_id_v)
+        else:
+            long_mem = (bank.k, bank.v, bank.slot_valid)
+            short_mem = (short_k, short_v)
         inters, mems, mass = self.model.lstt_forward(
-            xs[-1], long_mem, state.short.read(), None, (h, w),
-            temporal_pe=tpe, need_mass=True)
+            xs[-1], long_mem, short_mem, None,
+            self._self_pos_emb((h, w), img.dtype), (h, w), temporal_pe=tpe,
+            need_mass=True)
         logits = _mask_unused_ids(self.model.decode_id_logits(inters, xs),
                                   state.obj_nums)
-        d = self.cfg.encoder_embedding_dim
-        state.pending_k = [m['curr_k'] for m in mems]
-        state.pending_v = [m['curr_v'] for m in mems]
-        # layer 0 has no id branch input yet; its slot is never read
-        state.pending_id_v = [
-            m['curr_id_v'] if m['curr_id_v'] is not None
-            else torch.zeros_like(m['curr_v'][..., :d]) for m in mems]
+        state.pending_long_k = [m['curr_k'] for m in mems]
+        state.pending_long_v = [m['curr_v'] for m in mems]
+        if self.is_deaot:
+            d = self.cfg.encoder_embedding_dim
+            state.pending_short_k = state.pending_long_k
+            state.pending_short_v = state.pending_long_v
+            # layer 0 has no id branch input yet; its slot is never read
+            state.pending_id_v = [
+                m['curr_id_v'] if m['curr_id_v'] is not None
+                else torch.zeros_like(m['curr_v'][..., :d]) for m in mems]
+        else:
+            state.pending_short_k = [m['local_k'] for m in mems]
+            state.pending_short_v = [m['local_v'] for m in mems]
         state.pending_mass = mass
         state.pred_logits_4x = logits
         return logits, state
@@ -197,31 +253,71 @@ class InferEngine:
                       ) -> EngineState:
         """mask: int [B, H, W] (the predicted label map). Pushes the
         short-term memory every frame and, every `mem_gap` frames, appends
-        to the long-term bank, scores it and evicts once over budget
-        (reference aot_engine.py:327-369, transformer.py:269-436)."""
+        to the long-term bank and evicts once over budget (reference
+        aot_engine.py:327-369, transformer.py:269-436)."""
         cfg = self.cfg
         bank = state.bank
         id_emb = self._id_emb_from_label(mask, bank.k[0].dtype)
-        id_vs = self.model.fuse_memory_values(
-            [None] + state.pending_id_v[1:], id_emb)
-        membank.push_short_term(state.short, state.pending_k,
-                                state.pending_v, id_vs)
+        per_layer = []
+        for idx in range(cfg.lstt_num):
+            m = dict(curr_k=state.pending_long_k[idx],
+                     curr_v=state.pending_long_v[idx],
+                     local_k=state.pending_short_k[idx],
+                     local_v=state.pending_short_v[idx])
+            if self.is_deaot:
+                m['curr_id_v'] = (None if idx == 0
+                                  else state.pending_id_v[idx])
+            per_layer.append(m)
+        fused = self.model.fuse_memory_values(per_layer, id_emb)
+
+        def stack(key):        # the id_v entries are None for AOT
+            return [f[key] for f in fused]
+        membank.push_short_term(state.short, stack('short_k'),
+                                stack('short_v'), stack('short_id_v'))
         if cfg.no_long_memory:
             return state
         if state.frame_step - state.last_mem_step < state.mem_gap:
             return state
-        membank.append_frame(bank, state.pending_k, state.pending_v, id_vs,
-                             state.frame_step)
+        membank.append_frame(bank, stack('long_k'), stack('long_v'),
+                             stack('long_id_v'), state.frame_step)
         over = bank.length > cfg.former_mem_len + cfg.latter_mem_len
         # GPM scores on every long-term write (reference
-        # transformer.py:880-964), LSTT only once over budget
+        # transformer.py:880-964 has no early return), LSTT only once over
+        # budget (:332-334)
         drop_idx = membank.eviction_scores_and_update(
             bank, state.pending_mass,
             fg_proba=self._foreground_proba(state),
+            gru_memory=cfg.gru_memory,
+            enabled=None if self.is_deaot else over,
             former_len=cfg.former_mem_len)
-        membank.evict_frame(bank, drop_idx, enabled=over)
+        compressed = None
+        if cfg.gru_memory and not self.is_deaot:
+            compressed = self._compress_evicted(state, drop_idx, over)
+        membank.evict_frame(bank, drop_idx, enabled=over,
+                            compressed_kv=compressed)
         state.last_mem_step = state.frame_step
         return state
+
+    def _compress_evicted(self, state: EngineState, drop_idx: torch.Tensor,
+                          over: torch.Tensor):
+        """ConvGRU-compress the slot about to be evicted; returns the
+        per-layer (K, V) to write into logical slot 1. The hidden state
+        advances only where a drop happens (`over`; reference
+        restrict_long_memories returns early while within budget,
+        transformer.py:332-334, and updates hidden_states only inside the
+        is_drop branch, :420-430)."""
+        bank = state.bank
+        rows = torch.arange(drop_idx.shape[0], device=drop_idx.device)
+        phys = bank.phys_of(drop_idx)
+        (out_k, out_v), (hid_k, hid_v) = self.model.compress_evicted_slots(
+            [k[rows, phys] for k in bank.k], [v[rows, phys] for v in bank.v],
+            state.gru_hidden_k, state.gru_hidden_v, self._enc_size_2d(state))
+        sel = over[:, None, None]
+        state.gru_hidden_k = [torch.where(sel, new, old) for new, old
+                              in zip(hid_k, state.gru_hidden_k)]
+        state.gru_hidden_v = [torch.where(sel, new, old) for new, old
+                              in zip(hid_v, state.gru_hidden_v)]
+        return out_k, out_v
 
     def _enc_size_2d(self, state: EngineState) -> Tuple[int, int]:
         """The encoder grid, recovered from the stored 4x logits."""

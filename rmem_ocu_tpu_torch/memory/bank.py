@@ -16,7 +16,8 @@ logical-position indirection:
 Unlike the JAX package the bank is updated IN PLACE: `append_frame` writes
 the new frame's slot into the K/V/ID_V buffers, and every function here
 replaces the bank's small per-slot tensors. The K/V/ID_V buffers are lists
-of per-layer tensors [B, T_cap, HW, C].
+of per-layer tensors [B, T_cap, HW, C]; the AOT family has no ID_V
+(`id_v` is None).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ LayerArrays = List[torch.Tensor]
 class MemoryBank:
     k: LayerArrays                  # L x [B, T_cap, HW, Ck]
     v: LayerArrays                  # L x [B, T_cap, HW, Cv]
-    id_v: LayerArrays               # L x [B, T_cap, HW, Cv]
+    id_v: Optional[LayerArrays]     # L x [B, T_cap, HW, Cv] (DeAOT) | None
     length: torch.Tensor            # [B] int64 live length
     pos: torch.Tensor               # [B, T_cap] int64 logical position, -1 free
     frame_ids: torch.Tensor         # [B, T_cap] int64 (-1 = empty), physical
@@ -80,22 +81,32 @@ class ShortTermMemory:
     oldest entry (reference transformer.py:293-299)."""
     k: LayerArrays                  # L x [B, S, HW, Ck]
     v: LayerArrays
-    id_v: LayerArrays
+    id_v: Optional[LayerArrays]
     count: torch.Tensor             # [B] frames pushed so far
 
     def read(self):
         return ([k[:, 0] for k in self.k], [v[:, 0] for v in self.v],
-                [i[:, 0] for i in self.id_v])
+                None if self.id_v is None else [i[:, 0] for i in self.id_v])
+
+
+def _layer_groups(mem, new_k, new_v, new_id_v):
+    """(buffers, new frames) pairs of a bank or window: K, V and, where
+    it has one, ID_V."""
+    groups = [(mem.k, new_k), (mem.v, new_v)]
+    if mem.id_v is not None:
+        groups.append((mem.id_v, new_id_v))
+    return groups
 
 
 def init_bank(num_layers: int, batch: int, capacity: int, hw: int, ck: int,
-              cv: int, dtype: torch.dtype, device) -> MemoryBank:
+              cv: int, dtype: torch.dtype, device,
+              with_id: bool = True) -> MemoryBank:
     def zeros(c):
         return [torch.zeros((batch, capacity, hw, c), dtype=dtype,
                             device=device) for _ in range(num_layers)]
     slots = (batch, capacity)
     return MemoryBank(
-        k=zeros(ck), v=zeros(cv), id_v=zeros(cv),
+        k=zeros(ck), v=zeros(cv), id_v=zeros(cv) if with_id else None,
         length=torch.zeros(batch, dtype=torch.long, device=device),
         pos=torch.full(slots, -1, dtype=torch.long, device=device),
         frame_ids=torch.full(slots, -1, dtype=torch.long, device=device),
@@ -107,7 +118,7 @@ def init_bank(num_layers: int, batch: int, capacity: int, hw: int, ck: int,
 def reset_bank(bank: MemoryBank) -> None:
     """Empty the bank in place (reference init_LSTT_memory on a re-added
     reference frame, transformer.py:438-453)."""
-    for arr in bank.k + bank.v + bank.id_v:
+    for arr in bank.k + bank.v + (bank.id_v or []):
         arr.zero_()
     bank.length.zero_()
     bank.pos.fill_(-1)
@@ -117,8 +128,17 @@ def reset_bank(bank: MemoryBank) -> None:
     bank.visits.zero_()
 
 
+def _write_slot(arr: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
+                idx: torch.Tensor, enabled: torch.Tensor) -> None:
+    """In-place one-slot write per batch element: arr [B, T, HW, C], new
+    [B, HW, C], rows = arange(B), idx [B]; where `enabled` ([B] bool) is
+    False the slot keeps its content."""
+    arr[rows, idx] = torch.where(enabled[:, None, None], new.to(arr.dtype),
+                                 arr[rows, idx])
+
+
 def append_frame(bank: MemoryBank, new_k: LayerArrays, new_v: LayerArrays,
-                 new_id_v: LayerArrays, frame_idx: int,
+                 new_id_v: Optional[LayerArrays], frame_idx: int,
                  enabled: Optional[torch.Tensor] = None) -> None:
     """Write the new frame ([B, HW, C] per layer) into the first free
     physical slot, in place, and bump the length; where `enabled` ([B]
@@ -135,13 +155,9 @@ def append_frame(bank: MemoryBank, new_k: LayerArrays, new_v: LayerArrays,
     newest = bank.phys_of((bank.length - 1).clamp_min(0))
     idx = torch.where(idx >= cap, newest, idx)
     rows = torch.arange(b, device=dev)
-    keep = ~enabled[:, None, None]
-    for arrs, news in ((bank.k, new_k), (bank.v, new_v),
-                       (bank.id_v, new_id_v)):
+    for arrs, news in _layer_groups(bank, new_k, new_v, new_id_v):
         for arr, new in zip(arrs, news):
-            # in-place one-slot write per batch element
-            arr[rows, idx] = torch.where(keep, arr[rows, idx],
-                                         new.to(arr.dtype))
+            _write_slot(arr, new, rows, idx, enabled)
     sel = (t == idx[:, None]) & enabled[:, None]
     bank.pos = torch.where(sel, bank.length.clamp_max(cap - 1)[:, None],
                            bank.pos)
@@ -154,9 +170,15 @@ def append_frame(bank: MemoryBank, new_k: LayerArrays, new_v: LayerArrays,
 
 
 def evict_frame(bank: MemoryBank, drop_idx: torch.Tensor,
-                enabled: Optional[torch.Tensor] = None) -> None:
+                enabled: Optional[torch.Tensor] = None,
+                compressed_kv=None) -> None:
     """Drop the frame at LOGICAL position drop_idx ([B]) where `enabled`
-    ([B] bool); no data moves (reference transformer.py:432-434)."""
+    ([B] bool); no data moves (reference transformer.py:432-434).
+
+    compressed_kv: optional (k1, v1) per-layer lists of [B, HW, C], written
+    into LOGICAL slot 1 after the drop (ConvGRU compression, reference
+    transformer.py:420-430; the scoring protects logical slots 0 and 1 in
+    that mode, so slot 1's physical slot is not the dropped one)."""
     if enabled is None:
         enabled = torch.ones_like(drop_idx, dtype=torch.bool)
     en = enabled[:, None]
@@ -167,10 +189,17 @@ def evict_frame(bank: MemoryBank, drop_idx: torch.Tensor,
     bank.length = torch.where(enabled, (bank.length - 1).clamp_min(0),
                               bank.length)
     bank.frame_ids = torch.where(dropped, -1, bank.frame_ids)
+    if compressed_kv is not None:
+        phys1 = bank.phys_of(torch.ones_like(drop_idx))
+        rows = torch.arange(drop_idx.shape[0], device=drop_idx.device)
+        for arrs, news in zip((bank.k, bank.v), compressed_kv):
+            for arr, new in zip(arrs, news):
+                _write_slot(arr, new, rows, phys1, enabled)
 
 
 def eviction_scores_and_update(bank: MemoryBank, frame_mass: torch.Tensor,
                                fg_proba: Optional[torch.Tensor] = None,
+                               gru_memory: bool = False,
                                enabled: Optional[torch.Tensor] = None,
                                former_len: int = 1,
                                moving_mean_factor: float = 0.8,
@@ -183,7 +212,9 @@ def eviction_scores_and_update(bank: MemoryBank, frame_mass: torch.Tensor,
     last propagation (the just-appended newest frame and free slots have
     none); fg_proba: optional [B, HWq] foreground weighting. Updates the
     EMA and visit state in place where `enabled` and returns the LOGICAL
-    position to drop ([B]); the caller evicts only when over budget."""
+    position to drop ([B]); the caller evicts only when over budget. With
+    gru_memory, logical slot 1 (the ConvGRU's compressed slot) is protected
+    and pinned like the former frame."""
     pos = bank.pos
     if enabled is None:
         enabled = torch.ones_like(bank.length, dtype=torch.bool)
@@ -205,19 +236,24 @@ def eviction_scores_and_update(bank: MemoryBank, frame_mass: torch.Tensor,
     visits = torch.where(live, bank.visits + 1.0, bank.visits)
 
     # the former slot's count is pinned to the candidate count (:394-396)
-    n = torch.where(pos == 0, n_scored.float()[:, None], visits)
+    pinned = n_scored.float()[:, None]
+    n = torch.where(pos == 0, pinned, visits)
+    if gru_memory:
+        n = torch.where((pos == 1) & (n_scored[:, None] > 1), pinned, n)
     n_sum = torch.where(scored, n, 0.0).sum(dim=-1, keepdim=True)
     bonus = ucb_mul * torch.sqrt(torch.log(n_sum.clamp_min(1.0))
                                  / (n + ucb_add))
     score = ema + bonus
 
-    # the former frame is protected; the newest (no mass) is not scored
-    candidate = scored & (pos >= 1)
+    # the former frame (and the GRU's slot 1) is protected; the newest (no
+    # mass) is not scored
+    candidate = scored & (pos >= (2 if gru_memory else 1))
     phys_min = torch.where(candidate, score, torch.inf).argmin(dim=-1)
     drop_idx = torch.gather(pos, 1, phys_min[:, None])[:, 0]
     has_candidate = candidate.any(dim=-1) & enabled
+    fallback = former_len + (1 if gru_memory else 0)
     drop_idx = torch.where(has_candidate, drop_idx,
-                           torch.full_like(drop_idx, former_len))
+                           torch.full_like(drop_idx, fallback))
 
     en = enabled[:, None]
     bank.attn_ema = torch.where(en, ema, bank.attn_ema)
@@ -227,24 +263,26 @@ def eviction_scores_and_update(bank: MemoryBank, frame_mass: torch.Tensor,
 
 
 def init_short_term(num_layers: int, batch: int, skip: int, hw: int,
-                    ck: int, cv: int, dtype: torch.dtype, device
-                    ) -> ShortTermMemory:
+                    ck: int, cv: int, dtype: torch.dtype, device,
+                    with_id: bool = True) -> ShortTermMemory:
     def zeros(c):
         return [torch.zeros((batch, skip, hw, c), dtype=dtype, device=device)
                 for _ in range(num_layers)]
-    return ShortTermMemory(k=zeros(ck), v=zeros(cv), id_v=zeros(cv),
+    return ShortTermMemory(k=zeros(ck), v=zeros(cv),
+                           id_v=zeros(cv) if with_id else None,
                            count=torch.zeros(batch, dtype=torch.long,
                                              device=device))
 
 
 def reset_short_term(short: ShortTermMemory) -> None:
-    for arr in short.k + short.v + short.id_v:
+    for arr in short.k + short.v + (short.id_v or []):
         arr.zero_()
     short.count.zero_()
 
 
 def push_short_term(short: ShortTermMemory, new_k: LayerArrays,
-                    new_v: LayerArrays, new_id_v: LayerArrays) -> None:
+                    new_v: LayerArrays,
+                    new_id_v: Optional[LayerArrays]) -> None:
     """Append to the sliding window in place, dropping the oldest entry
     once it is full (reference transformer.py:293-299)."""
     s = short.k[0].shape[1]
@@ -252,8 +290,7 @@ def push_short_term(short: ShortTermMemory, new_k: LayerArrays,
     rows = torch.arange(b, device=short.count.device)
     full = (short.count >= s)[:, None, None, None]
     slot = short.count.clamp_max(s - 1)
-    for arrs, news in ((short.k, new_k), (short.v, new_v),
-                       (short.id_v, new_id_v)):
+    for arrs, news in _layer_groups(short, new_k, new_v, new_id_v):
         for arr, new in zip(arrs, news):
             new = new.to(arr.dtype)
             if s == 1:

@@ -1,7 +1,8 @@
 """FPN segmentation head (reference aot_plus/networks/decoders/fpn.py:7-73).
 
-NCHW. DeAOT decodes only the last GPM output (decode_intermediate_input is
-False), so the head takes that one map.
+NCHW. With decode_intermediate_input (the AOT family) the head takes the
+16x encoder map and every LSTT layer's output, concatenated; without it
+(DeAOT) only the last map.
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
 class FPNSegmentationHead(nn.Module):
     def __init__(self, in_dim: int, out_dim: int,
                  shortcut_dims: Sequence[int], hidden_dim: int = 256,
+                 decode_intermediate_input: bool = True,
                  align_corners: bool = True):
         super().__init__()
+        self.decode_intermediate_input = decode_intermediate_input
         self.align_corners = align_corners
         self.conv_in = ConvGN(in_dim, hidden_dim, 1)
         self.conv_16x = ConvGN(hidden_dim, hidden_dim, 3)
@@ -30,10 +33,14 @@ class FPNSegmentationHead(nn.Module):
         self.adapter_4x = nn.Conv2d(shortcut_dims[-4], hidden_dim // 2, 1)
         self.conv_out = nn.Conv2d(hidden_dim // 2, out_dim, 1)
 
-    def forward(self, x: torch.Tensor, shortcuts: Sequence[torch.Tensor]
-                ) -> torch.Tensor:
-        """x: [B, C, H16, W16]; shortcuts: encoder maps [4x, 8x, 16x, 16x].
-        Returns logits [B, out_dim, H4, W4]."""
+    def forward(self, inputs: Sequence[torch.Tensor],
+                shortcuts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """inputs: [B, C_i, H16, W16] decoder inputs (the 16x encoder map
+        and the per-layer LSTT outputs), in_dim channels together or in the
+        last one; shortcuts: encoder maps [4x, 8x, 16x, 16x]. Returns
+        logits [B, out_dim, H4, W4]."""
+        x = (torch.cat(list(inputs), dim=1) if self.decode_intermediate_input
+             else inputs[-1])
         x = F.relu(self.conv_in(x))
         x = F.relu(self.conv_16x(self.adapter_16x(shortcuts[-2]) + x))
         x = interpolate_bilinear(x, shortcuts[-3].shape[-2:],

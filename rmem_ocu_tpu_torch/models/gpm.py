@@ -3,10 +3,11 @@
 Counterpart of the JAX package's `models/gpm.py` (reference
 aot_plus/networks/layers/transformer.py:700-1249). The visual branch (tgt)
 and the id branch (tgt_id) propagate jointly; memory holds (K, V, ID_V) per
-layer. With more than one bank slot the long-term read is kernel B1, which
-also returns the per-slot attention mass that drives RMem eviction; the
-short-term read is kernel B2. Eval only: dropout and drop-path are left
-out.
+layer. With more than one bank slot the long-term read is kernel B1 (one
+attention head) or B3 (several), which also return the per-slot attention
+mass that drives RMem eviction; the short-term read is kernel B2 with one
+head and the dense padded-grid attention with several. Eval only: dropout
+and drop-path are left out.
 """
 from __future__ import annotations
 
@@ -59,10 +60,10 @@ class GPMBlock(nn.Module):
                 size_2d: Tuple[int, int], temporal_pe,
                 need_mass: bool = False):
         """tgt: [B, HW, C]; tgt_id: [B, HW, C] or None (first layer).
-        long_mem: (k [B,T,HW,Datt], v [B,T,HW,E], id_v [B,T,HW,E],
+        long_mem: (k [B,T,HW,H*Datt], v [B,T,HW,E], id_v [B,T,HW,E],
         valid [B,T] live physical slots) or None when curr_id_emb is given.
         short_kv: (k, v, id_v) each [B, HW, *] or None.
-        temporal_pe: (cur_pe [Datt], mem_pe [B|1, T, Datt]) or None.
+        temporal_pe: (cur_pe [H*Datt], mem_pe [B|1, T, H*Datt]) or None.
         Returns (tgt, tgt_id, memories dict, mass or None)."""
         b = tgt.shape[0]
         _tgt = self.norm1(tgt)
@@ -115,9 +116,15 @@ class GPMBlock(nn.Module):
             # the PE added to its keys
             if mem_pe is not None:
                 mem_k = mem_k + mem_pe[:, :, None, :]
-            cat_tgt2 = self.long_term_attn.multi_value_call(
-                q_time, mem_k[:, 0], (mem_v[:, 0], mem_id_v[:, 0]),
-                cat_curr_u, size_2d)
+            if self.att_heads == 1:
+                cat_tgt2 = self.long_term_attn.multi_value_call(
+                    q_time, mem_k[:, 0], (mem_v[:, 0], mem_id_v[:, 0]),
+                    cat_curr_u, size_2d)
+            else:
+                cat_tgt2 = self.long_term_attn(
+                    q_time, mem_k[:, 0],
+                    torch.cat([mem_v[:, 0], mem_id_v[:, 0]], dim=-1),
+                    cat_curr_u, size_2d)
 
         cat_local_v = torch.cat([local_v, local_id_v], dim=-1)
         cat_tgt3 = self.short_term_attn(curr_q, local_k, cat_local_v,

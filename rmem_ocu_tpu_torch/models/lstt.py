@@ -1,8 +1,25 @@
-"""Bank-masking and eviction-mass helpers of the JAX package's
-`models/lstt.py` (the LSTT blocks of the AOT family are not ported yet)."""
+"""Long-Short-Term Transformer (AOT) over the memory bank.
+
+Counterpart of the JAX package's `models/lstt.py` (reference
+aot_plus/networks/layers/transformer.py:133-697, LongShortTermTransformer
+and SimplifiedTransformerBlock). Memory holds (K, V) per layer. With more
+than one bank slot the long-term read is kernel B1 in its multi-head,
+one-bank mode, which also returns the per-slot attention mass that drives
+RMem eviction; the reference frame reads only itself through plain
+attention. The id-fusion projections applied at memory-update time are
+module methods, called by the engine once the mask is known. Eval only:
+dropout and drop-path are left out.
+"""
 from __future__ import annotations
 
+from typing import List, Optional, Tuple
+
 import torch
+from torch import nn
+
+from rmem_ocu_tpu_torch.models.gru import ConvGRUCellOutput
+from rmem_ocu_tpu_torch.ops.attention import MultiheadAttention
+from rmem_ocu_tpu_torch.ops.layers import EPS, GNActDWConv2d
 
 SLOT_NEG = -1e9
 
@@ -22,3 +39,175 @@ def frame_mass_from_probs(probs: torch.Tensor, capacity: int
     b, h, q, tk = probs.shape
     m = probs.reshape(b, h, q, capacity, tk // capacity).float()
     return m.mean(dim=1).sum(dim=-1)
+
+
+class LSTTBlock(nn.Module):
+    """One SimplifiedTransformerBlock (reference transformer.py:466-697)."""
+
+    def __init__(self, d_model: int, self_heads: int = 8, att_heads: int = 8,
+                 dim_feedforward: int = 1024, linear_q: bool = False,
+                 gru_memory: bool = False):
+        super().__init__()
+        d = d_model
+        self.linear_q = linear_q
+        self.norm1 = nn.LayerNorm(d, eps=EPS)
+        self.self_attn = MultiheadAttention(d, self_heads)
+        self.norm2 = nn.LayerNorm(d, eps=EPS)
+        self.linear_Q = nn.Linear(d, d)
+        self.linear_V = nn.Linear(d, d)
+        self.linear_QMem = nn.Linear(d, d)
+        self.linear_VMem = nn.Linear(d, d)
+        if not linear_q:
+            self.norm4 = nn.LayerNorm(d, eps=EPS)
+        self.long_term_attn = MultiheadAttention(d, att_heads,
+                                                 use_linear=False)
+        self.short_term_attn = MultiheadAttention(d, att_heads,
+                                                  use_linear=False)
+        self.norm3 = nn.LayerNorm(d, eps=EPS)
+        self.linear1 = nn.Linear(d, dim_feedforward)
+        self.activation = GNActDWConv2d(dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d)
+        if gru_memory:
+            # [K compressor, V compressor] (reference transformer.py:529-545)
+            self.memory_grus = nn.ModuleList([
+                ConvGRUCellOutput(d, kernel_size=(2, 2)),
+                ConvGRUCellOutput(d, kernel_size=(1, 1))])
+
+    def forward(self, tgt, long_mem, short_kv, curr_id_emb, self_pos,
+                size_2d: Tuple[int, int], temporal_pe,
+                need_mass: bool = False):
+        """tgt: [B, HW, C].
+        long_mem: (k_bank [B,T,HW,C], v_bank [B,T,HW,C], valid [B,T] live
+        physical slots) or None when curr_id_emb is given (reference frame:
+        the memory is the current frame).
+        short_kv: (k [B,HW,C], v [B,HW,C]) or None (reference frame).
+        temporal_pe: (cur_pe [C], mem_pe [B|1, T, C]) or None.
+        Returns (tgt, memories dict, mass [B,HW,T] or None)."""
+        _tgt = self.norm1(tgt)
+        q = k = _tgt if self_pos is None else _tgt + self_pos
+        tgt = tgt + self.self_attn(q, k, _tgt)[0]
+
+        _tgt = self.norm2(tgt)
+        curr_q = self.linear_Q(_tgt)
+        curr_k = curr_q
+        curr_v = _tgt
+
+        mems = {'curr_k': curr_k, 'curr_v': curr_v}
+        if curr_id_emb is not None:
+            fused_v = self.linear_V(curr_v + curr_id_emb)
+            mem_k, mem_v = curr_k[:, None], fused_v[:, None]
+            valid = None
+            local_k, local_v = curr_k, fused_v
+            mems['global_v_fused'] = fused_v
+        else:
+            mem_k, mem_v, valid = long_mem
+            local_k, local_v = short_kv
+
+        capacity = mem_k.shape[1]
+        if temporal_pe is not None:
+            cur_pe, mem_pe = temporal_pe
+            mem_pe = mem_pe[..., :capacity, :]
+            if mem_pe.dim() == 2:
+                mem_pe = mem_pe[None]
+            q_time = curr_q + cur_pe
+        else:
+            mem_pe, q_time = None, curr_q
+
+        if capacity > 1:
+            tgt2, mass = self.long_term_attn.bank_read(
+                q_time, mem_k, mem_v, valid, mem_pe=mem_pe)
+            if not need_mass:
+                mass = None
+        else:
+            # one slot reads through plain attention, with the PE added to
+            # its keys
+            if mem_pe is not None:
+                mem_k = mem_k + mem_pe[:, :, None, :]
+            tgt2, mass = self.long_term_attn(
+                q_time, mem_k[:, 0], mem_v[:, 0],
+                mass_capacity=1 if need_mass else None)
+
+        if self.linear_q:
+            tgt3, _ = self.short_term_attn(
+                curr_q, torch.cat([local_k, curr_k], dim=1),
+                torch.cat([local_v, curr_v], dim=1))
+        else:
+            tgt3, _ = self.short_term_attn(
+                curr_q, self.norm4(local_k + curr_k),
+                self.norm4(local_v + curr_v))
+
+        local_v_new = tgt3
+        if curr_id_emb is not None:
+            local_v_new = self.linear_VMem(local_v_new + curr_id_emb)
+        mems['local_k'] = self.linear_QMem(tgt3)
+        mems['local_v'] = local_v_new
+
+        tgt = tgt + tgt2 + tgt3
+        _tgt = self.norm3(tgt)
+        tgt = tgt + self.linear2(self.activation(self.linear1(_tgt), size_2d))
+        return tgt, mems, mass
+
+    def fuse_curr_value(self, curr_v, id_emb):
+        """Long-term value fusion at memory-update time (reference
+        transformer.py:278-281)."""
+        return self.linear_V(curr_v + id_emb)
+
+    def fuse_local_value(self, local_v, id_emb):
+        """Short-term value fusion at memory-update time (reference
+        transformer.py:283-286)."""
+        return self.linear_VMem(local_v + id_emb)
+
+    def compress_evicted(self, k_slot, v_slot, hidden_k, hidden_v, size_2d):
+        """ConvGRU compression of an evicted slot (reference
+        transformer.py:420-430). Returns ((out_k, out_v), (hidden_k,
+        hidden_v))."""
+        hk, out_k = self.memory_grus[0](k_slot, hidden_k, size_2d)
+        hv, out_v = self.memory_grus[1](v_slot, hidden_v, size_2d)
+        return (out_k, out_v), (hk, hv)
+
+
+class LSTTStack(nn.Module):
+    """LongShortTermTransformer (reference transformer.py:133-267)."""
+
+    def __init__(self, num_layers: int = 3, d_model: int = 256,
+                 self_heads: int = 8, att_heads: int = 8,
+                 linear_q: bool = False, gru_memory: bool = False,
+                 intermediate_norm: bool = True):
+        super().__init__()
+        self.intermediate_norm = intermediate_norm
+        self.layers = nn.ModuleList([
+            LSTTBlock(d_model, self_heads, att_heads, linear_q=linear_q,
+                      gru_memory=gru_memory) for _ in range(num_layers)])
+        # the last norm is the final one
+        num_norms = (num_layers - 1 if intermediate_norm else 0) + 1
+        self.decoder_norms = nn.ModuleList([
+            nn.LayerNorm(d_model, eps=EPS) for _ in range(num_norms)])
+
+    def forward(self, tgt, long_mem, short_mem, curr_id_emb, self_pos,
+                size_2d, temporal_pe, need_mass: bool = False
+                ) -> Tuple[List[torch.Tensor], List[dict],
+                           Optional[torch.Tensor]]:
+        """long_mem: (k, v per-layer lists of [B,T,HW,C], valid [B,T]) or
+        None; short_mem: (k, v per-layer lists of [B,HW,C]) or None.
+        Returns (per-layer outputs, normed, per-layer memories, layer-0
+        eviction mass or None)."""
+        intermediates, memories = [], []
+        mass0 = None
+        out = tgt
+        for idx, block in enumerate(self.layers):
+            lm = None if long_mem is None else (
+                long_mem[0][idx], long_mem[1][idx], long_mem[2])
+            sm = None if short_mem is None else (
+                short_mem[0][idx], short_mem[1][idx])
+            out, mems, mass = block(out, lm, sm, curr_id_emb, self_pos,
+                                    size_2d, temporal_pe,
+                                    need_mass=need_mass and idx == 0)
+            if idx == 0:
+                mass0 = mass
+            intermediates.append(out)
+            memories.append(mems)
+        intermediates[-1] = self.decoder_norms[-1](intermediates[-1])
+        if self.intermediate_norm:
+            for i in range(len(intermediates) - 1):
+                intermediates[i] = self.decoder_norms[i](intermediates[i])
+        return intermediates, memories, mass0

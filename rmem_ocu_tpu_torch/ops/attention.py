@@ -1,14 +1,18 @@
-"""Attention modules of the DeAOT path.
+"""Attention modules.
 
 Counterpart of the JAX package's `ops/attention.py`: `scaled_dot_attention`,
-`GatedPropagation` (DeAOT's gated attention; reference
-aot_plus/networks/layers/attention.py:93-216) and `LocalGatedPropagation`
+`MultiheadAttention` (the LSTT's self / long-term / short-term attention;
+reference aot_plus/networks/layers/attention.py:8-86), `GatedPropagation`
+(DeAOT's gated attention; reference :93-216) and `LocalGatedPropagation`
 (its 15x15 windowed short-term attention, reference :220-413). Tokens are
 [B, L, C].
 
-The long-term bank read (`GatedPropagation.bank_read`) runs kernel B1 and
-the windowed attention runs kernel B2 (ops/kernels/). Self-attention and the
-capacity-1 reference-frame read stay plain matmul + softmax.
+The long-term bank read runs a kernel of ops/kernels/: B1 for
+`MultiheadAttention.bank_read` and for `GatedPropagation.bank_read` with one
+head, B3 for `GatedPropagation.bank_read` with several heads. The one-head
+windowed attention runs kernel B2; with several heads it is the dense
+padded-grid form, as in the JAX package. Self-attention and the capacity-1
+reference-frame read stay plain matmul + softmax.
 
 bf16 storage policy (the JAX package's `_qk_out_dtype` /
 `_maybe_compact_logits` at their default): on bf16 inputs the QK logits are
@@ -17,15 +21,34 @@ arithmetic is f32. f32 inputs keep f32 throughout.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rmem_ocu_tpu_torch.ops.kernels.local_attn import local_window_attention
+from rmem_ocu_tpu_torch.ops.kernels.local_attn import (NEG_INF,
+                                                       _local_window_maps,
+                                                       local_window_attention)
 from rmem_ocu_tpu_torch.ops.kernels.memory_read import memory_read_fused
-from rmem_ocu_tpu_torch.ops.layers import DWConv2d, scale_in_dtype
+from rmem_ocu_tpu_torch.ops.kernels.memory_read_mh import \
+    memory_read_multihead
+from rmem_ocu_tpu_torch.ops.layers import (DWConv2d, scale_in_dtype,
+                                           tokens_from_2d, tokens_to_2d)
+
+
+@functools.lru_cache(maxsize=2)
+def _window_maps_on(device: torch.device, h: int, w: int, max_dis: int):
+    """(inside [HW, HpWp] bool: the key lies in the query's window and in
+    the image; bias index [HW, HpWp] int64) of the dense windowed
+    attention, copied to `device` once: a copy per call would synchronise
+    the stream. All layers share the entry of the current grid; only two
+    grids are held, so a run over many resolutions does not pin a pair of
+    device tensors for each."""
+    inside, idx = _local_window_maps(h, w, max_dis)
+    return (torch.from_numpy(inside).to(device),
+            torch.from_numpy(idx).to(device))
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -46,9 +69,14 @@ def _compact(x: torch.Tensor, in_dtype: torch.dtype) -> torch.Tensor:
 
 
 def scaled_dot_attention(q, k, v, num_heads: int,
-                         scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B, Lq, H*Dq], k: [B, Lk, H*Dq], v: [B, Lk, H*Dv] ->
-    [B, Lq, H*Dv]. scale defaults to Dq**-0.5."""
+                         scale: Optional[float] = None, key_bias=None,
+                         mass_capacity: Optional[int] = None):
+    """q: [B, Lq, H*Dq], k: [B, Lk, H*Dq], v: [B, Lk, H*Dv]. scale
+    defaults to Dq**-0.5; key_bias, broadcastable to [B, H, Lq, Lk], is
+    added to the logits. Returns (out [B, Lq, H*Dv], mass), where mass is
+    the per-slot attention mass [B, Lq, T] (f32, mean over heads) when
+    mass_capacity=T is given and the keys are T slots of Lk/T, else
+    None."""
     qh = split_heads(q, num_heads)
     kh = split_heads(k, num_heads)
     vh = split_heads(v, num_heads)
@@ -56,8 +84,55 @@ def scaled_dot_attention(q, k, v, num_heads: int,
         scale = qh.shape[-1] ** -0.5
     # a bf16 matmul accumulates in f32 and rounds once on write
     logits = scale_in_dtype(qh, scale) @ kh.transpose(-1, -2)
+    if key_bias is not None:
+        logits = logits + key_bias.to(logits.dtype)
     probs = _compact(torch.softmax(logits.float(), dim=-1), q.dtype)
-    return merge_heads(probs.to(vh.dtype) @ vh)
+    out = merge_heads(probs.to(vh.dtype) @ vh)
+    if mass_capacity is None:
+        return out, None
+    b, h, nq, nk = probs.shape
+    mass = probs.float().reshape(b, h, nq, mass_capacity, -1).sum(-1)
+    return out, mass.mean(1)
+
+
+class MultiheadAttention(nn.Module):
+    """Reference attention.py:8-86. use_linear controls the Q/K/V
+    projections; the output projection always exists."""
+
+    def __init__(self, d_model: int, num_heads: int = 8,
+                 use_linear: bool = True):
+        super().__init__()
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.use_linear = use_linear
+        if use_linear:
+            self.linear_Q = nn.Linear(d_model, d_model)
+            self.linear_K = nn.Linear(d_model, d_model)
+            self.linear_V = nn.Linear(d_model, d_model)
+        self.projection = nn.Linear(d_model, d_model)
+
+    def forward(self, q, k, v, key_bias=None,
+                mass_capacity: Optional[int] = None):
+        """Returns (projected out, mass or None); see
+        scaled_dot_attention."""
+        if self.use_linear:
+            q, k, v = self.linear_Q(q), self.linear_K(k), self.linear_V(v)
+        out, mass = scaled_dot_attention(q, k, v, self.num_heads,
+                                         key_bias=key_bias,
+                                         mass_capacity=mass_capacity)
+        return self.projection(out), mass
+
+    def bank_read(self, q, k_bank, v_bank, valid, mem_pe=None):
+        """Long-term read over the bank through kernel B1 in its
+        multi-head, one-bank mode: k_bank / v_bank [B, T, HW, C], valid
+        [B, T] live physical slots, mem_pe optional [B|1, T, C] temporal PE
+        (the logit term q.pe_t inside the kernel). Returns (projected out,
+        mass [B, HWq, T])."""
+        scale = (self.d_model // self.num_heads) ** -0.5
+        (raw,), mass = memory_read_fused(q, k_bank, (v_bank,), valid,
+                                         self.num_heads, scale,
+                                         mem_pe=mem_pe)
+        return self.projection(raw.to(q.dtype)), mass
 
 
 class GatedPropagation(nn.Module):
@@ -110,8 +185,8 @@ class GatedPropagation(nn.Module):
         if self.use_linear:
             q, v, u = self._project_inputs(q, v, u)
             k = q
-        out = scaled_dot_attention(q, k, v, self.num_heads,
-                                   scale=self.att_dim ** -0.5)
+        out, _ = scaled_dot_attention(q, k, v, self.num_heads,
+                                      scale=self.att_dim ** -0.5)
         return self._gate_and_project(out, u, size_2d)
 
     def multi_value_call(self, q, k, vs: Sequence[torch.Tensor], u,
@@ -129,37 +204,49 @@ class GatedPropagation(nn.Module):
 
     def bank_read(self, q, k_bank, v_bank, id_v_bank, u, valid, size_2d,
                   mem_pe=None):
-        """Long-term read over the bank through kernel B1.
+        """Long-term read over the bank: kernel B1 with one head, kernel
+        B3 with several.
 
-        k_bank [B, T, HW, Datt], v_bank / id_v_bank [B, T, HW, E] (DeAOT's
+        k_bank [B, T, HW, H*Datt], v_bank / id_v_bank [B, T, HW, E] (DeAOT's
         value and id-value halves, which the reference concatenates
-        channel-wise), valid [B, T], mem_pe optional [B|1, T, Datt].
-        Returns (out, mass [B, HWq, T])."""
-        if self.num_heads != 1:
-            raise NotImplementedError(
-                'the multi-head bank read (kernel B3) is not ported yet')
-        # the kernel rounds its operands to bf16 even on f32 inputs, as the
-        # reference's bank_read does (precise=False)
-        (o_v, o_id), mass = memory_read_fused(
-            q, k_bank, (v_bank, id_v_bank), valid, 1, self.att_dim ** -0.5,
-            mem_pe=mem_pe)
-        raw = torch.cat([o_v, o_id], dim=-1)
+        channel-wise), valid [B, T], mem_pe optional [B|1, T, H*Datt].
+        The kernels round their operands to bf16 even on f32 inputs, as the
+        reference's bank_read does. Returns (out, mass [B, HWq, T])."""
+        scale = self.att_dim ** -0.5
+        if self.num_heads == 1:
+            # V and ID_V share one probability matrix
+            (o_v, o_id), mass = memory_read_fused(
+                q, k_bank, (v_bank, id_v_bank), valid, 1, scale,
+                mem_pe=mem_pe)
+            raw = torch.cat([o_v, o_id], dim=-1)
+        else:
+            # head i of V||ID_V straddles the halves differently per head
+            # count; the PE goes onto the keys, in the bank's dtype
+            if mem_pe is not None:
+                k_bank = k_bank + mem_pe[:, :, None, :].to(k_bank.dtype)
+            if self.num_heads % 2 == 0:
+                # each head lies in one half: no bank-sized concatenation
+                cat_v = (v_bank, id_v_bank)
+            else:
+                cat_v = torch.cat([v_bank, id_v_bank], dim=-1)
+            raw, mass = memory_read_multihead(q, k_bank, cat_v, valid,
+                                              self.num_heads, scale)
         return self._gate_and_project(raw.to(q.dtype), u, size_2d), mass
 
 
 class LocalGatedPropagation(nn.Module):
-    """15x15 windowed gated attention over the short-term memory, one head,
-    without input projections (the GPM configuration). The relative
-    position bias is a learned 1x1 conv of the query (reference
-    attention.py:260-264, 314)."""
+    """15x15 windowed gated attention over the short-term memory, without
+    input projections (the GPM configuration). The relative position bias
+    is a learned grouped 1x1 conv of the query: head i's bias reads only
+    head i's query channels (reference attention.py:260-264, 314). One
+    head runs kernel B2; several heads run the dense padded-grid form, as
+    the JAX package does."""
 
     def __init__(self, d_qk: int, d_vu: int, num_heads: int = 1,
                  max_dis: int = 7, d_att: Optional[int] = None,
                  expand_ratio: float = 2.0):
         super().__init__()
-        if num_heads != 1:
-            raise NotImplementedError(
-                'windowed attention is ported for one head (the GPM case)')
+        self.num_heads = num_heads
         self.max_dis = max_dis
         ws = 2 * max_dis + 1
         self.d_att = d_qk // num_heads if d_att is None else d_att
@@ -171,12 +258,45 @@ class LocalGatedPropagation(nn.Module):
         self.projection = nn.Linear(expand_d_vu, d_vu)
 
     def forward(self, q, k, v, u, size_2d: Tuple[int, int]) -> torch.Tensor:
-        """q, k: [B, HW, Datt]; v, u: [B, HW, E]."""
+        """q, k: [B, HW, H*Datt]; v, u: [B, HW, E]."""
         w = self.relative_emb_k.weight
-        rel = F.linear(q, w.reshape(w.shape[0], w.shape[1]),
-                       self.relative_emb_k.bias)          # [B, HW, ws*ws]
-        out = local_window_attention(
-            scale_in_dtype(q, self.d_att ** -0.5), k.contiguous(), v,
-            rel.float().contiguous(), size_2d, self.max_dis,
-            precise=q.dtype == torch.float32)
+        if self.num_heads == 1:
+            rel = F.linear(q, w.reshape(w.shape[0], w.shape[1]),
+                           self.relative_emb_k.bias)      # [B, HW, ws*ws]
+            out = local_window_attention(
+                scale_in_dtype(q, self.d_att ** -0.5), k.contiguous(), v,
+                rel.float().contiguous(), size_2d, self.max_dis,
+                precise=q.dtype == torch.float32)
+        else:
+            b, hw, _ = q.shape
+            h = self.num_heads
+            rel = torch.einsum(
+                'blhd,hjd->bhlj', q.reshape(b, hw, h, self.d_att),
+                w.reshape(h, -1, self.d_att))
+            rel = rel + self.relative_emb_k.bias.reshape(h, 1, -1)
+            out = self._dense_core(q, k, v, rel, size_2d)
         return self.projection(self.dw_conv(out * u, size_2d))
+
+    def _dense_core(self, q, k, v, rel, size_2d):
+        """One attention over the zero-padded key grid, [HW, Hp*Wp] logits
+        per head, with the bias rel [B, H, HW, ws*ws] gathered onto the
+        grid and -1e8 outside the window or the image."""
+        md = self.max_dis
+        b = q.shape[0]
+        inside, idx = _window_maps_on(q.device, size_2d[0], size_2d[1], md)
+
+        def padded(x):
+            return tokens_from_2d(F.pad(tokens_to_2d(x, size_2d),
+                                        (md, md, md, md)))
+
+        qh = scale_in_dtype(split_heads(q, self.num_heads),
+                            self.d_att ** -0.5)
+        kh = split_heads(padded(k), self.num_heads)
+        vh = split_heads(padded(v), self.num_heads)
+        logits = qh @ kh.transpose(-1, -2)
+        bias = torch.gather(F.pad(rel, (0, 1)), 3,          # sentinel -> 0
+                            idx.expand(b, self.num_heads, -1, -1))
+        extra = bias + torch.where(inside, 0.0, NEG_INF).to(bias.dtype)
+        logits = logits + extra.to(logits.dtype)
+        probs = _compact(torch.softmax(logits.float(), dim=-1), q.dtype)
+        return merge_heads(probs.to(vh.dtype) @ vh)

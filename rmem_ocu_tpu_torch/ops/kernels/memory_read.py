@@ -42,9 +42,11 @@ def _prepare(q, k_bank, v_banks, num_heads, scale, mem_pe):
     return q, pe
 
 
-def _plain(q, k_bank, v_banks, valid, num_heads, pe, precise):
+def online_softmax_read(q, k_bank, v_banks, valid, num_heads, pe, precise):
     """Online softmax over the slots in physical order, one slot per step
-    (the reference kernel's block order when a slot fits one key block)."""
+    (the reference kernels' block order when a slot fits one key block);
+    the plain arithmetic of kernels B1 and B3. q is pre-scaled. Returns
+    (outs [B, HWq, H*Dv_i] f32, mass [B, H, HWq, T_cap] f32)."""
     b, hwq, hd = q.shape
     _, t_cap, hwk, _ = k_bank.shape
     h = num_heads
@@ -78,9 +80,15 @@ def _plain(q, k_bank, v_banks, valid, num_heads, pe, precise):
         s = torch.where(lv, s * alpha + p_sum * (slot_ids == t), s)
         m = torch.where(lv, m_new, m)
     denom = l.clamp_min(1e-30)
-    outs = tuple((acc / denom).transpose(1, 2).reshape(b, hwq, -1).to(q.dtype)
+    outs = tuple((acc / denom).transpose(1, 2).reshape(b, hwq, -1)
                  for acc in accs)
-    return outs, (s / denom).mean(1)
+    return outs, s / denom
+
+
+def _plain(q, k_bank, v_banks, valid, num_heads, pe, precise):
+    outs, mass = online_softmax_read(q, k_bank, v_banks, valid, num_heads,
+                                     pe, precise)
+    return tuple(o.to(q.dtype) for o in outs), mass.mean(1)
 
 
 def _lib():

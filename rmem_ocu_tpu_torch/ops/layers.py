@@ -60,6 +60,25 @@ class ConvGN(nn.Module):
         return self.gn(self.conv(x))
 
 
+class GNActDWConv2d(nn.Module):
+    """GroupNorm(32) -> GELU -> depthwise 5x5 conv without bias, on tokens
+    (reference basic.py:15-35): the FFN activation of the LSTT blocks. The
+    GELU is the exact erf form on f32 and the tanh form on bf16, as in the
+    JAX package."""
+
+    def __init__(self, dim: int, gn_groups: int = 32):
+        super().__init__()
+        self.gn = nn.GroupNorm(gn_groups, dim, eps=EPS)
+        self.conv = nn.Conv2d(dim, dim, 5, padding=2, groups=dim, bias=False)
+
+    def forward(self, x: torch.Tensor, size_2d: Tuple[int, int]
+                ) -> torch.Tensor:
+        x2d = self.gn(tokens_to_2d(x, size_2d))
+        x2d = F.gelu(x2d, approximate='tanh' if x2d.dtype == torch.bfloat16
+                     else 'none')
+        return tokens_from_2d(self.conv(x2d))
+
+
 class DWConv2d(nn.Module):
     """Depthwise 5x5 conv without bias on tokens (reference
     basic.py:38-57; its Dropout2d is a train-time branch, left out)."""

@@ -1,7 +1,8 @@
 """Flax parameter tree -> the port's state_dict.
 
 The inverse of the JAX package's `utils/torch_convert.py:
-convert_torch_params` for the ResNet / GPM / FPN / VOS-model branches. The
+convert_torch_params` for the ResNet / GPM / LSTT / FPN / VOS-model
+branches. The
 input is the flax `{'params': ...}` tree as nested dicts of numpy arrays
 (the caller brings it to numpy, so the port never sees JAX); the output is
 keyed by the reference torch names, which are also the port's module
@@ -36,8 +37,8 @@ def _flatten(tree: dict, prefix: Tuple[str, ...] = ()
 
 
 def _module_key(parts: Tuple[str, ...], cfg: ModelConfig) -> str:
-    """Flax module path -> torch module path (the ResNet / GPM / FPN / VOS
-    cases of torch_convert._flax_key_to_torch)."""
+    """Flax module path -> torch module path (the ResNet / GPM / LSTT / FPN
+    / VOS cases of torch_convert._flax_key_to_torch)."""
     out = []
     for p in parts:
         if (m := re.fullmatch(r'block_(\d+)', p)):
@@ -45,7 +46,7 @@ def _module_key(parts: Tuple[str, ...], cfg: ModelConfig) -> str:
         elif (m := re.fullmatch(r'decoder_norm_(\d+)', p)):
             out.append(f'decoder_norms.{m.group(1)}')
             if cfg.vos == 'deaot':
-                out.append('gn')      # GroupNorm1D wrapper
+                out.append('gn')      # GroupNorm1D wrapper; LSTT: LayerNorm
         elif (m := re.fullmatch(r'layer(\d)_(\d+)', p)):
             out.append(f'layer{m.group(1)}.{m.group(2)}')
         elif p == 'downsample_conv':
@@ -54,6 +55,11 @@ def _module_key(parts: Tuple[str, ...], cfg: ModelConfig) -> str:
             out.append('downsample.1')
         elif p == 'lstt':
             out.append('LSTT')
+        elif p == 'memory_gru_k':
+            # per-layer ConvGRU compressors: ModuleList [K, V]
+            out.append('memory_grus.0')
+        elif p == 'memory_gru_v':
+            out.append('memory_grus.1')
         else:
             out.append(p)
     return '.'.join(out)

@@ -1,4 +1,4 @@
-"""CUDA kernels B1 and B2 of the PyTorch port against their plain PyTorch
+"""CUDA kernels B1, B2 and B3 of the PyTorch port against their plain PyTorch
 versions on the card, at small shapes (chip_smoke.py does the same at the
 main-path shapes). Every test needs a CUDA device and skips without one.
 This file imports no JAX, so the card's machine runs it on its own:
@@ -13,6 +13,9 @@ from rmem_ocu_tpu_torch.ops.kernels.local_attn import (
     local_window_attention, local_window_attention_plain)
 from rmem_ocu_tpu_torch.ops.kernels.memory_read import (
     memory_read_fused, memory_read_fused_plain)
+from rmem_ocu_tpu_torch.ops.kernels.memory_read_mh import (
+    memory_read_attention, memory_read_attention_plain, memory_read_multihead,
+    memory_read_multihead_plain)
 
 
 def _b1_inputs(heads, n_banks, with_pe, seed=0):
@@ -30,6 +33,23 @@ def _b1_inputs(heads, n_banks, with_pe, seed=0):
     pe = (rng.randn(1, t_cap, heads * d).astype(np.float32) * 0.3
           if with_pe else None)
     return q, k, vs, valid, pe, d ** -0.5
+
+
+def _b3_inputs(heads, seed=0):
+    """Storage-layout B3 inputs: ragged HWk = 36, a dead slot in the middle
+    of each batch row and a free last slot; V and ID_V halves of 48
+    channels each, so that heads in (2, 4) lie in one half and 3 heads
+    straddle them."""
+    rng = np.random.RandomState(seed)
+    b, hwq, hwk, t_cap, d, e = 2, 40, 36, 6, 16, 48
+    q = rng.randn(b, hwq, heads * d).astype(np.float32)
+    k = rng.randn(b, t_cap, hwk, heads * d).astype(np.float32) * 0.5
+    v = rng.randn(b, t_cap, hwk, e).astype(np.float32)
+    id_v = rng.randn(b, t_cap, hwk, e).astype(np.float32)
+    valid = np.ones((b, t_cap), bool)
+    valid[0, 2] = valid[1, 3] = False
+    valid[:, -1] = False
+    return q, k, v, id_v, valid, d ** -0.5
 
 
 def _cuda():
@@ -70,6 +90,64 @@ def test_memory_read_kernel_matches_plain(dtype, precise, tol):
         for g, w in zip(got, want):
             _assert_close(g, w, tol)
         torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32_bf16ops', 'bf16'])
+def test_memory_read_kernel_multihead_one_bank(dtype):
+    """B1 as the AOT long-term read calls it: 8 heads by channel slicing of
+    one bank, with the temporal PE."""
+    dev = _cuda()
+    q, k, vs, valid, pe, scale = _b1_inputs(8, 1, True, seed=3)
+    t = lambda x: torch.from_numpy(x).to(dev, dtype)
+    args = (t(q), t(k), (t(vs[0]),), torch.from_numpy(valid).to(dev), 8,
+            scale)
+    before = memory_read_fused.launches
+    (got,), got_mass = memory_read_fused(*args, mem_pe=t(pe))
+    (want,), want_mass = memory_read_fused_plain(*args, mem_pe=t(pe))
+    assert memory_read_fused.launches == before + 1
+    _assert_close(got, want, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32_bf16ops', 'bf16'])
+@pytest.mark.parametrize('heads,two_banks', [(2, True), (4, True),
+                                             (3, False), (2, False)])
+def test_memory_read_attention_kernel_matches_plain(heads, two_banks, dtype):
+    """B3 on the storage layout (heads read by stride; V||ID_V as two banks
+    or concatenated) and on the head-folded layout."""
+    dev = _cuda()
+    q, k, v, id_v, valid, scale = _b3_inputs(heads)
+    t = lambda x: torch.from_numpy(x).to(dev, dtype)
+    v_bank = ((t(v), t(id_v)) if two_banks
+              else torch.cat([t(v), t(id_v)], dim=-1))
+    args = (t(q), t(k), v_bank, torch.from_numpy(valid).to(dev), heads, scale)
+    before = memory_read_attention.launches
+    got, got_mass = memory_read_multihead(*args)
+    assert memory_read_attention.launches == before + 1
+    want, want_mass = memory_read_multihead_plain(*args)
+    assert got.dtype == torch.float32
+    _assert_close(got, want, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+    # the folded layout: one head per leading row
+    b, hwq, _ = q.shape
+    d, dv = q.shape[-1] // heads, 2 * v.shape[-1] // heads
+    cat = torch.cat([t(v), t(id_v)], dim=-1)
+    fold = lambda x, n: x.reshape(*x.shape[:-1], heads, n).movedim(
+        -2, 1).reshape(b * heads, *x.shape[1:-1], n).contiguous()
+    folded = (fold(t(q) * scale, d), fold(t(k), d), fold(cat, dv),
+              torch.from_numpy(valid).to(dev).repeat_interleave(heads, dim=0))
+    got, got_mass = memory_read_attention(*folded)
+    assert memory_read_attention.launches == before + 2
+    want, want_mass = memory_read_attention_plain(*folded)
+    _assert_close(got, want, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match='precise'):
+        memory_read_attention(*folded, precise=True)
 
 
 @pytest.mark.cuda

@@ -68,14 +68,16 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     assert eng.init_state(1, (2, 3)).bank.k[0].device.type == 'cpu'
 
 
-@pytest.mark.parametrize('stage,overrides', [
-    ('pre_vost_2', {'compute_dtype': 'bfloat16'}),
-    ('pre_vost', {'latter_mem_len': 2}),
-    ('pre_vost_2', {'no_memory_gap': True}),
+@pytest.mark.parametrize('stage,model,overrides', [
+    ('pre_vost_2', 'r50_deaotl', {'compute_dtype': 'bfloat16'}),
+    ('pre_vost', 'r50_deaotl', {'latter_mem_len': 2}),
+    ('pre_vost_2', 'r50_deaotl', {'no_memory_gap': True}),
+    ('pre_vost_2', 'r50_aotl', {}),
+    ('default', 'r50_aotl', {'gru_memory': True}),
 ])
-def test_config_matches_jax(stage, overrides):
-    port = get_config(stage, model='r50_deaotl', **overrides)
-    ref = jax_get_config(stage, model='r50_deaotl', **overrides)
+def test_config_matches_jax(stage, model, overrides):
+    port = get_config(stage, model=model, **overrides)
+    ref = jax_get_config(stage, model=model, **overrides)
     for f in fields(port.model):
         assert getattr(port.model, f.name) == getattr(ref.model, f.name), \
             f.name
