@@ -12,11 +12,12 @@ B1 in its multi-head, one-bank mode).
 
 Phases, each fatal on failure:
 1. environment: card name and power limit, torch and CUDA versions;
-2. build: compiles every CUDA kernel with nvcc (sm_90a), all at once;
+2. build: compiles every CUDA kernel with nvcc (sm_90a), all at once, and
+   prints each kernel's registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the three paths give it, with its time, the plain version's
-   time, one library call's time as a yardstick, and the least time the
-   card could take (bound);
+   time, one library call's time as a yardstick, the least time the card
+   could take (bound) and the share of it reached (bound / time);
 4. engine, fp32, card against CPU, per path: seeded random weights, one
    reference frame and 12 frames at write gap 1 (eviction fires), holding
    eviction ids, masks and exact kernel launch counts;
@@ -54,6 +55,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# cycles of the sleep kernel a timed burst waits behind: ~30 ms, longer
+# than the host takes to enqueue a burst of ten wrapper calls, so that the
+# device runs the burst back to back
+SLEEP_CYCLES = 50_000_000
+
+
 def time_ms(torch, fn, burst: int = 10, samples: int = 21) -> float:
     """Median device time of one call, from CUDA events around bursts of
     `burst` calls queued behind a sleep kernel (so host overhead between
@@ -65,7 +72,7 @@ def time_ms(torch, fn, burst: int = 10, samples: int = 21) -> float:
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(burst):
             fn()
@@ -196,6 +203,19 @@ def b2_library(torch, args):
                                                   scale=1.0)
 
 
+def print_split(torch, name, batch, heads, hwq, d, cph, t_cap) -> None:
+    """How a bank read is split over slots, and the f32 partials it writes
+    and the combine reads back (not counted in the bound)."""
+    from rmem_ocu_tpu_torch.ops.kernels.memory_read import read_plan
+    n_split, hpb, scratch = read_plan(batch, heads, hwq, d, cph, t_cap,
+                                      hwq, torch.device('cuda'))
+    n_bytes = 2 * sum(x.numel() * 4 for x in scratch)
+    kernel = (f'memory_read_heads, {hpb} heads a block' if hpb
+              else 'memory_read_wide')
+    print(f'kernel {name}: {n_split} splits of the key tiles, {kernel}, '
+          f'partials {n_bytes / 1e6:.2f} MB written and read back')
+
+
 def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
@@ -235,6 +255,7 @@ def kernel_row(torch, name, run, plain, library, n_bytes, n_flops, operands,
                plain_ms=time_ms(torch, plain, burst=plain_burst),
                bound_ms=b_ms, bound_by=b_by,
                library_ms=time_ms(torch, library))
+    row['bound_share'] = b_ms / row['ms']
     print(f'kernel {name}: ok, {json.dumps(row)}')
     return row
 
@@ -278,6 +299,10 @@ def phase_kernels(torch):
         print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
               f'output rms {rms:.4e}, tol {tol}; one live slot dropped gives '
               f'{d_err:.3e} and is rejected')
+        if not precise:
+            print_split(torch, name, batch, heads, q.shape[1],
+                        q.shape[2] // heads,
+                        sum(v.shape[3] for v in vs) // heads, k.shape[1])
         rows[name] = kernel_row(
             torch, name, lambda: memory_read_fused(*args, **kw),
             lambda: memory_read_fused_plain(*args, **kw),
@@ -310,6 +335,9 @@ def phase_kernels(torch):
         print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
               f'output rms {rms:.4e}, tol {BF16_TOL}; one live slot dropped '
               f'gives {d_err:.3e} and is rejected')
+        print_split(torch, name, batch, heads, q.shape[1],
+                    q.shape[2] // heads, 2 * vs[0].shape[3] // heads,
+                    k.shape[1])
         rows[name] = kernel_row(
             torch, name, lambda: memory_read_multihead(*args),
             lambda: memory_read_multihead_plain(*args),
@@ -373,17 +401,18 @@ def make_inputs(batch: int, n_frames: int, seed: int,
 
 # The three paths: config overrides, the write gap of the bf16 run, and the
 # kernel launches (B1, B2, B3) per propagated frame and per reference frame.
+# A bank read (B1 or B3) is two launches, the split read and its combine.
 PATHS = {
     'deaot_1head': dict(
         overrides=dict(model='r50_deaotl'), gap=5,
-        per_frame=(3, 3, 0), per_reference=(0, 3, 0)),
+        per_frame=(6, 3, 0), per_reference=(0, 3, 0)),
     'deaot_2heads': dict(
         overrides=dict(model='r50_deaotl', no_memory_gap=True,
                        use_temporal_pe=False), gap=1,
-        per_frame=(0, 0, 3), per_reference=(0, 0, 0)),
+        per_frame=(0, 0, 6), per_reference=(0, 0, 0)),
     'aot': dict(
         overrides=dict(model='r50_aotl'), gap=5,
-        per_frame=(3, 0, 0), per_reference=(0, 0, 0)),
+        per_frame=(6, 0, 0), per_reference=(0, 0, 0)),
 }
 
 
@@ -591,6 +620,32 @@ def phase_main_path(torch, path: str, batch: int, n_warm: int = 5,
     return counts
 
 
+def print_resources(logs) -> None:
+    """Registers, shared memory and spills of each kernel: ptxas's report
+    per entry (static shared memory only), then the runtime's view of the
+    kernels the main path runs, dynamic shared memory included."""
+    import re
+    from rmem_ocu_tpu_torch.ops.kernels import local_attn, memory_read
+    for lib, log in logs.items():
+        entry = None
+        for line in log.splitlines():
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif entry and ('spill' in line or 'registers' in line):
+                print(f'ptxas {lib} {entry[:80]}: {line.split(":", 1)[-1]}'
+                      .rstrip())
+    for name, info in (
+            ('B1/B3 memory_read_wide D=128 (deaot_1head, deaot_2heads)',
+             memory_read.kernel_info(1, 128, 1024)),
+            ('B1 memory_read_heads D=32 Dv=32 (aot)',
+             memory_read.kernel_info(8, 32, 32)),
+            ('B2 local_attn_tc D=128 max_dis=7 (deaot_1head)',
+             local_attn.kernel_info(128, 7))):
+        print(f'resources {name}: {info[0]} registers, {info[1]} bytes '
+              f'shared memory, {info[2]} bytes local (spill) per thread')
+
+
 # name, source, the TPU kernel it replaces, the row of phase 3 that times it
 # at its path's B=1 shape, its index in the counts, the path whose 1-stream
 # run gives `launches`
@@ -627,10 +682,7 @@ def main() -> int:
     t0 = time.time()
     build.build(['memory_read', 'local_attn', 'memory_read_attention'])
     print(f'build: {time.time() - t0:.1f} s')
-    for name, log in build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
-                print(f'ptxas {name}: {line.strip()}')
+    print_resources(build.BUILD_LOGS)
 
     rows = phase_kernels(torch)
     for path in PATHS:

@@ -9,32 +9,35 @@
 // logit term q.pe_t. Dead slots (valid == 0) may sit anywhere and are
 // skipped.
 //
-// What bounds it on the H100: at the main-path shape (1 head, D=128, two
-// 512-wide banks, 9 live slots of 920 keys, 920 queries) one launch is
-// ~17.6 GFLOP against ~20 MB of operands, so it is bound by operations:
-// the products belong on the tensor cores.
+// What bounds it on the H100: at the main-path shapes (one head, D=128,
+// V and ID_V 512 wide each; 8 heads of D=Dv=32, one bank; 9 live slots of
+// 920 keys, 920 queries) one launch is 7.8-17.6 GFLOP against 10-20 MB of
+// operands, so it is bound by operations: the products belong on the
+// tensor cores, and everything else (loads, softmax, the slot mass) has to
+// hide behind them.
 //
 // Two paths, chosen by the operand precision the caller asks for:
 // - bf16 operands (the main path, and the reference's bank read on f32
-//   inputs): the tensor-core read of memory_read_tc.cuh, which kernel B3
-//   shares. `wgmma`, TMA and a pipelined K/V ring are later work.
+//   inputs): the read of memory_read_tc.cuh, which kernel B3 shares. The
+//   bank is split over blocks by slot and merged by a second launch that
+//   also yields the per-slot mass; 64-key K/V tiles arrive through a
+//   two-stage cp.async ring while the tensor cores work on the previous
+//   tile; Q.K^T is issued once per key tile and 512 value columns (twice
+//   for V||ID_V); 8 heads of 32 share one block. The header says why.
 // - f32 operands (precise): `simt` below, the same online softmax on the
-//   FP32 pipes, one block per 16 query rows.
+//   FP32 pipes, one block per 16 query rows. No path calls it.
 //
 // Design points shared by both:
 // - The Pallas grid (b*h, q-block, slot, k-block) carries m, l, acc and the
-//   slot mass across sequential grid steps. GPU blocks share nothing, so
-//   one block owns (b, h, a query tile, a chunk of value columns) and loops
-//   over slots and 32-key tiles itself.
-// - A query row's two 512-wide f32 accumulators do not fit one block's
-//   registers, so the value columns are split over grid axis y; QK (~1/9
-//   of the work) is recomputed per chunk and only chunk 0 writes the mass.
+//   slot mass across sequential grid steps. GPU blocks share nothing: the
+//   bf16 read gives each block a share of the slots and merges the shares
+//   afterwards; `simt` loops over every slot inside one block.
 // - HWk = 920 does not tile by a power of two: the tail of the last key
 //   tile gets logit -inf (never 0, which would leak softmax mass).
 // - Rounding follows the reference: q, k, v and p are rounded to bf16
-//   before the products (tc), the PE term sums q.pe in f32 from the rounded
-//   q, l and the slot mass use the f32 p-sum, the mass is rescaled like l,
-//   and outputs are divided by max(l, 1e-30) at the end.
+//   before the products (bf16 path), the PE term sums q.pe in f32 from the
+//   rounded q, l and the slot mass use the f32 p-sum, and outputs are
+//   divided by max(l, 1e-30) at the end.
 #include "memory_read_tc.cuh"
 
 namespace {
@@ -240,24 +243,30 @@ void launch_simt(const void* q, const void* k, const void* pe, const void* v1,
 }  // namespace simt
 
 // One or two banks sharing P (H == 1), or heads by channel slicing of one
-// bank: head h owns columns [h * (Cv1 + Cv2), ...) of [v1 | v2].
-template <typename T>
-bool launch_tc(const void* q, const void* k, const void* pe, const void* v1,
-               const void* v2, const int* valid, void* o1, void* o2,
-               float* mass, int B, int H, int T_cap, int HWq, int HWk, int D,
-               int Cv1, int Cv2, cudaStream_t stream) {
+// bank: head h owns columns [h * (Cv1 + Cv2), ...) of [v1 | v2]. q, k, v
+// are bf16, pe f32; outputs TO.
+template <typename TO>
+int launch_tc(const void* q, const void* k, const void* pe, const void* v1,
+              const void* v2, const int* valid, void* o1, void* o2,
+              float* mass, float* part_acc, float* part_m, void* slot_ml,
+              int B, int H, int T_cap, int HWq, int HWk, int D, int Cv1,
+              int Cv2, int n_split, int heads_per_block, cudaStream_t stream) {
+  using rmem::tc::bf16;
   if (v2 == nullptr) Cv2 = 0;
-  const rmem::tc::ReadArgs<T, T> a = {
-      static_cast<const T*>(q),  static_cast<const T*>(k),
-      static_cast<const T*>(pe), static_cast<const T*>(v1),
-      static_cast<const T*>(v2), valid,
-      static_cast<T*>(o1),       static_cast<T*>(o2),
-      mass,                      H,
-      T_cap,                     HWq,
-      HWk,                       Cv1 + Cv2,
-      H * Cv1,                   H * Cv2,
-      H * Cv1,                   H * Cv2};
-  return rmem::tc::launch<rmem::tc::FusedRead>(a, B, D, stream);
+  const rmem::tc::ReadArgs a = {
+      static_cast<const bf16*>(q),   static_cast<const bf16*>(k),
+      static_cast<const float*>(pe), static_cast<const bf16*>(v1),
+      static_cast<const bf16*>(v2),  valid,
+      part_acc,                      part_m,
+      static_cast<float2*>(slot_ml), H,
+      T_cap,                         HWq,
+      HWk,                           D,
+      Cv1 + Cv2,                     H * Cv1,
+      H * Cv2,                       n_split};
+  const rmem::tc::OutArgs<TO> o = {static_cast<TO*>(o1), static_cast<TO*>(o2),
+                                   mass, H * Cv1, H * Cv2};
+  return static_cast<int>(rmem::tc::launch<rmem::tc::FusedRead>(
+      a, o, B, heads_per_block, stream));
 }
 
 }  // namespace
@@ -266,33 +275,53 @@ bool launch_tc(const void* q, const void* k, const void* pe, const void* v1,
 // q [B, HWq, H*D] (pre-scaled), k [B, T, HWk, H*D], pe [B, T, H*D] or
 // null, v1 [B, T, HWk, H*Cv1], v2 [B, T, HWk, H*Cv2] or null (two banks
 // need H == 1), valid [B, T] int32, o1/o2 like q with the value widths,
-// mass [B, H, HWq, T] f32. round_bf16 selects bf16 operands (tensor cores;
-// D in {16, 32, 64, 128}, Cv % 8 == 0), else f32 operands (D <= 128,
-// Cv % 4 == 0). Returns cudaGetLastError() after the launch.
+// mass [B, H, HWq, T] f32.
+// - round_bf16: bf16 operands on the tensor cores. q, k, v are bf16 and pe
+//   f32 whatever the output type (is_bf16: bf16 outputs, else f32); the
+//   f32 scratch is part_acc [B, n_split, HWq, H*(Cv1+Cv2)], part_m
+//   [B, H, n_split, HWq], slot_ml [B, H, n_split, HWq, T, 2];
+//   heads_per_block (8) picks the several-heads-per-block kernel
+//   (D <= 32, Cv1 <= 32), 0 the one-head kernel (D in {16, 32, 64, 128}).
+//   Two launches: the split read and its combine.
+// - else f32 operands in the storage type (is_bf16) on the FP32 pipes
+//   (D <= 128, Cv % 4 == 0), one launch; the scratch is unused.
+// Returns cudaGetLastError() after the launches.
 extern "C" int rmem_memory_read_fused(
     const void* q, const void* k, const void* pe, const void* v1,
     const void* v2, const int* valid, void* o1, void* o2, float* mass,
-    int B, int H, int T_cap, int HWq, int HWk, int D, int Cv1, int Cv2,
-    int is_bf16, int round_bf16, void* stream) {
+    float* part_acc, float* part_m, void* slot_ml, int B, int H, int T_cap,
+    int HWq, int HWk, int D, int Cv1, int Cv2, int is_bf16, int round_bf16,
+    int n_split, int heads_per_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (T_cap > MAX_T) return static_cast<int>(cudaErrorInvalidValue);
   if (v2 != nullptr && H != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (round_bf16) {
-    const bool ok =
-        is_bf16 ? launch_tc<__nv_bfloat16>(q, k, pe, v1, v2, valid, o1, o2,
-                                           mass, B, H, T_cap, HWq, HWk, D,
-                                           Cv1, Cv2, s)
-                : launch_tc<float>(q, k, pe, v1, v2, valid, o1, o2, mass, B,
-                                   H, T_cap, HWq, HWk, D, Cv1, Cv2, s);
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (D > 128) return static_cast<int>(cudaErrorInvalidValue);
-    if (is_bf16)
-      simt::launch_simt<__nv_bfloat16>(q, k, pe, v1, v2, valid, o1, o2, mass,
-                                       B, H, T_cap, HWq, HWk, D, Cv1, Cv2, s);
-    else
-      simt::launch_simt<float>(q, k, pe, v1, v2, valid, o1, o2, mass, B, H,
-                               T_cap, HWq, HWk, D, Cv1, Cv2, s);
-  }
+  if (round_bf16)
+    return is_bf16 ? launch_tc<__nv_bfloat16>(
+                         q, k, pe, v1, v2, valid, o1, o2, mass, part_acc,
+                         part_m, slot_ml, B, H, T_cap, HWq, HWk, D, Cv1, Cv2,
+                         n_split, heads_per_block, s)
+                   : launch_tc<float>(q, k, pe, v1, v2, valid, o1, o2, mass,
+                                      part_acc, part_m, slot_ml, B, H, T_cap,
+                                      HWq, HWk, D, Cv1, Cv2, n_split,
+                                      heads_per_block, s);
+  if (D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16)
+    simt::launch_simt<__nv_bfloat16>(q, k, pe, v1, v2, valid, o1, o2, mass,
+                                     B, H, T_cap, HWq, HWk, D, Cv1, Cv2, s);
+  else
+    simt::launch_simt<float>(q, k, pe, v1, v2, valid, o1, o2, mass, B, H,
+                             T_cap, HWq, HWk, D, Cv1, Cv2, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, shared memory bytes and local (spill) bytes per thread of the
+// bf16 read kernel that D, the per-head value width and heads_per_block
+// select, into out[3]. Returns the CUDA error of the query.
+extern "C" int rmem_memory_read_info(int D, int cph, int heads_per_block,
+                                     int* out) {
+  rmem::tc::ReadArgs a = {};
+  a.D = D;
+  a.cph = cph;
+  return static_cast<int>(rmem::tc::dispatch<rmem::tc::FusedRead, true>(
+      a, 1, heads_per_block, nullptr, out));
 }

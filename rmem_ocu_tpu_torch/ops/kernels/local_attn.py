@@ -20,12 +20,12 @@ import torch
 import torch.nn.functional as F
 
 from rmem_ocu_tpu_torch.ops.kernels import build
-from rmem_ocu_tpu_torch.ops.kernels.memory_read import _mm
+from rmem_ocu_tpu_torch.ops.kernels.memory_read import _mm, read_operands
 from rmem_ocu_tpu_torch.ops.layers import tokens_from_2d, tokens_to_2d
 
 NEG_INF = -1e8
 MAX_HEAD_DIM = 128
-MAX_VALUE_DIM = 1024
+MAX_VALUE_DIM = 1024    # of the f32 (precise) kernel
 MAX_DIS = 7
 
 
@@ -83,6 +83,16 @@ def _lib():
     return fn
 
 
+def kernel_info(head_dim: int, max_dis: int):
+    """(registers, shared memory bytes, local spill bytes per thread) of
+    the bf16 kernel at these shapes, from the CUDA runtime."""
+    out = (ctypes.c_int * 3)()
+    rc = build.load('local_attn').rmem_local_attn_info(head_dim, max_dis, out)
+    if rc != 0:
+        raise RuntimeError(f'local_attn kernel info failed: CUDA error {rc}')
+    return tuple(out)
+
+
 def _launch(q, k, v, rel, size_2d, max_dis, precise):
     h, w = size_2d
     b, hw, d = q.shape
@@ -104,13 +114,19 @@ def _launch(q, k, v, rel, size_2d, max_dis, precise):
         raise ValueError(f'shapes q {tuple(q.shape)} k {tuple(k.shape)} '
                          f'v {tuple(v.shape)} rel {tuple(rel.shape)} do not '
                          f'match a {h}x{w} grid')
-    if d > MAX_HEAD_DIM or e > MAX_VALUE_DIM or e % 8 or max_dis > MAX_DIS:
-        raise ValueError(f'needs D <= {MAX_HEAD_DIM}, E <= {MAX_VALUE_DIM} '
-                         f'with E % 8 == 0 and max_dis <= {MAX_DIS}')
+    if d > MAX_HEAD_DIM or e % 8 or max_dis > MAX_DIS:
+        raise ValueError(f'needs D <= {MAX_HEAD_DIM}, E % 8 == 0 and '
+                         f'max_dis <= {MAX_DIS}')
+    if precise and e > MAX_VALUE_DIM:
+        raise ValueError(f'the f32 kernel needs E <= {MAX_VALUE_DIM}')
+    if not precise and d not in (16, 32, 64, 128):
+        raise ValueError('the bf16 kernel needs D in (16, 32, 64, 128)')
     out = torch.empty_like(v)
+    if not precise:  # bf16 operands on the tensor cores
+        q, k, v = read_operands(q, k, v)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(),
                 out.data_ptr(), b, h, w, d, e, max_dis,
-                int(q.dtype == torch.bfloat16), int(not precise),
+                int(out.dtype == torch.bfloat16), int(not precise),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'local_attn kernel launch failed: CUDA error {rc}')

@@ -5,10 +5,15 @@ Counterpart of `rmem_ocu_tpu/ops/pallas/memory_read.py:memory_read_fused`.
 CUDA tensor and runs the plain PyTorch version on a CPU tensor; it never
 falls back from a CUDA tensor. `memory_read_fused_plain` is the plain
 version for any device, the reference the kernel is held to.
+
+On the card the bf16 read is two launches, the read split over slots and
+the combine that merges the splits and yields the mass; the launch
+counter `memory_read_fused.launches` counts both (one for `precise`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -18,6 +23,11 @@ from rmem_ocu_tpu_torch.ops.layers import scale_in_dtype
 
 M_INIT = -1e30      # running-max init of the reference kernel
 MAX_SLOTS = 32
+# tiles of the bf16 read (csrc/memory_read_tc.cuh)
+BLOCK_ROWS = 64     # query rows per block
+BLOCK_KEYS = 64     # keys per tile
+BLOCK_COLS = 512    # value columns per block of the wide-head kernel
+HEADS_PER_BLOCK = 8  # heads per block of the small-head kernel
 
 
 def _mm(x: torch.Tensor, precise: bool) -> torch.Tensor:
@@ -91,14 +101,69 @@ def _plain(q, k_bank, v_banks, valid, num_heads, pe, precise):
     return tuple(o.to(q.dtype) for o in outs), mass.mean(1)
 
 
+def heads_per_block(num_heads: int, head_dim: int,
+                    cols_per_head: int) -> int:
+    """Heads per block of the bf16 read's several-heads kernel, or 0 for
+    its one-head kernel."""
+    if num_heads >= 4 and head_dim <= 32 and cols_per_head <= 32:
+        return HEADS_PER_BLOCK
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def read_plan(b: int, h: int, hwq: int, d: int, cph: int, t_cap: int,
+              hwk: int, device: torch.device):
+    """(n_split, heads_per_block, scratch) of one bf16 read. The key tiles
+    of a query tile's live slots are shared out to n_split units, as many
+    as keep every block in one round on the card and no more than a slot
+    has tiles, so that no unit is empty; the f32 scratch holds each unit's
+    accumulator [B, n_split, HWq, H*cph], running max [B, H, n_split, HWq]
+    and the (max, p-sum) of each slot share [B, H, n_split, HWq, T, 2]."""
+    hpb = heads_per_block(h, d, cph)
+    groups = -(-h // hpb) if hpb else h * -(-cph // BLOCK_COLS)
+    base = -(-hwq // BLOCK_ROWS) * b * groups    # blocks of one share each
+    # one block is resident per SM (its shared memory)
+    n_split = max(1, min(_sm_count(device.index) // base,
+                         -(-hwk // BLOCK_KEYS)))
+    f32 = dict(dtype=torch.float32, device=device)
+    scratch = (torch.empty((b, n_split, hwq, h * cph), **f32),
+               torch.empty((b, h, n_split, hwq), **f32),
+               torch.empty((b, h, n_split, hwq, t_cap, 2), **f32))
+    return n_split, hpb, scratch
+
+
+def read_operands(*xs):
+    """The kernels multiply bf16 operands: round f32 storage to bf16 (the
+    rounding the plain version applies), keep bf16 as it is."""
+    return tuple(None if x is None else x.to(torch.bfloat16).contiguous()
+                 for x in xs)
+
+
 def _lib():
     lib = build.load('memory_read')
     fn = lib.rmem_memory_read_fused
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_info(num_heads: int, head_dim: int, cols_per_head: int):
+    """(registers, shared memory bytes, local spill bytes per thread) of
+    the bf16 read kernel these shapes select, from the CUDA runtime."""
+    lib = build.load('memory_read')
+    out = (ctypes.c_int * 3)()
+    rc = lib.rmem_memory_read_info(
+        head_dim, cols_per_head,
+        heads_per_block(num_heads, head_dim, cols_per_head), out)
+    if rc != 0:
+        raise RuntimeError(f'memory_read kernel info failed: CUDA error {rc}')
+    return tuple(out)
 
 
 def _launch(q, k_bank, v_banks, valid, num_heads, pe, precise):
@@ -137,17 +202,25 @@ def _launch(q, k_bank, v_banks, valid, num_heads, pe, precise):
     mass = torch.empty((b, h, hwq, t_cap), dtype=torch.float32,
                        device=q.device)
     two = len(v_banks) == 2
-    rc = _lib()(q.data_ptr(), k_bank.data_ptr(),
-                pe.data_ptr() if pe is not None else None,
-                v_banks[0].data_ptr(), v_banks[1].data_ptr() if two else None,
-                valid_i.data_ptr(), outs[0].data_ptr(),
-                outs[1].data_ptr() if two else None, mass.data_ptr(),
+    if precise:
+        n_split, hpb, scratch = 1, 0, (None, None, None)
+    else:
+        n_split, hpb, scratch = read_plan(b, h, hwq, hd // h, sum(dvs),
+                                          t_cap, hwk, q.device)
+        q, k_bank, *v_banks = read_operands(q, k_bank, *v_banks)
+        pe = None if pe is None else pe.float()
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = _lib()(ptr(q), ptr(k_bank), ptr(pe), ptr(v_banks[0]),
+                ptr(v_banks[1]) if two else None, ptr(valid_i), ptr(outs[0]),
+                ptr(outs[1]) if two else None, ptr(mass), *map(ptr, scratch),
                 b, h, t_cap, hwq, hwk, hd // h, dvs[0],
-                dvs[1] if two else 0, int(q.dtype == torch.bfloat16),
-                int(not precise), torch.cuda.current_stream(q.device).cuda_stream)
+                dvs[1] if two else 0, int(outs[0].dtype == torch.bfloat16),
+                int(not precise), n_split, hpb,
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'memory_read kernel launch failed: CUDA error {rc}')
-    memory_read_fused.launches += 1
+    # the bf16 read is two kernels: the split read and its combine
+    memory_read_fused.launches += 1 if precise else 2
     return tuple(outs), mass.mean(1)
 
 

@@ -14,7 +14,8 @@ layout the kernel reads each head by stride, so the head-fold transposes of
 the JAX wrapper are not made. The value bank may be given as two banks
 whose channel-wise concatenation is meant (DeAOT's V||ID_V): with an even
 head count each head lies in one of them and no concatenation is
-materialised.
+materialised. On the card a read is two launches (the read split over
+slots and the combine), and `memory_read_attention.launches` counts both.
 """
 from __future__ import annotations
 
@@ -25,7 +26,9 @@ import torch
 
 from rmem_ocu_tpu_torch.ops.kernels import build
 from rmem_ocu_tpu_torch.ops.kernels.memory_read import (MAX_SLOTS,
-                                                        online_softmax_read)
+                                                        online_softmax_read,
+                                                        read_operands,
+                                                        read_plan)
 from rmem_ocu_tpu_torch.ops.layers import scale_in_dtype
 
 ValueBanks = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -35,7 +38,7 @@ def _lib():
     lib = build.load('memory_read_attention')
     fn = lib.rmem_memory_read_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -80,17 +83,21 @@ def _launch(q, k_bank, v_banks, valid, num_heads):
     out = torch.empty((b, hwq, hdv), dtype=torch.float32, device=q.device)
     mass = torch.empty((b, h, hwq, t_cap), dtype=torch.float32,
                        device=q.device)
+    n_split, hpb, scratch = read_plan(b, h, hwq, hd // h, dv, t_cap, hwk,
+                                      q.device)
+    q, k_bank, *v_banks = read_operands(q, k_bank, *v_banks)
     two = len(v_banks) == 2
     rc = _lib()(q.data_ptr(), k_bank.data_ptr(), v_banks[0].data_ptr(),
                 v_banks[1].data_ptr() if two else None, valid_i.data_ptr(),
-                out.data_ptr(), mass.data_ptr(), b, h, t_cap, hwq, hwk,
-                hd // h, dv, v_banks[0].shape[3],
-                int(q.dtype == torch.bfloat16),
+                out.data_ptr(), mass.data_ptr(),
+                *(x.data_ptr() for x in scratch), b, h, t_cap, hwq, hwk,
+                hd // h, dv, v_banks[0].shape[3], n_split, hpb,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'memory_read_attention kernel launch failed: '
                            f'CUDA error {rc}')
-    memory_read_attention.launches += 1
+    # two kernels: the read split over slots and its combine
+    memory_read_attention.launches += 2
     return out, mass
 
 

@@ -278,7 +278,7 @@ def test_aot_engine_matches_jax_engine(gru_memory, monkeypatch):
     kw = dict(model='r50_aotl', latter_mem_len=3 if gru_memory else 2,
               gru_memory=gru_memory)
     jexp = jax_get_config('pre_vost_2', **kw)
-    params = jax.device_get(jax_build(jexp.model).init(
+    params = jax.device_get(jax.jit(jax_build(jexp.model).init)(
         jax.random.PRNGKey(0), J(img0[:1]),
         jnp.zeros((1, SIZE, SIZE, jexp.model.id_dim))))
     want, jst = run_jax_engine(jexp, params, img0, mask0, frames)
@@ -309,13 +309,12 @@ def test_flax_weights_load_strictly(overrides):
     load accepts them, and the JAX package's own converter brings every
     leaf back unchanged."""
     jexp = jax_get_config('pre_vost_2', **overrides)
-    params = jax_build(jexp.model).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 33, 33, 3)),
-        jnp.zeros((1, 33, 33, jexp.model.id_dim)))
+    shapes = jax.eval_shape(
+        jax_build(jexp.model).init, jax.random.PRNGKey(0),
+        jnp.zeros((1, 33, 33, 3)), jnp.zeros((1, 33, 33, jexp.model.id_dim)))
     rng = np.random.RandomState(0)
     params = jax.tree_util.tree_map(
-        lambda x: rng.randn(*np.shape(x)).astype(np.float32),
-        jax.device_get(params))
+        lambda x: rng.randn(*x.shape).astype(np.float32), shapes)
     exp = get_config('pre_vost_2', **overrides)
     model = build_vos_model(exp.model, device='cpu')
     sd = params_from_flax(params, exp.model)

@@ -22,14 +22,15 @@ SIZE = 33
 @pytest.fixture(scope='module')
 def flax_params():
     jexp = jax_get_config('pre_vost_2', model='r50_deaotl')
-    params = jax_build(jexp.model).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3)),
+    # the leaves' shapes only (an abstract trace, not an initialisation)
+    shapes = jax.eval_shape(
+        jax_build(jexp.model).init, jax.random.PRNGKey(0),
+        jnp.zeros((1, SIZE, SIZE, 3)),
         jnp.zeros((1, SIZE, SIZE, jexp.model.id_dim)))
     # distinct values in every leaf, so a swapped or transposed leaf shows
     rng = np.random.RandomState(0)
     params = jax.tree_util.tree_map(
-        lambda x: rng.randn(*np.shape(x)).astype(np.float32),
-        jax.device_get(params))
+        lambda x: rng.randn(*x.shape).astype(np.float32), shapes)
     return jexp, params
 
 

@@ -2,8 +2,8 @@
 
 r50_deaotl at 65x65 (a 5x5 grid), two streams on the batch axis with
 their own inputs and object counts, latter_mem_len=3 and write gap 1, so
-the bank fills within four frames and attention/UCB eviction fires on every
-later frame. (With random weights the attention is near-uniform and UCB
+the bank fills within three frames and attention/UCB eviction fires on the
+last two. (With random weights the attention is near-uniform and UCB
 evicts the oldest latter frame; test_bank_eviction_matches_jax holds the
 score-driven choices with non-uniform masses.) The JAX engine runs with RMEM_PALLAS=1, i.e. both Pallas
 kernels in interpret mode on the CPU, as the oracle; the port runs on the
@@ -30,7 +30,7 @@ from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
 from rmem_ocu_tpu_torch.memory import bank
 from rmem_ocu_tpu_torch.utils.convert import params_from_flax
 
-SIZE, FRAMES = 65, 7
+SIZE, FRAMES = 65, 5
 OBJ = [2, 3]                    # objects per stream
 
 
@@ -84,7 +84,7 @@ def test_port_engine_matches_jax_engine(monkeypatch):
     monkeypatch.setenv('RMEM_PALLAS', '1')
     img0, mask0, frames = _inputs()
     jexp = jax_get_config('pre_vost_2', model='r50_deaotl', latter_mem_len=3)
-    params = jax_build(jexp.model).init(
+    params = jax.jit(jax_build(jexp.model).init)(
         jax.random.PRNGKey(0), jnp.asarray(img0[:1]),
         jnp.zeros((1, SIZE, SIZE, jexp.model.id_dim)))
     params = jax.device_get(params)

@@ -118,3 +118,96 @@ def test_plain_local_attention_matches_pallas(h, w, monkeypatch):
     # f32 softmax over the same in-window keys (test_banded_local_attn bar)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
+
+
+def _split_combine_read(q, k_bank, v_banks, valid, heads, pe, n_split,
+                        block=16):
+    """The arithmetic of the CUDA bank read (csrc/memory_read_tc.cuh) in
+    torch: the key tiles (of `block` keys) of the live slots, in order, are
+    shared out to n_split units in contiguous, balanced ranges; each unit
+    runs the online softmax over its range (p rounded to bf16 at the
+    unit's running max) and records (m, l) where its share of a slot
+    ends; the combine takes M = max m, L = sum e^(m - M) l, out = sum_u
+    e^(m_u - M) acc_u / max(L, 1e-30) and mass_t = sum over t's shares of
+    e^(m - M) l, over L. q is pre-scaled. Returns (outs per bank, mass
+    [B, HWq, T] head mean)."""
+    bf = lambda x: x.to(torch.bfloat16).float()
+    b, hwq, hd = q.shape
+    _, t_cap, hwk, _ = k_bank.shape
+    h, d = heads, hd // heads
+    qh = bf(q).view(b, hwq, h, d).transpose(1, 2)
+    kh = bf(k_bank).view(b, t_cap, hwk, h, d).permute(0, 3, 1, 2, 4)
+    vh = bf(torch.cat(v_banks, -1)).view(b, t_cap, hwk, h, -1).permute(
+        0, 3, 1, 2, 4)
+    peh = None if pe is None else pe.float().view(b, t_cap, h, d).transpose(
+        1, 2)
+    n_kt = -(-hwk // block)
+    out = torch.zeros(b, h, hwq, vh.shape[-1])
+    mass = torch.zeros(b, h, hwq, t_cap)
+    for i in range(b):
+        live = [t for t in range(t_cap) if valid[i, t]]
+        n_work = len(live) * n_kt
+        recs, parts = [], []
+        for u in range(n_split):
+            w0, w1 = u * n_work // n_split, (u + 1) * n_work // n_split
+            if w0 == w1:
+                continue
+            m = torch.full((h, hwq, 1), -1e30)
+            acc = torch.zeros(h, hwq, vh.shape[-1])
+            for w in range(w0, w1):
+                t, k0 = live[w // n_kt], (w % n_kt) * block
+                if w == w0 or w % n_kt == 0:
+                    lt = torch.zeros(h, hwq, 1)
+                    pc = (0.0 if peh is None else
+                          (qh[i] * peh[i, :, t, None, :]).sum(-1,
+                                                              keepdim=True))
+                s = qh[i] @ kh[i, :, t, k0:k0 + block].transpose(-1, -2)
+                s = s + pc
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+                acc = acc * alpha + bf(p) @ vh[i, :, t, k0:k0 + block]
+                lt = lt * alpha + p.sum(-1, keepdim=True)
+                m = m_new
+                if w == w1 - 1 or w % n_kt == n_kt - 1:
+                    recs.append((t, m, lt))
+            parts.append((m, acc))
+        big_m = torch.full((h, hwq, 1), -1e30)
+        for _, m_t, _ in recs:
+            big_m = torch.maximum(big_m, m_t)
+        denom = sum((torch.exp(m_t - big_m) * l_t for _, m_t, l_t in recs),
+                    torch.zeros(h, hwq, 1)).clamp_min(1e-30)
+        for m_u, acc_u in parts:
+            out[i] += torch.exp(m_u - big_m) * acc_u / denom
+        for t, m_t, l_t in recs:
+            mass[i, :, :, t] += (torch.exp(m_t - big_m) * l_t / denom)[..., 0]
+    flat = out.transpose(1, 2).reshape(b, hwq, -1)
+    widths = [v.shape[-1] // h for v in v_banks]
+    outs = torch.split(flat.view(b, hwq, h, -1), widths, dim=-1)
+    return ([o.reshape(b, hwq, -1) for o in outs], mass.mean(1))
+
+
+@pytest.mark.parametrize('n_split', [1, 2, 5])
+@pytest.mark.parametrize('heads,n_banks', [(1, 2), (4, 1)],
+                         ids=['1head_2banks', '4heads'])
+def test_split_combine_read_matches_one_pass_and_pallas(heads, n_banks,
+                                                        n_split):
+    """The kernel's split-over-slots arithmetic gives the one-pass plain
+    read under the bf16 bar of tests/test_torch_kernels_cuda.py (p is
+    rounded at another running max) and the Pallas kernel's per-slot
+    mass within 1e-4."""
+    q, k, vs, valid, pe, scale = _b1_inputs(heads, n_banks, True, seed=7)
+    t = torch.from_numpy
+    got, got_mass = _split_combine_read(t(q) * scale, t(k),
+                                        [t(v) for v in vs], valid, heads,
+                                        t(pe).expand(2, -1, -1), n_split)
+    want, _ = memory_read_fused(t(q), t(k), tuple(t(v) for v in vs),
+                                t(valid), heads, scale, mem_pe=t(pe))
+    for g, w in zip(got, want):
+        rms = float(w.square().mean().sqrt())
+        torch.testing.assert_close(g, w, rtol=2 ** -7, atol=0.02 * rms)
+    _, pallas_mass = jax_memory_read_fused(
+        jnp.asarray(q), jnp.asarray(k), tuple(jnp.asarray(v) for v in vs),
+        jnp.asarray(valid), heads, scale, mem_pe=jnp.asarray(pe),
+        interpret=True)
+    np.testing.assert_allclose(got_mass.numpy(), np.asarray(pallas_mass),
+                               rtol=1e-4, atol=1e-4)

@@ -1,6 +1,7 @@
 """CUDA kernels B1, B2 and B3 of the PyTorch port against their plain PyTorch
-versions on the card, at small shapes (chip_smoke.py does the same at the
-main-path shapes). Every test needs a CUDA device and skips without one.
+versions on the card, at small shapes and at the edges of the kernels'
+tilings (chip_smoke.py does the same at the main-path shapes). Every test
+needs a CUDA device and skips without one.
 This file imports no JAX, so the card's machine runs it on its own:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
@@ -86,7 +87,8 @@ def test_memory_read_kernel_matches_plain(dtype, precise, tol):
         before = memory_read_fused.launches
         got, got_mass = memory_read_fused(*args, **kw)
         want, want_mass = memory_read_fused_plain(*args, **kw)
-        assert memory_read_fused.launches == before + 1
+        # the bf16 read is two launches: the split read and its combine
+        assert memory_read_fused.launches == before + (1 if precise else 2)
         for g, w in zip(got, want):
             _assert_close(g, w, tol)
         torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
@@ -106,7 +108,7 @@ def test_memory_read_kernel_multihead_one_bank(dtype):
     before = memory_read_fused.launches
     (got,), got_mass = memory_read_fused(*args, mem_pe=t(pe))
     (want,), want_mass = memory_read_fused_plain(*args, mem_pe=t(pe))
-    assert memory_read_fused.launches == before + 1
+    assert memory_read_fused.launches == before + 2
     _assert_close(got, want, None)
     torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
 
@@ -127,7 +129,7 @@ def test_memory_read_attention_kernel_matches_plain(heads, two_banks, dtype):
     args = (t(q), t(k), v_bank, torch.from_numpy(valid).to(dev), heads, scale)
     before = memory_read_attention.launches
     got, got_mass = memory_read_multihead(*args)
-    assert memory_read_attention.launches == before + 1
+    assert memory_read_attention.launches == before + 2
     want, want_mass = memory_read_multihead_plain(*args)
     assert got.dtype == torch.float32
     _assert_close(got, want, None)
@@ -142,7 +144,7 @@ def test_memory_read_attention_kernel_matches_plain(heads, two_banks, dtype):
     folded = (fold(t(q) * scale, d), fold(t(k), d), fold(cat, dv),
               torch.from_numpy(valid).to(dev).repeat_interleave(heads, dim=0))
     got, got_mass = memory_read_attention(*folded)
-    assert memory_read_attention.launches == before + 2
+    assert memory_read_attention.launches == before + 4
     want, want_mass = memory_read_attention_plain(*folded)
     _assert_close(got, want, None)
     torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
@@ -169,3 +171,118 @@ def test_local_attention_kernel_matches_plain(dtype, tol):
         got = local_window_attention(*args)
         assert local_window_attention.launches == before + 1
         _assert_close(got, local_window_attention_plain(*args), tol)
+
+
+def _dead_slots(t_cap, pattern):
+    """valid [t_cap] with the dead slots of `pattern`."""
+    valid = np.ones(t_cap, bool)
+    if pattern == 'first':
+        valid[0] = False
+    elif pattern == 'middle':
+        valid[t_cap // 2] = False
+    elif pattern == 'last':
+        valid[-1] = False
+    elif pattern == 'single':      # one live slot, in the middle
+        valid[:] = False
+        valid[t_cap // 2] = True
+    elif pattern == 'alternate':
+        valid[1::2] = False
+    return valid
+
+
+# heads, D, Dv, value banks, T_cap, HWk, dead slots. HWq = 70 (two query
+# tiles, the second ragged); HWk off the 64-key tile except at 64.
+B1_EDGES = [
+    (1, 128, 64, 2, 4, 100, 'first'),
+    (1, 64, 40, 2, 3, 64, 'last'),
+    (1, 32, 512, 1, 2, 70, 'none'),      # two 512-column blocks
+    (2, 16, 24, 1, 5, 70, 'middle'),
+    (2, 64, 16, 1, 32, 20, 'single'),    # T_cap 32, one live slot
+    (8, 32, 32, 1, 6, 130, 'middle'),    # several heads per block
+    (8, 16, 16, 1, 1, 36, 'none'),       # T_cap 1
+    (4, 32, 8, 1, 32, 65, 'alternate'),
+    (8, 64, 32, 1, 3, 40, 'first'),      # D 64: one head per block
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('heads,d,dv,n_banks,t_cap,hwk,dead', B1_EDGES)
+def test_memory_read_kernel_tiling_edges(heads, d, dv, n_banks, t_cap, hwk,
+                                         dead):
+    dev = _cuda()
+    rng = np.random.RandomState(heads * 1000 + d + t_cap)
+    b, hwq = 2, 70
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    q = t(rng.randn(b, hwq, heads * d))
+    k = t(rng.randn(b, t_cap, hwk, heads * d) * 0.5)
+    vs = tuple(t(rng.randn(b, t_cap, hwk, heads * dv))
+               for _ in range(n_banks))
+    valid = np.stack([_dead_slots(t_cap, dead), _dead_slots(t_cap, 'none')])
+    valid = torch.from_numpy(valid).to(dev)
+    pe = t(rng.randn(1, t_cap, heads * d) * 0.3)
+    args = (q, k, vs, valid, heads, d ** -0.5)
+    got, got_mass = memory_read_fused(*args, mem_pe=pe)
+    want, want_mass = memory_read_fused_plain(*args, mem_pe=pe)
+    for g, w in zip(got, want):
+        _assert_close(g, w, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
+# heads, D, per-bank width of V and ID_V, two banks (else concatenated)
+B3_EDGES = [
+    (2, 128, 256, True),     # each head one bank, 256 columns
+    (2, 64, 48, True),       # each head one bank, 48 columns
+    (8, 16, 64, True),       # several heads per block, over two banks
+    (2, 32, 40, False),
+    (8, 32, 128, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('heads,d,e,two_banks', B3_EDGES)
+def test_memory_read_attention_kernel_tiling_edges(heads, d, e, two_banks):
+    dev = _cuda()
+    rng = np.random.RandomState(heads * 100 + d + e)
+    b, hwq, hwk, t_cap = 2, 70, 100, 5
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    q = t(rng.randn(b, hwq, heads * d))
+    k = t(rng.randn(b, t_cap, hwk, heads * d) * 0.5)
+    v, id_v = (t(rng.randn(b, t_cap, hwk, e)) for _ in range(2))
+    valid = torch.from_numpy(np.stack([_dead_slots(t_cap, 'first'),
+                                       _dead_slots(t_cap, 'alternate')]))
+    v_bank = (v, id_v) if two_banks else torch.cat([v, id_v], dim=-1)
+    args = (q, k, v_bank, valid.to(dev), heads, d ** -0.5)
+    got, got_mass = memory_read_multihead(*args)
+    want, want_mass = memory_read_multihead_plain(*args)
+    _assert_close(got, want, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
+# grid (h, w), max_dis, D, E: widths off the 16-column patch, heights
+# below its 4 rows, windows smaller than 15x15, value widths off 128
+B2_EDGES = [
+    ((3, 20), 7, 32, 48),
+    ((2, 3), 2, 16, 24),
+    ((5, 17), 3, 64, 200),
+    ((9, 33), 5, 128, 136),
+    ((23, 40), 7, 128, 1024),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size_2d,md,d,e', B2_EDGES)
+def test_local_attention_kernel_tiling_edges(size_2d, md, d, e):
+    dev = _cuda()
+    rng = np.random.RandomState(size_2d[0] * 100 + size_2d[1] + md)
+    h, w = size_2d
+    b = 2
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    args = (t(rng.randn(b, h * w, d) * d ** -0.5), t(rng.randn(b, h * w, d)),
+            t(rng.randn(b, h * w, e)),
+            torch.from_numpy(rng.randn(b, h * w, (2 * md + 1) ** 2)
+                             .astype(np.float32)).to(dev), (h, w), md, False)
+    got = local_window_attention(*args)
+    _assert_close(got, local_window_attention_plain(*args), None)

@@ -62,8 +62,9 @@ def vos():
     jexp = jax_get_config('pre_vost_2', model='r50_deaotl')
     jmodel = jax_build(jexp.model)
     img = np.random.RandomState(0).randn(1, SIZE, SIZE, 3).astype(np.float32)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img),
-                         jnp.zeros((1, SIZE, SIZE, jexp.model.id_dim)))
+    params = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), jnp.asarray(img),
+        jnp.zeros((1, SIZE, SIZE, jexp.model.id_dim)))
     params = _perturb(params, 1)
     exp = get_config('pre_vost_2', model='r50_deaotl')
     model = build_vos_model(exp.model, device='cpu')

@@ -341,7 +341,7 @@ def test_two_head_deaot_engine_matches_jax_engine(monkeypatch):
     img0, mask0, frames = _clip()
     jexp = jax_get_config('pre_vost_2', **OVERRIDES)
     assert jexp.model.att_heads == 2
-    params = jax.device_get(jax_build(jexp.model).init(
+    params = jax.device_get(jax.jit(jax_build(jexp.model).init)(
         jax.random.PRNGKey(0), jnp.asarray(img0[:1]),
         jnp.zeros((1, SIZE, SIZE, jexp.model.id_dim))))
     want, _ = run_jax_engine(jexp, params, img0, mask0, frames)
