@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Three paths of the port are driven, each at the full width of its model:
+Three paths of the port are driven, each at the full width of its model,
+and the eval protocol on the first of them:
 `r50_deaotl` (DeAOT, one attention head: kernels B1 and B2), `r50_deaotl`
 with `no_memory_gap` (two heads: kernel B3; its temporal PE is off, because
 the model's PE is d/2 wide and a two-head query d wide, which the reference
@@ -15,14 +16,24 @@ Phases, each fatal on failure:
 2. build: compiles every CUDA kernel with nvcc (sm_90a), all at once, and
    prints each kernel's registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the three paths give it, with its time, the plain version's
-   time, one library call's time as a yardstick, the least time the card
-   could take (bound) and the share of it reached (bound / time);
+   the shapes the paths give it (B1 and B2 also at the eval protocol's
+   grids, 37x66 and 48x85), with its time, the plain version's time, one
+   library call's time as a yardstick, the least time the card could take
+   (bound) and the share of it reached (bound / time);
 4. engine, fp32, card against CPU, per path: seeded random weights, one
    reference frame and 12 frames at write gap 1 (eviction fires), holding
    eviction ids, masks and exact kernel launch counts;
 5. main path, bf16, per path: 353x625, 3 objects, at 1 and 8 streams:
-   frames/s, p50 frame latency, peak memory and a profile by kernel group.
+   frames/s, p50 frame latency, peak memory and a profile by kernel group;
+6. eval protocol, fp32, card against CPU: the port's Evaluator with flip
+   and scales (1.0, 1.3) on 241x433 frames, 3 objects, and 10 objects
+   growing to 12 (re-reference, two groups), holding eviction ids at every
+   update, written masks and exact launch counts, and scoring the card's
+   masks against the CPU's (J&F);
+7. eval protocol, bf16, 1080x1920 frames at the default test_max_size
+   (577x1041 and 753x1345), flip: eval frames/s, p50 frame latency, peak
+   memory, launches and a profiled window per sequence; then the eval CLI
+   on the synthetic test set, on its default device.
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -32,9 +43,11 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +59,10 @@ PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 H, W = 353, 625                 # DAVIS 480p long edge 624 -> 16k+1 grid
 GRID = ((H - 1) // 16 + 1, (W - 1) // 16 + 1)        # 23 x 40
 N_OBJ = 3
+# the eval protocol's grids at the default test_max_size of 1040: a 720p
+# or 1080p frame becomes 577x1041 (37x66) and, at scale 1.3, 753x1345
+# (48x85); more than 10 objects make batch 2
+EVAL_GRIDS = (((37, 66), 1), ((37, 66), 2), ((48, 85), 1))
 
 
 def nvidia_smi() -> str:
@@ -96,12 +113,13 @@ def check(cond: bool, what: str) -> None:
 
 # ---------------------------------------------------------------- kernels
 def b1_case(torch, batch: int, dtype, precise: bool, seed: int,
-            heads: int = 1, d: int = 128, cvs=(512, 512)):
-    """B1 inputs: T=10 with a dead slot in the middle, HWq = HWk = 920,
-    temporal PE. Defaults: the DeAOT one-head read (D=128, the two 512-wide
-    banks V and ID_V); the AOT read is heads=8, d=32, cvs=(32,)."""
+            heads: int = 1, d: int = 128, cvs=(512, 512), grid=GRID):
+    """B1 inputs: T=10 with a dead slot in the middle, HWq = HWk = the
+    tokens of `grid` (920 on the main path), temporal PE. Defaults: the
+    DeAOT one-head read (D=128, the two 512-wide banks V and ID_V); the AOT
+    read is heads=8, d=32, cvs=(32,)."""
     g = torch.Generator(device='cuda').manual_seed(seed)
-    hw, t_cap = GRID[0] * GRID[1], 10
+    hw, t_cap = grid[0] * grid[1], 10
     rnd = lambda *s: torch.randn(*s, generator=g, device='cuda').to(dtype)
     q, k = rnd(batch, hw, heads * d), rnd(batch, t_cap, hw, heads * d)
     vs = tuple(rnd(batch, t_cap, hw, heads * cv) for cv in cvs)
@@ -162,10 +180,11 @@ def b3_case(torch, batch: int, dtype, seed: int):
     return (q, k, (v, id_v), valid, heads, d ** -0.5), n_bytes, n_flops
 
 
-def b2_case(torch, batch: int, dtype, seed: int):
-    """Main-path B2 inputs: 23x40 grid, D=128, E=1024 (V||ID_V)."""
+def b2_case(torch, batch: int, dtype, seed: int, grid=GRID):
+    """B2 inputs of the DeAOT path: D=128, E=1024 (V||ID_V), on `grid`
+    (23x40 on the main path)."""
     g = torch.Generator(device='cuda').manual_seed(seed)
-    (h, w), d, e_dim, md = GRID, 128, 1024, 7
+    (h, w), d, e_dim, md = grid, 128, 1024, 7
     hw, ws2 = h * w, (2 * md + 1) ** 2
     rnd = lambda *s: torch.randn(*s, generator=g, device='cuda')
     q = (rnd(batch, hw, d) * d ** -0.5).to(dtype)
@@ -269,12 +288,16 @@ def phase_kernels(torch):
         memory_read_multihead, memory_read_multihead_plain)
     rows = {}
     aot = dict(heads=8, d=32, cvs=(32,))
+    eval_rows = tuple(
+        (f'b1_bf16_B{batch}_{grid[0]}x{grid[1]}', batch, torch.bfloat16,
+         False, BF16_TOL, dict(grid=grid)) for grid, batch in EVAL_GRIDS)
     for name, batch, dtype, precise, tol, shape in (
             ('b1_bf16_B1', 1, torch.bfloat16, False, BF16_TOL, {}),
             ('b1_f32_precise_B1', 1, torch.float32, True, F32_TOL, {}),
             ('b1_bf16_B8', 8, torch.bfloat16, False, BF16_TOL, {}),
             ('b1mh_bf16_B1', 1, torch.bfloat16, False, BF16_TOL, aot),
-            ('b1mh_bf16_B8', 8, torch.bfloat16, False, BF16_TOL, aot)):
+            ('b1mh_bf16_B8', 8, torch.bfloat16, False, BF16_TOL, aot)
+    ) + eval_rows:
         args, kw, n_bytes, n_flops = b1_case(torch, batch, dtype, precise, 1,
                                              **shape)
         outs, mass = memory_read_fused(*args, **kw)
@@ -350,11 +373,14 @@ def phase_kernels(torch):
                   f'{tuple(vs[0].shape)} x2 would take '
                   f'{time_ms(torch, lambda: torch.cat(vs, -1)):.4f} ms')
 
-    for name, batch, dtype, tol in (
-            ('b2_bf16_B1', 1, torch.bfloat16, BF16_TOL),
-            ('b2_f32_B1', 1, torch.float32, F32_TOL),
-            ('b2_bf16_B8', 8, torch.bfloat16, BF16_TOL)):
-        args, n_bytes, n_flops = b2_case(torch, batch, dtype, 2)
+    for name, batch, dtype, tol, grid in (
+            ('b2_bf16_B1', 1, torch.bfloat16, BF16_TOL, GRID),
+            ('b2_f32_B1', 1, torch.float32, F32_TOL, GRID),
+            ('b2_bf16_B8', 8, torch.bfloat16, BF16_TOL, GRID)) + tuple(
+                (f'b2_bf16_B{batch}_{grid[0]}x{grid[1]}', batch,
+                 torch.bfloat16, BF16_TOL, grid)
+                for grid, batch in EVAL_GRIDS):
+        args, n_bytes, n_flops = b2_case(torch, batch, dtype, 2, grid)
         out = local_window_attention(*args)
         want = local_window_attention_plain(*args)
         torch.cuda.synchronize()
@@ -529,7 +555,14 @@ def profile_frames(torch, eng, state, frames, tag: str, n: int = 5):
             state = eng.update_memory(state, eng.predict_mask(logits, (H, W)))
         end.record()
         torch.cuda.synchronize()
-    window = start.elapsed_time(end)
+    report_profile(prof, start.elapsed_time(end), n, tag)
+
+
+def report_profile(prof, window_ms: float, n: int, tag: str):
+    """Prints the device time of a profiled window of n frames by kernel
+    group, the kernels launched per frame, the idle share of the window and
+    the top kernels. Returns the device's busy ms per frame, or None when
+    the profiler saw no kernels."""
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     busy, launches, kernels = 0.0, 0, []
     for evt in prof.key_averages():
@@ -547,16 +580,17 @@ def profile_frames(torch, eng, state, frames, tag: str, n: int = 5):
     if busy == 0.0:
         print(f'profile {tag}: device time not measured (the profiler saw '
               f'no kernels)')
-        return
+        return None
     parts = ', '.join(f'{g} {t / n:.3f} ms ({100 * t / busy:.1f}%)'
                       for g, t in sorted(groups.items(), key=lambda x: -x[1]))
-    print(f'profile {tag}: {window / n:.3f} ms/frame window, '
+    print(f'profile {tag}: {window_ms / n:.3f} ms/frame window, '
           f'device busy {busy / n:.3f} ms/frame, idle share '
-          f'{max(0.0, 1 - busy / window):.3f}, {launches / n:.0f} kernels/'
-          f'frame; by group per frame: {parts}')
+          f'{max(0.0, 1 - busy / window_ms):.3f}, {launches / n:.0f} '
+          f'kernels/frame; by group per frame: {parts}')
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
         print(f'  top kernel {tag}: {ms / n:.3f} ms/frame, '
               f'{count / n:.0f}/frame, {name[:90]}')
+    return busy / n
 
 
 def phase_main_path(torch, path: str, batch: int, n_warm: int = 5,
@@ -618,6 +652,288 @@ def phase_main_path(torch, path: str, batch: int, n_warm: int = 5,
           f'(B1, B2, B3) {counts}')
     profile_frames(torch, eng, state, frames, tag)
     return counts
+
+
+# ---------------------------------------------------------------- eval
+def array_sequence(name: str, size, n_frames: int, labels: dict, seed: int,
+                   **seq_kw):
+    """A sequence of the port's eval data whose frames and labels are made
+    here from `seed` instead of read from files: smooth random images that
+    drift a little from frame to frame, and `labels`, {frame index: uint8
+    label map at `size`}. `on_frame`, when set, is called with each frame
+    index before the evaluator gets the frame (the profiler's window)."""
+    import cv2
+    from rmem_ocu_tpu_torch.data.eval_datasets import VOSSequence
+    h, w = size
+    base = np.random.RandomState(seed).rand(h // 32 + 2, w // 32 + 2, 3)
+
+    class ArraySequence(VOSSequence):
+        on_frame = None
+
+        def _raw_image(self, img_name):
+            idx = int(img_name[:5])
+            jitter = np.random.RandomState(seed * 1000 + idx).rand(
+                *base.shape)
+            small = (0.8 * base + 0.2 * jitter).astype(np.float32) * 255
+            return cv2.resize(small, (w, h), interpolation=cv2.INTER_LINEAR)
+
+        def _raw_label(self, label_name):
+            return labels[int(label_name[:5])]
+
+        def frame(self, idx):
+            if self.on_frame is not None:
+                self.on_frame(idx)
+            return super().frame(idx)
+
+    return ArraySequence('', '', name, [f'{i:05d}.jpg' for i in range(
+        n_frames)], [f'{i:05d}.png' for i in labels], **seq_kw)
+
+
+def object_labels(size, ids, rows: int, cols: int) -> np.ndarray:
+    """A label map with one rectangle per object id on a rows x cols
+    layout."""
+    lbl = np.zeros(size, np.uint8)
+    bh, bw = size[0] // rows, size[1] // cols
+    for n, obj in enumerate(ids):
+        r, c = divmod(n, cols)
+        lbl[r * bh + bh // 8:(r + 1) * bh - bh // 8,
+            c * bw + bw // 8:(c + 1) * bw - bw // 8] = obj
+    return lbl
+
+
+def eval_sequences(size, frames: tuple, new_at: int, **seq_kw):
+    """The two sequences of an eval phase: 3 objects, and 10 objects with
+    an 11th and 12th labelled at frame `new_at` (the evaluator then
+    re-references and regroups its states from one group to two)."""
+    grown = object_labels(size, range(1, 13), 3, 4)
+    grown[grown < 11] = 0
+    return {
+        'objects3': array_sequence(
+            'objects3', size, frames[0],
+            {0: object_labels(size, (1, 2, 3), 1, 3)}, seed=1, **seq_kw),
+        'objects10to12': array_sequence(
+            'objects10to12', size, frames[1],
+            {0: object_labels(size, range(1, 11), 2, 5), new_at: grown},
+            seed=2, **seq_kw)}
+
+
+def eval_counts(seq, n_aug: int):
+    """Launches of (B1, B2, B3) the evaluator makes on a sequence: per
+    augmentation, 6 B1 and 3 B2 per propagated frame and 3 B2 per
+    reference added (frame 0 and every labelled frame after it)."""
+    props = len(seq) - 1
+    refs = len(seq.labels)
+    return (6 * props * n_aug, 3 * (props + refs) * n_aug, 0)
+
+
+def record_evictions(engine) -> list:
+    """Wraps engine.update_memory; the list gets every state's ordered
+    bank frame ids after each update."""
+    ids = []
+    inner = engine.update_memory
+
+    def update_memory(state, mask):
+        state = inner(state, mask)
+        ids.append(state.bank.ordered_frame_ids.cpu())
+        return state
+    engine.update_memory = update_memory
+    return ids
+
+
+def read_masks(root: str, seq: str) -> dict:
+    from rmem_ocu_tpu_torch.ops.masks import read_mask_png
+    d = os.path.join(root, seq)
+    return {n: read_mask_png(os.path.join(d, n))
+            for n in sorted(os.listdir(d))}
+
+
+EVAL_FP32_SIZE = (241, 433)     # grids 16x28 and, at 1.3, 21x36
+
+
+def phase_eval_fp32(torch, out_root: str):
+    """The port's Evaluator in fp32 on the card and on the CPU, same
+    weights, same sequences, flip and scales (1.0, 1.3), the bank written
+    every frame (--gap 1). Holds eviction ids at every update of every
+    augmentation state, the written masks, the kernel launches, and scores
+    the card's masks against the CPU's with the port's scorer."""
+    import shutil
+    from dataclasses import replace
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.eval.evaluator import Evaluator
+    from rmem_ocu_tpu_torch.eval.scorer import (
+        GTDataset, evaluate_semisupervised, summarize)
+    from rmem_ocu_tpu_torch.data.eval_datasets import EvalDataset
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exp = replace(get_config('pre_vost_2', model='r50_deaotl'),
+                  test_long_term_mem_gap=1, test_fixed_mem_gap=True)
+    cpu_model = build_vos_model(exp.model, device='cpu', seed=0)
+    gpu_model = build_vos_model(exp.model, seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    seqs = eval_sequences(EVAL_FP32_SIZE, (12, 5), 3, max_size=1040,
+                          multi_scale=(1.0, 1.3), flip=True)
+    n_aug = 4
+    evs = {dev: Evaluator(m, exp, os.path.join(out_root, dev))
+           for dev, m in (('cpu', cpu_model), ('cuda', gpu_model))}
+    t0 = time.time()
+    for name, seq in seqs.items():
+        ids = {dev: record_evictions(ev.engine) for dev, ev in evs.items()}
+        evs['cpu'].evaluate(EvalDataset({name: seq}), verbose=False)
+        reset_counts()
+        evs['cuda'].evaluate(EvalDataset({name: seq}), verbose=False)
+        counts = read_counts()
+        for ev in evs.values():
+            del ev.engine.update_memory
+        check(counts == eval_counts(seq, n_aug),
+              f'eval fp32 {name}: launches (B1, B2, B3) {counts}, expected '
+              f'{eval_counts(seq, n_aug)}')
+        check(len(ids['cuda']) == len(ids['cpu']) > 0
+              and all(torch.equal(a, b) for a, b in zip(ids['cuda'],
+                                                        ids['cpu'])),
+              f'eval fp32 {name}: eviction ids differ: '
+              f'{[a.tolist() for a in ids["cuda"]][-4:]} vs '
+              f'{[a.tolist() for a in ids["cpu"]][-4:]}')
+        got = read_masks(os.path.join(out_root, 'cuda'), name)
+        want = read_masks(os.path.join(out_root, 'cpu'), name)
+        check(list(got) == list(want) and len(got) == len(seq) - 1,
+              f'eval fp32 {name}: files {list(got)} vs {list(want)}')
+        agree = {n: float((got[n] == want[n]).mean()) for n in got}
+        print(f'eval fp32 {name} card vs CPU: {len(seq)} frames, '
+              f'{len(ids["cuda"])} state updates with identical eviction '
+              f'ids (last {ids["cuda"][-1].tolist()}), mask agreement per '
+              f'frame {[round(a, 6) for a in agree.values()]}, differing '
+              f'pixels {[int((got[n] != want[n]).sum()) for n in got]}, '
+              f'launches (B1, B2, B3) {counts}')
+        check(min(agree.values()) > 0.999,
+              f'eval fp32 {name}: mask agreement {agree}')
+    # the scorer on the card's masks, the CPU's as ground truth
+    gt = os.path.join(out_root, 'gt')
+    os.makedirs(os.path.join(gt, 'ImageSets'))
+    with open(os.path.join(gt, 'ImageSets', 'val.txt'), 'w') as f:
+        f.write('\n'.join(seqs) + '\n')
+    shutil.copytree(os.path.join(out_root, 'cpu'),
+                    os.path.join(gt, 'Annotations'))
+    res = evaluate_semisupervised(GTDataset(gt), os.path.join(out_root,
+                                                              'cuda'),
+                                  with_boundary=True)
+    summary = summarize(res)
+    print(f'eval fp32 scorer, card masks against CPU masks: {summary}')
+    check(summary['J&F'] >= 0.999, f'eval fp32: J&F {summary["J&F"]}')
+    print(f'eval fp32 card vs CPU: ok in {time.time() - t0:.1f} s')
+
+
+EVAL_BF16_SIZE = (1080, 1920)   # 577x1041 (37x66) and 753x1345 (48x85)
+
+
+def phase_eval_bf16(torch, out_root: str):
+    """The port's Evaluator in bf16 at full resolution: 1080x1920 frames at
+    the default test_max_size, flip and scales (1.0, 1.3), the adaptive
+    write gap. Returns the launches (B1, B2, B3) of the timed runs."""
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.eval.evaluator import EvalStats, Evaluator
+    from rmem_ocu_tpu_torch.data.eval_datasets import EvalDataset
+    from torch.profiler import ProfilerActivity, profile
+    exp = get_config('pre_vost_2', model='r50_deaotl',
+                     compute_dtype='bfloat16')
+    model = build_vos_model(exp.model, seed=0).to(torch.bfloat16)
+    seq_kw = dict(max_size=exp.test_max_size, multi_scale=(1.0, 1.3),
+                  flip=True)
+    seqs = eval_sequences(EVAL_BF16_SIZE, (40, 20), 10, **seq_kw)
+    sizes = [s.image.shape[:2] for s in seqs['objects3'].frame(0)]
+    check(sizes == [(577, 1041)] * 2 + [(753, 1345)] * 2,
+          f'eval bf16 input sizes {sizes}')
+    ev = Evaluator(model, exp, out_root)
+    total = EvalStats()
+    all_counts = (0, 0, 0)
+    peak_all = 0.0
+    for name, seq in seqs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        stats = ev.evaluate(EvalDataset({name: seq}), verbose=False)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(counts == eval_counts(seq, 4),
+              f'eval bf16 {name}: launches (B1, B2, B3) {counts}, expected '
+              f'{eval_counts(seq, 4)}')
+        n_files = len(os.listdir(os.path.join(out_root, name)))
+        check(n_files == len(seq) - 1, f'eval bf16 {name}: {n_files} masks')
+        print(f'eval bf16 {name} {EVAL_BF16_SIZE[0]}x{EVAL_BF16_SIZE[1]} '
+              f'flip, scales (1.0, 1.3), {len(seq)} frames: '
+              f'{stats.total_frames / stats.total_time:.3f} eval frames/s, '
+              f'p50 frame latency {stats.p50_latency_ms:.3f} ms (4 '
+              f'augmentations a frame), peak memory {peak:.3f} GiB, '
+              f'launches (B1, B2, B3) {counts}, {n_files} masks written')
+        total.total_time += stats.total_time
+        total.total_frames += stats.total_frames
+        total.frame_times.extend(stats.frame_times)
+        all_counts = tuple(a + b for a, b in zip(all_counts, counts))
+        peak_all = max(peak_all, peak)
+    print(f'eval bf16 whole run: {total.total_frames} timed frames, '
+          f'{total.total_frames / total.total_time:.3f} eval frames/s, p50 '
+          f'frame latency {total.p50_latency_ms:.3f} ms, peak memory '
+          f'{peak_all:.3f} GiB, launches (B1, B2, B3) {all_counts}')
+
+    # one profiled window of 5 frames per sequence, in a second run of its
+    # first frames; on objects10to12 the window follows the regroup
+    device_ms = {}
+    for name, n_frames, first in (('objects3', 10, 4),
+                                  ('objects10to12', 17, 11)):
+        seq = eval_sequences(EVAL_BF16_SIZE, (n_frames, n_frames), 10,
+                             **seq_kw)[name]
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        running = []
+
+        def on_frame(idx, prof=prof, events=events, first=first,
+                     running=running):
+            if idx == first:
+                torch.cuda.synchronize()
+                prof.start()
+                running.append(True)
+                events[0].record()
+            elif idx == first + 5:
+                events[1].record()
+                torch.cuda.synchronize()
+                prof.stop()
+                running.pop()
+        seq.on_frame = on_frame
+        try:
+            ev.evaluate(EvalDataset({name: seq}), verbose=False)
+        finally:
+            if running:
+                prof.stop()
+        device_ms[name] = report_profile(
+            prof, events[0].elapsed_time(events[1]), 5, f'eval bf16 {name}')
+    if None not in device_ms.values():
+        frames = {name: len(seq) - 1 for name, seq in seqs.items()}
+        busy = sum(device_ms[n] * frames[n] for n in frames) / sum(
+            frames.values())
+        print(f'eval bf16 whole run: device busy {busy:.3f} ms/frame (the '
+              f'windows weighted by the timed frames)')
+    return all_counts
+
+
+def phase_eval_cli(out_root: str) -> None:
+    """`python -m rmem_ocu_tpu_torch.tools.eval --dataset test` on its
+    default device, the card: two synthetic 129x129 sequences of 10
+    frames, masks and print.log under out_root."""
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, '-m', 'rmem_ocu_tpu_torch.tools.eval', '--dataset',
+         'test', '--output', out_root],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    check(out.returncode == 0,
+          f'eval CLI: exit {out.returncode}: {out.stderr[-2000:]}')
+    n_masks = sum(len(os.listdir(os.path.join(out_root, s)))
+                  for s in ('test_0', 'test_1'))
+    check(n_masks == 18 and os.path.isfile(os.path.join(out_root,
+                                                        'print.log')),
+          f'eval CLI: {n_masks} masks')
+    print(f'eval CLI on the card: ok in {time.time() - t0:.1f} s, '
+          f'{n_masks} masks; {out.stdout.strip().splitlines()[-1]}')
 
 
 def print_resources(logs) -> None:
@@ -691,6 +1007,11 @@ def main() -> int:
     for path in PATHS:
         counts[path] = phase_main_path(torch, path, 1)
         phase_main_path(torch, path, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_eval_fp32(torch, os.path.join(tmp, 'fp32'))
+        counts['eval_bf16'] = phase_eval_bf16(torch, os.path.join(tmp,
+                                                                  'bf16'))
+        phase_eval_cli(os.path.join(tmp, 'cli'))
 
     kernels = []
     for name, src, replaces, row_name, idx, path in KERNELS:

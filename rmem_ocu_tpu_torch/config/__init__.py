@@ -3,6 +3,7 @@ from rmem_ocu_tpu_torch.config.defaults import (  # noqa: F401
     STAGE_REGISTRY,
     ExpConfig,
     ModelConfig,
+    config_from_dict,
     get_config,
     get_model_config,
 )

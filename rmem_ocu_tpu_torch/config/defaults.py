@@ -1,17 +1,18 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the parts of the JAX package's `config/defaults.py` that
-streaming inference reads: the fields of `ModelConfig` / `ExpConfig` it
-uses, the `r50_deaotl` (DeAOT) and `r50_aotl` (AOT) registry entries and
-the `pre_vost` / `pre_vost_2` stages. Values are the reference's
-(aot_plus/configs), so the two packages agree field by field; the CPU tests
-hold them to that.
+inference and evaluation read: every model field that is not a training
+setting, the eval and directory fields of `ExpConfig`, the `r50_deaotl`
+(DeAOT) and `r50_aotl` (AOT) registry entries, every stage with the model
+overrides it makes, and the reload of a `config_to_dict` snapshot. Values
+are the reference's (aot_plus/configs), so the two packages agree field by
+field; the CPU tests hold them to that.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field, replace
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -43,6 +44,26 @@ class ModelConfig:
     no_long_memory: bool = False
     no_memory_gap: bool = False
     reverse_loss: float = 0.4
+    use_mask: bool = False                # topdown-encoder mask conditioning
+    oracle: bool = False
+    # read by no code, here or in the reference; kept so that a snapshot
+    # of the JAX package keeps them
+    norm_inp: bool = True
+    epsilon: float = 1e-5
+    time_encode: bool = False
+    time_encode_norm: bool = False
+
+    def __post_init__(self):
+        # ORACLE implies mask conditioning, and only the TopDown encoder
+        # takes a mask (reference configs/models/r50_topdown_aotl.py:13,
+        # networks/models/aot.py:23)
+        if self.oracle and not self.use_mask:
+            object.__setattr__(self, 'use_mask', True)
+        if self.use_mask and 'topdown' not in self.encoder:
+            raise ValueError(
+                f'use_mask/oracle requires the mask-conditioned topdown '
+                f'encoder (got encoder={self.encoder!r}); use model '
+                f'r50_topdown_aotl')
 
     @property
     def id_dim(self) -> int:
@@ -57,15 +78,48 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ExpConfig:
-    """Experiment config composed with a model (the eval-relevant subset
-    of the JAX package's ExpConfig)."""
+    """Experiment config composed with a model: the JAX package's
+    ExpConfig without its training fields (`TRAINING_FIELDS`)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     exp_name: str = 'default'
     stage_name: str = 'default'
+
+    # --- eval ---
+    test_dataset: str = 'youtubevos'
+    test_dataset_split: str = 'val'
+    test_ckpt_path: Optional[str] = None
+    test_ckpt_step: Optional[int] = None
+    test_ema: bool = True                 # reference cfg.TEST_EMA
+    # multi-group logit merge: 'soft' (bg = prod of bg probs,
+    # aot_engine.py:650-673) or 'min' (bg = min logit, :630-648)
+    test_aggregation: str = 'soft'
+    test_flip: bool = False
+    test_multiscale: Tuple[float, ...] = (1.0,)
+    # DAVIS Full-Resolution vs 480p image root (reference
+    # TEST_DATASET_FULL_RESOLUTION, evaluator.py:171-197)
+    test_dataset_full_resolution: bool = False
+    test_min_size: Optional[int] = None
+    test_max_size: float = 800 * 1.3
+    test_workers: int = 4                 # read by no code, as in the JAX one
     test_long_term_mem_gap: int = 9999
     test_short_term_mem_skip: int = 1
+    # pin the eval write gap to test_long_term_mem_gap instead of the
+    # per-sequence adaptive max(round(frames/30), 5) of the reference
+    # (evaluator.py:331-335); tools/eval.py --gap sets it
+    test_fixed_mem_gap: bool = False
+
+    # --- dirs ---
+    dir_data: str = './datasets'
+    dir_root: str = './results'
+
     compute_dtype: str = 'float32'        # 'float32' | 'bfloat16'
+
+    def dir_result(self) -> str:
+        import os
+        return os.path.join(self.dir_root,
+                            f'{self.exp_name}_{self.model.model_name}',
+                            self.stage_name)
 
 
 def _deaot_defaults(**kw) -> ModelConfig:
@@ -109,18 +163,83 @@ def _stage_default(model: ModelConfig, exp_name: str) -> ExpConfig:
                      test_long_term_mem_gap=model.test_long_term_mem_gap)
 
 
-def _stage_pre_vost(model, exp, stage_name):
-    # Reference: configs/pre_vost.py, pre_vost_2.py. The stages differ only
-    # in training settings, which the port does not have yet.
-    model = replace(model, linear_q=False, ignore_token=True)
-    return replace(_stage_default(model, exp), stage_name=stage_name)
+def _stage(stage_name: str, **model_overrides):
+    """A stage of the reference (configs/*.py): its name and the model
+    settings it overrides. The stages differ otherwise only in training
+    settings, which the port does not have yet (ROADMAP item 14)."""
+    def make(model: ModelConfig, exp_name: str) -> ExpConfig:
+        return replace(_stage_default(replace(model, **model_overrides),
+                                      exp_name), stage_name=stage_name)
+    return make
 
 
 STAGE_REGISTRY = {
-    'default': _stage_default,
-    'pre_vost': lambda m, e: _stage_pre_vost(m, e, 'pre_vost'),
-    'pre_vost_2': lambda m, e: _stage_pre_vost(m, e, 'pre_vost_2'),
+    'default': _stage('default'),
+    'pre': _stage('pre', linear_q=True),
+    'pre_vost': _stage('pre_vost', linear_q=False, ignore_token=True),
+    'pre_vost_2': _stage('pre_vost_2', linear_q=False, ignore_token=True),
+    'pre_vost_25q': _stage('pre_vost_25q', linear_q=False,
+                           ignore_token=True),
+    'pre_ytb': _stage('pre_ytb', linear_q=True),
+    'pre_dav': _stage('pre_dav'),
+    'pre_ytb_dav': _stage('pre_ytb_dav'),
+    'ytb': _stage('ytb'),
 }
+
+# Fields of a JAX package snapshot (`config_to_dict`) that only training
+# reads; config_from_dict drops them (ROADMAP item 14 ports training).
+TRAINING_FIELDS = frozenset((
+    'datasets', 'data_workers', 'data_randomcrop', 'data_randomflip',
+    'data_max_crop_steps', 'data_short_edge_len', 'data_min_scale_factor',
+    'data_max_scale_factor', 'data_random_reverse_seq', 'data_seq_len',
+    'data_davis_repeat', 'data_vost_repeat', 'data_vost_ignore_thresh',
+    'data_vost_all_frames', 'data_vost_valid_frames',
+    'data_random_gap_davis', 'data_random_gap_ytb', 'data_random_gap_vost',
+    'data_random_gap_visor', 'data_dynamic_merge_prob', 'ignore_in_merge',
+    'enable_prev_frame', 'data_visor_repeat', 'data_visor_ignore_thresh',
+    'pretrain', 'pretrain_full', 'pretrain_model',
+    'train_total_steps', 'train_start_step', 'train_tblog',
+    'train_img_log_step', 'train_weight_decay',
+    'train_weight_decay_exemption', 'train_lr', 'train_lr_min',
+    'train_lr_power', 'train_lr_encoder_ratio', 'train_lr_warm_up_ratio',
+    'train_lr_cosine_decay', 'train_lr_restart', 'train_aux_loss_weight',
+    'train_aux_loss_ratio', 'train_opt', 'train_sgd_momentum',
+    'train_batch_size', 'train_log_step', 'train_top_k_percent_pixels',
+    'train_seq_training_freeze_params', 'train_seq_training_start_ratio',
+    'train_hard_mining_ratio', 'train_ema_ratio', 'train_clip_grad_norm',
+    'train_save_step', 'train_max_keep_ckpt', 'train_resume',
+    'train_auto_resume', 'train_encoder_freeze_at', 'train_lstt_emb_dropout',
+    'train_lstt_id_dropout', 'train_lstt_droppath',
+    'train_lstt_droppath_scaling', 'train_lstt_droppath_lst',
+    'train_lstt_lt_dropout', 'train_lstt_st_dropout',
+    'train_long_term_mem_gap', 'train_short_term_mem_skip',
+    'train_remat_policy', 'train_encoder_chunk', 'train_amp',
+    'train_scan_unroll', 'mesh_shape', 'mesh_axes',
+    'train_spatial_sharding', 'train_zero1'))
+MODEL_TRAINING_FIELDS = frozenset((
+    'freeze_bn', 'freeze_backbone', 'train_long_term_mem_gap',
+    'freeze_except_temporal_pe', 'freeze_except_gru', 'reverse_infer',
+    'var_loss_weight', 'top_down_freeze_encoder'))
+
+
+def config_from_dict(d: dict) -> ExpConfig:
+    """Rebuild an ExpConfig from a snapshot written by the JAX package's
+    `config_to_dict` (and read back from JSON), the reload of the
+    reference's eval.py:97-102. Every model and eval field is kept; the
+    training fields listed in `TRAINING_FIELDS` and `MODEL_TRAINING_FIELDS`
+    are dropped. Any other field the port does not know raises."""
+    def take(values: dict, cls, dropped: frozenset) -> dict:
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(values) - known - dropped)
+        if unknown:
+            raise ValueError(f'{cls.__name__} has no fields {unknown}')
+        return {k: tuple(v) if isinstance(v, list) else v
+                for k, v in values.items() if k in known}
+
+    d = dict(d)
+    model = ModelConfig(**take(d.pop('model'), ModelConfig,
+                               MODEL_TRAINING_FIELDS))
+    return ExpConfig(model=model, **take(d, ExpConfig, TRAINING_FIELDS))
 
 
 def get_config(stage: str, exp_name: str = 'default',

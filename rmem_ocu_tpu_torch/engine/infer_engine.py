@@ -105,9 +105,11 @@ class InferEngine:
                 self.device, dtype)
         return self._self_pos[key]
 
-    def init_state(self, batch: int, size_2d: Tuple[int, int]
-                   ) -> EngineState:
-        """Empty state for `batch` streams on the encoder grid size_2d."""
+    def init_state(self, batch: int, size_2d: Tuple[int, int],
+                   mem_gap: Optional[int] = None) -> EngineState:
+        """Empty state for `batch` streams on the encoder grid size_2d,
+        writing the long-term bank every `mem_gap` frames (the engine's
+        gap by default; the evaluator sets it per sequence)."""
         cfg = self.cfg
         hw = size_2d[0] * size_2d[1]
         ck, cv, with_id = self._dims()
@@ -134,7 +136,7 @@ class InferEngine:
             pred_logits_4x=torch.zeros((batch, h4, w4, cfg.max_obj_num + 1),
                                        dtype=dt, device=dev),
             frame_step=0, last_mem_step=-1,
-            mem_gap=self.gap,
+            mem_gap=self.gap if mem_gap is None else mem_gap,
             obj_nums=torch.ones(batch, dtype=torch.long, device=dev),
             gru_hidden_k=zeros(ck) if gru else None,
             gru_hidden_v=zeros(cv) if gru else None)

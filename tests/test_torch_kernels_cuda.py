@@ -286,3 +286,51 @@ def test_local_attention_kernel_tiling_edges(size_2d, md, d, e):
                              .astype(np.float32)).to(dev), (h, w), md, False)
     got = local_window_attention(*args)
     _assert_close(got, local_window_attention_plain(*args), None)
+
+
+# The encoder grids of the eval protocol at the default test_max_size of
+# 1040: a 720p or 1080p frame becomes 577x1041 (37x66 tokens) and, at
+# scale 1.3, 753x1345 (48x85); more than 10 objects make batch 2.
+EVAL_GRIDS = [((37, 66), 1), ((37, 66), 2), ((48, 85), 1), ((48, 85), 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size_2d,b', EVAL_GRIDS)
+def test_memory_read_kernel_at_eval_grids(size_2d, b):
+    """B1 as the DeAOT read calls it at eval: one head of 128, V and ID_V
+    of 512 each, T_cap 10 with a dead slot, the temporal PE."""
+    dev = _cuda()
+    rng = np.random.RandomState(size_2d[0] + b)
+    hw, t_cap, d = size_2d[0] * size_2d[1], 10, 128
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    q = t(rng.randn(b, hw, d))
+    k = t(rng.randn(b, t_cap, hw, d))
+    vs = tuple(t(rng.randn(b, t_cap, hw, 512)) for _ in range(2))
+    valid = torch.from_numpy(np.stack([_dead_slots(t_cap, 'middle')] * b))
+    pe = t(rng.randn(1, t_cap, d) * 0.05)
+    args = (q, k, vs, valid.to(dev), 1, d ** -0.5)
+    got, got_mass = memory_read_fused(*args, mem_pe=pe)
+    want, want_mass = memory_read_fused_plain(*args, mem_pe=pe)
+    for g, w in zip(got, want):
+        _assert_close(g, w, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size_2d,b', EVAL_GRIDS)
+def test_local_attention_kernel_at_eval_grids(size_2d, b):
+    """B2 as the DeAOT short-term read calls it: D=128, E=1024 (V||ID_V),
+    15x15 windows; both eval grids are ragged against the 4x16 patch."""
+    dev = _cuda()
+    rng = np.random.RandomState(size_2d[1] + b)
+    h, w = size_2d
+    d, e, md = 128, 1024, 7
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    args = (t(rng.randn(b, h * w, d) * d ** -0.5), t(rng.randn(b, h * w, d)),
+            t(rng.randn(b, h * w, e)),
+            torch.from_numpy(rng.randn(b, h * w, (2 * md + 1) ** 2)
+                             .astype(np.float32)).to(dev), (h, w), md, False)
+    got = local_window_attention(*args)
+    _assert_close(got, local_window_attention_plain(*args), None)
