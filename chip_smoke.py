@@ -3,13 +3,19 @@
 
     python3 chip_smoke.py
 
-Three paths of the port are driven, each at the full width of its model,
-and the eval protocol on the first of them:
-`r50_deaotl` (DeAOT, one attention head: kernels B1 and B2), `r50_deaotl`
-with `no_memory_gap` (two heads: kernel B3; its temporal PE is off, because
-the model's PE is d/2 wide and a two-head query d wide, which the reference
-package cannot add either) and `r50_aotl` (AOT, LSTT with 8 heads: kernel
-B1 in its multi-head, one-bank mode).
+Nine paths of the port are driven, each at the full width of its model,
+and the eval protocol on the first of them. The ResNet-50 paths of the
+earlier slices: `r50_deaotl` (DeAOT, one attention head: kernels B1 and
+B2), `r50_deaotl` with `no_memory_gap` (two heads: kernel B3; its temporal
+PE is off, because the model's PE is d/2 wide and a two-head query d wide,
+which the reference package cannot add either) and `r50_aotl` (AOT, LSTT
+with 8 heads: kernel B1 in its multi-head, one-bank mode). This slice's
+main path, `swinb_deaotl` (Swin-B, align_corners=False: 352x624 inputs, a
+22x39 grid; B1 and B2), and one model for each other encoder:
+`swinb_aotl` (B1 with 8 heads), `deaotl` (MobileNetV2), `r101_aotl`,
+`rs101_aotl` (ResNeSt-101), `aotl` with `encoder='mobilenetv3'` (no
+registered model uses MobileNetV3), and `r50_topdown_aotl` with the VOST
+oracle through the Evaluator.
 
 Phases, each fatal on failure:
 1. environment: card name and power limit, torch and CUDA versions;
@@ -17,14 +23,18 @@ Phases, each fatal on failure:
    prints each kernel's registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (B1 and B2 also at the eval protocol's
-   grids, 37x66 and 48x85), with its time, the plain version's time, one
-   library call's time as a yardstick, the least time the card could take
-   (bound) and the share of it reached (bound / time);
+   grids, 37x66 and 48x85, and at Swin's 22x39), with its time, the plain
+   version's time, one library call's time as a yardstick, the least time
+   the card could take (bound) and the share of it reached (bound / time);
 4. engine, fp32, card against CPU, per path: seeded random weights, one
-   reference frame and 12 frames at write gap 1 (eviction fires), holding
-   eviction ids, masks and exact kernel launch counts;
-5. main path, bf16, per path: 353x625, 3 objects, at 1 and 8 streams:
-   frames/s, p50 frame latency, peak memory and a profile by kernel group;
+   reference frame and 10-12 frames at write gap 1 (eviction fires; 12 at
+   353x625 for the ResNet-50 paths, 10 at 128x224 or 129x225 for the
+   others), holding eviction ids, masks and exact kernel launch counts;
+5. main path, bf16, per path: 353x625 (352x624 for Swin), 3 objects, at 1
+   and 8 streams (the ResNet-50 paths and swinb_deaotl) or 1: frames/s,
+   p50 frame latency, peak memory and a profile by kernel group and by
+   part of the model (encoder, in Swin its window attention, the
+   attention's qkv and proj linears and the MLPs; LSTT; decoder);
 6. eval protocol, fp32, card against CPU: the port's Evaluator with flip
    and scales (1.0, 1.3) on 241x433 frames, 3 objects, and 10 objects
    growing to 12 (re-reference, two groups), holding eviction ids at every
@@ -33,7 +43,10 @@ Phases, each fatal on failure:
 7. eval protocol, bf16, 1080x1920 frames at the default test_max_size
    (577x1041 and 753x1345), flip: eval frames/s, p50 frame latency, peak
    memory, launches and a profiled window per sequence; then the eval CLI
-   on the synthetic test set, on its default device.
+   on the synthetic test set, on its default device;
+8. the VOST oracle, `r50_topdown_aotl`: the Evaluator fp32 on the card
+   against the CPU (129x225, flip: eviction ids at every update, masks,
+   launches, no re-reference), then bf16 on 1080x1920 frames.
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -58,6 +71,9 @@ PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 
 H, W = 353, 625                 # DAVIS 480p long edge 624 -> 16k+1 grid
 GRID = ((H - 1) // 16 + 1, (W - 1) // 16 + 1)        # 23 x 40
+# align_corners=False models (Swin) snap to 16k instead: 352x624, 22 x 39
+SWIN_SIZE = (352, 624)
+SWIN_GRID = (SWIN_SIZE[0] // 16, SWIN_SIZE[1] // 16)
 N_OBJ = 3
 # the eval protocol's grids at the default test_max_size of 1040: a 720p
 # or 1080p frame becomes 577x1041 (37x66) and, at scale 1.3, 753x1345
@@ -291,13 +307,18 @@ def phase_kernels(torch):
     eval_rows = tuple(
         (f'b1_bf16_B{batch}_{grid[0]}x{grid[1]}', batch, torch.bfloat16,
          False, BF16_TOL, dict(grid=grid)) for grid, batch in EVAL_GRIDS)
+    g = f'{SWIN_GRID[0]}x{SWIN_GRID[1]}'
+    swin_rows = tuple(
+        (f'{kind}_bf16_B{batch}_{g}', batch, torch.bfloat16, False,
+         BF16_TOL, dict(grid=SWIN_GRID, **shape))
+        for kind, shape in (('b1', {}), ('b1mh', aot)) for batch in (1, 8))
     for name, batch, dtype, precise, tol, shape in (
             ('b1_bf16_B1', 1, torch.bfloat16, False, BF16_TOL, {}),
             ('b1_f32_precise_B1', 1, torch.float32, True, F32_TOL, {}),
             ('b1_bf16_B8', 8, torch.bfloat16, False, BF16_TOL, {}),
             ('b1mh_bf16_B1', 1, torch.bfloat16, False, BF16_TOL, aot),
             ('b1mh_bf16_B8', 8, torch.bfloat16, False, BF16_TOL, aot)
-    ) + eval_rows:
+    ) + eval_rows + swin_rows:
         args, kw, n_bytes, n_flops = b1_case(torch, batch, dtype, precise, 1,
                                              **shape)
         outs, mass = memory_read_fused(*args, **kw)
@@ -379,7 +400,8 @@ def phase_kernels(torch):
             ('b2_bf16_B8', 8, torch.bfloat16, BF16_TOL, GRID)) + tuple(
                 (f'b2_bf16_B{batch}_{grid[0]}x{grid[1]}', batch,
                  torch.bfloat16, BF16_TOL, grid)
-                for grid, batch in EVAL_GRIDS):
+                for grid, batch in EVAL_GRIDS + ((SWIN_GRID, 1),
+                                                 (SWIN_GRID, 8))):
         args, n_bytes, n_flops = b2_case(torch, batch, dtype, 2, grid)
         out = local_window_attention(*args)
         want = local_window_attention_plain(*args)
@@ -409,25 +431,36 @@ def phase_kernels(torch):
 
 
 # ---------------------------------------------------------------- engine
-def make_inputs(batch: int, n_frames: int, seed: int,
+def make_inputs(batch: int, n_frames: int, seed: int, size=(H, W),
                 independent: bool = False):
     """A clip of frames near the reference frame, or, `independent`, of
     unrelated frames: then the memory slots differ enough for the
     attention-usage scores to separate them (a near-static clip makes the
     LSTT's eviction choice a tie that rounding breaks)."""
     rng = np.random.RandomState(seed)
-    img0 = rng.randn(batch, H, W, 3).astype(np.float32)
-    mask0 = (rng.rand(batch, H, W) * (N_OBJ + 1)).astype(np.int64)
+    img0 = rng.randn(batch, *size, 3).astype(np.float32)
+    mask0 = (rng.rand(batch, *size) * (N_OBJ + 1)).astype(np.int64)
     base = 0.0 if independent else img0
     frames = [(base + (1.0 if independent else 0.5)
-               * rng.randn(batch, H, W, 3)).astype(np.float32)
+               * rng.randn(batch, *size, 3)).astype(np.float32)
               for _ in range(n_frames)]
     return img0, mask0, frames
 
 
-# The three paths: config overrides, the write gap of the bf16 run, and the
-# kernel launches (B1, B2, B3) per propagated frame and per reference frame.
-# A bank read (B1 or B3) is two launches, the split read and its combine.
+# The paths: config overrides, the write gap of the bf16 run, the kernel
+# launches (B1, B2, B3) per propagated frame and per reference frame, and
+# (where not the defaults below) the bf16 run's input size, its stream
+# counts and frame counts, and the fp32 check's input size and frame
+# count. A bank read (B1 or B3) is two launches, the split read and its
+# combine. The first three paths are the ResNet-50 ones of the earlier
+# slices; `swinb_deaotl` is this slice's main path, and one model stands
+# for each other encoder (MobileNetV3 in AOT-L, the only way a registered
+# configuration reaches it).
+DEFAULTS = dict(size=(H, W), streams=(1, 8), warm=5, timed=30,
+                check_size=(H, W), check_frames=12, feed_cpu_mask=False)
+NEW = dict(check_frames=10, feed_cpu_mask=True)
+ONE_STREAM = dict(NEW, streams=(1,), warm=3, timed=10)
+SMALL = (129, 225)              # 9 x 15 grid
 PATHS = {
     'deaot_1head': dict(
         overrides=dict(model='r50_deaotl'), gap=5,
@@ -439,11 +472,53 @@ PATHS = {
     'aot': dict(
         overrides=dict(model='r50_aotl'), gap=5,
         per_frame=(6, 0, 0), per_reference=(0, 0, 0)),
+    # the paths below write the CPU engine's mask into both engines'
+    # memories in the fp32 check (`feed_cpu_mask`): with random weights
+    # DeAOT-L on MobileNetV2 has logits so near a tie that summation order
+    # flips 5 of 29025 pixels at frame 1, and when each engine writes its
+    # own mask the flips compound through the memory (42 pixels at frame
+    # 2); fed one mask, each frame holds only the arithmetic of that step
+    'swinb_deaotl': dict(
+        overrides=dict(model='swinb_deaotl'), gap=5,
+        per_frame=(6, 3, 0), per_reference=(0, 3, 0), size=SWIN_SIZE,
+        check_size=(128, 224), **NEW),
+    'swinb_aotl': dict(
+        overrides=dict(model='swinb_aotl'), gap=5,
+        per_frame=(6, 0, 0), per_reference=(0, 0, 0), size=SWIN_SIZE,
+        **ONE_STREAM, check_size=(128, 224)),
+    'deaotl_mobilenetv2': dict(
+        overrides=dict(model='deaotl'), gap=5,
+        per_frame=(6, 3, 0), per_reference=(0, 3, 0), **ONE_STREAM,
+        check_size=SMALL),
+    'r101_aotl': dict(
+        overrides=dict(model='r101_aotl'), gap=5,
+        per_frame=(6, 0, 0), per_reference=(0, 0, 0), **ONE_STREAM,
+        check_size=SMALL),
+    'rs101_aotl': dict(
+        overrides=dict(model='rs101_aotl'), gap=5,
+        per_frame=(6, 0, 0), per_reference=(0, 0, 0), **ONE_STREAM,
+        check_size=SMALL),
+    'aotl_mobilenetv3': dict(
+        overrides=dict(model='aotl', encoder='mobilenetv3',
+                       encoder_dim=(24, 40, 112, 960)), gap=5,
+        per_frame=(6, 0, 0), per_reference=(0, 0, 0), **ONE_STREAM,
+        check_size=SMALL),
 }
 
 
+def spec_of(path: str) -> dict:
+    return {**DEFAULTS, **PATHS[path]}
+
+
+def grid_of(size, align_corners: bool):
+    """The encoder grid of an input size: (s - 1) // 16 + 1 with
+    align_corners, else s // 16."""
+    return tuple((s - 1) // 16 + 1 if align_corners else s // 16
+                 for s in size)
+
+
 def expected_counts(path: str, n_frames: int, n_reference: int = 1):
-    spec = PATHS[path]
+    spec = spec_of(path)
     return tuple(f * n_frames + r * n_reference for f, r
                  in zip(spec['per_frame'], spec['per_reference']))
 
@@ -466,20 +541,25 @@ def read_counts():
 
 
 def phase_engine_fp32(torch, path: str):
-    """fp32 card against CPU, same weights, same inputs, in lock-step."""
+    """fp32 card against CPU, same weights, same inputs, in lock-step, the
+    bank written every frame."""
     from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
+    from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    exp = get_config('pre_vost_2', **PATHS[path]['overrides'])
+    spec = spec_of(path)
+    exp = get_config('pre_vost_2', **spec['overrides'])
     cpu_model = build_vos_model(exp.model, device='cpu', seed=0)
     gpu_model = build_vos_model(exp.model, seed=1)
     gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
-    n_frames = 12
-    img0, mask0, frames = make_inputs(1, n_frames, seed=3,
+    n_frames, size = spec['check_frames'], spec['check_size']
+    img0, mask0, frames = make_inputs(1, n_frames, seed=3, size=size,
                                       independent=exp.model.vos == 'aot')
     engines = [InferEngine(m, exp, long_term_mem_gap=1)
                for m in (cpu_model, gpu_model)]
-    states = [e.init_state(1, GRID) for e in engines]
+    states = [e.init_state(1, grid_of(size, exp.model.align_corners))
+              for e in engines]
+    t0 = time.time()
     reset_counts()
     for i, e in enumerate(engines):
         states[i] = e.add_reference_frame(
@@ -492,10 +572,12 @@ def phase_engine_fp32(torch, path: str):
         for i, e in enumerate(engines):
             logits, states[i] = e.propagate(states[i], torch.from_numpy(f))
             masses.append(states[i].pending_mass.float().cpu())
-            pred = e.predict_mask(logits, (H, W))
-            states[i] = e.update_memory(states[i], pred)
+            pred = e.predict_mask(logits, size)
             preds.append(pred.cpu())
             logits_all.append(logits.float().cpu())
+        for i, e in enumerate(engines):
+            states[i] = e.update_memory(
+                states[i], preds[0] if spec['feed_cpu_mask'] else preds[i])
         ids = [s.bank.frame_ids.cpu() for s in states]
         ordered = [s.bank.ordered_frame_ids.cpu() for s in states]
         agree = float((preds[0] == preds[1]).float().mean())
@@ -504,12 +586,24 @@ def phase_engine_fp32(torch, path: str):
         worst_logit, worst_agree = max(worst_logit, diff), min(worst_agree,
                                                                agree)
         worst_mass = max(worst_mass, max_err(masses[0], masses[1]))
+        # a pixel may differ only where the CPU's two best upsampled logits
+        # are within twice the largest logit difference (bilinear
+        # upsampling mixes logits convexly)
+        up = interpolate_bilinear(logits_all[0].permute(0, 3, 1, 2), size,
+                                  exp.model.align_corners)
+        top2 = up.topk(2, dim=1).values
+        gaps = (top2[:, 0] - top2[:, 1])[preds[0] != preds[1]]
+        gap = float(gaps.max()) if gaps.numel() else 0.0
         print(f'engine fp32 {path} frame {t}: ordered ids '
               f'{ordered[1][0].tolist()} mask agreement {agree:.6f} max '
-              f'|logit diff| {diff:.3e}')
+              f'|logit diff| {diff:.3e}, largest top-two gap at a differing '
+              f'pixel {gap:.3e}')
         check(torch.equal(ids[0], ids[1]) and torch.equal(*ordered),
               f'{path} frame {t}: eviction ids differ {ordered}')
         check(agree > 0.999, f'{path} frame {t}: mask agreement {agree}')
+        check(gap <= 2 * diff + 1e-6, f'{path} frame {t}: a pixel whose '
+                                      f'top-two logits differ by {gap} '
+                                      f'flipped')
         check(int(ordered[1][0, 0]) == 0, 'reference frame left slot 0')
         check(int(states[1].bank.length[0]) == min(t + 2, budget),
               f'{path} frame {t}: bank length '
@@ -520,10 +614,12 @@ def phase_engine_fp32(torch, path: str):
     check(counts == expected_counts(path, n_frames),
           f'{path}: kernel launches (B1, B2, B3) {counts} for {n_frames} '
           f'frames, expected {expected_counts(path, n_frames)}')
-    print(f'engine fp32 {path} card vs CPU: ok, {n_frames} frames, eviction '
-          f'ids identical, worst mask agreement {worst_agree:.6f}, worst '
-          f'|logit diff| {worst_logit:.3e}, worst |mass diff| '
-          f'{worst_mass:.3e}, launches (B1, B2, B3) {counts}')
+    print(f'engine fp32 {path} card vs CPU {size[0]}x{size[1]}'
+          f'{", the CPU mask written into both" if spec["feed_cpu_mask"] else ""}'
+          f': ok in {time.time() - t0:.1f} s, {n_frames} frames, eviction ids '
+          f'identical, worst mask agreement {worst_agree:.6f}, worst |logit '
+          f'diff| {worst_logit:.3e}, worst |mass diff| {worst_mass:.3e}, '
+          f'launches (B1, B2, B3) {counts}')
 
 
 # kernel-name fragments -> group, first match wins (cuDNN's implicit-GEMM
@@ -533,39 +629,84 @@ KERNEL_GROUPS = (
     ('B1 memory_read', ('memory_read',)),
     ('B2 local_attn', ('local_attn',)),
     ('convolution', ('conv', 'fprop', 'implicit', 'winograd', 'cudnn')),
-    ('matmul', ('gemm', 'cutlass', 'cublas', 'xmma')),
+    ('matmul', ('gemm', 'cutlass', 'cublas', 'xmma', 'nvjet')),
     ('normalisation', ('norm',)),
     ('softmax', ('softmax',)),
     ('other', ('',)),
 )
 
 
-def profile_frames(torch, eng, state, frames, tag: str, n: int = 5):
-    """torch.profiler over n frames: device time by kernel group, kernels
-    launched per frame and the device's idle share of the window."""
+def annotate_modules(model):
+    """Profiler ranges around the model's parts, by forward hooks (the
+    port's code carries none): the encoder, in Swin its window attention
+    (the whole WindowAttention module, and apart its qkv and proj linears)
+    and its MLPs, the LSTT / GPM stack and the decoder. Returns the hook
+    handles; report_profile reads each range's device time."""
+    from torch.profiler import record_function
+    from rmem_ocu_tpu_torch.models.encoders.swin import Mlp, WindowAttention
+    parts = [('encoder', model.encoder), ('lstt', model.LSTT),
+             ('decoder', model.decoder)]
+    for m in model.modules():
+        if isinstance(m, WindowAttention):
+            parts += [('swin window attention', m),
+                      ('swin attention qkv + proj linears', m.qkv),
+                      ('swin attention qkv + proj linears', m.proj)]
+        elif isinstance(m, Mlp):
+            parts.append(('swin mlp', m))
+    handles = []
+    for name, mod in parts:
+        ranges = []
+
+        def enter(_mod, _args, name=name, ranges=ranges):
+            ranges.append(record_function(f'part: {name}').__enter__())
+
+        def leave(_mod, _args, _out, ranges=ranges):
+            ranges.pop().__exit__(None, None, None)
+        handles.append(mod.register_forward_pre_hook(enter))
+        handles.append(mod.register_forward_hook(leave))
+    return handles
+
+
+def profile_frames(torch, eng, state, frames, tag: str, size, n: int = 5):
+    """torch.profiler over n frames: device time by kernel group and by
+    part of the model, kernels launched per frame and the device's idle
+    share of the window."""
     from torch.profiler import ProfilerActivity, profile
+    handles = annotate_modules(eng.model)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for i in range(n):
-            logits, state = eng.propagate(state, frames[i % len(frames)])
-            state = eng.update_memory(state, eng.predict_mask(logits, (H, W)))
-        end.record()
-        torch.cuda.synchronize()
-    report_profile(prof, start.elapsed_time(end), n, tag)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for i in range(n):
+                logits, state = eng.propagate(state, frames[i % len(frames)])
+                state = eng.update_memory(state,
+                                          eng.predict_mask(logits, size))
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return report_profile(prof, start.elapsed_time(end), n, tag)
 
 
 def report_profile(prof, window_ms: float, n: int, tag: str):
     """Prints the device time of a profiled window of n frames by kernel
-    group, the kernels launched per frame, the idle share of the window and
-    the top kernels. Returns the device's busy ms per frame, or None when
-    the profiler saw no kernels."""
+    group, the kernels launched per frame, the idle share of the window,
+    the top kernels and, where annotate_modules marked them, the device
+    time of the model's parts. Returns the device's busy ms per frame, or
+    None when the profiler saw no kernels."""
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    busy, launches, kernels = 0.0, 0, []
+    busy, launches, kernels, parts = 0.0, 0, [], {}
     for evt in prof.key_averages():
+        if evt.key.startswith('part: '):
+            # the CPU range's device time sums the kernels launched in it;
+            # its device-side twin spans the range, gaps included
+            if not str(evt.device_type).endswith('CUDA'):
+                parts[evt.key[6:]] = evt.device_time_total / 1e3
+            continue
         if not str(evt.device_type).endswith('CUDA'):
             continue
         ms = evt.self_device_time_total / 1e3
@@ -581,31 +722,37 @@ def report_profile(prof, window_ms: float, n: int, tag: str):
         print(f'profile {tag}: device time not measured (the profiler saw '
               f'no kernels)')
         return None
-    parts = ', '.join(f'{g} {t / n:.3f} ms ({100 * t / busy:.1f}%)'
-                      for g, t in sorted(groups.items(), key=lambda x: -x[1]))
+    parts_s = ', '.join(f'{g} {t / n:.3f} ms ({100 * t / busy:.1f}%)'
+                        for g, t in sorted(groups.items(),
+                                           key=lambda x: -x[1]))
     print(f'profile {tag}: {window_ms / n:.3f} ms/frame window, '
           f'device busy {busy / n:.3f} ms/frame, idle share '
           f'{max(0.0, 1 - busy / window_ms):.3f}, {launches / n:.0f} '
-          f'kernels/frame; by group per frame: {parts}')
+          f'kernels/frame; by group per frame: {parts_s}')
+    if parts:
+        print(f'profile {tag}: by part per frame: ' + ', '.join(
+            f'{g} {t / n:.3f} ms ({100 * t / busy:.1f}%)'
+            for g, t in parts.items()))
     for ms, count, name in sorted(kernels, reverse=True)[:8]:
         print(f'  top kernel {tag}: {ms / n:.3f} ms/frame, '
               f'{count / n:.0f}/frame, {name[:90]}')
     return busy / n
 
 
-def phase_main_path(torch, path: str, batch: int, n_warm: int = 5,
-                    n_timed: int = 30):
+def phase_main_path(torch, path: str, batch: int):
     """The bf16 main path of `path` at `batch` streams; returns the kernel
     launch counts (B1, B2, B3) of the run."""
     from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
-    spec = PATHS[path]
+    spec = spec_of(path)
+    size, n_warm, n_timed = spec['size'], spec['warm'], spec['timed']
     exp = get_config('pre_vost_2', compute_dtype='bfloat16',
                      **spec['overrides'])
+    grid = grid_of(size, exp.model.align_corners)
     model = build_vos_model(exp.model, seed=0).to(torch.bfloat16)
     eng = InferEngine(model, exp, long_term_mem_gap=spec['gap'])
-    img0, mask0, frames = make_inputs(batch, 8, seed=5)
+    img0, mask0, frames = make_inputs(batch, 8, seed=5, size=size)
     frames = [torch.from_numpy(f).cuda() for f in frames]
-    state = eng.init_state(batch, GRID)
+    state = eng.init_state(batch, grid)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -618,7 +765,7 @@ def phase_main_path(torch, path: str, batch: int, n_warm: int = 5,
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         logits, state = eng.propagate(state, frames[i % len(frames)])
-        pred = eng.predict_mask(logits, (H, W))
+        pred = eng.predict_mask(logits, size)
         state = eng.update_memory(state, pred)
         end.record()
         if i >= n_warm:
@@ -629,7 +776,9 @@ def phase_main_path(torch, path: str, batch: int, n_warm: int = 5,
     check(counts == expected_counts(path, n_prop),
           f'{path}: kernel launches (B1, B2, B3) {counts} for {n_prop} '
           f'frames, expected {expected_counts(path, n_prop)}')
-    check(tuple(logits.shape) == (batch, 4 * GRID[0] - 3, 4 * GRID[1] - 3,
+    cut = 3 if exp.model.align_corners else 0
+    check(tuple(logits.shape) == (batch, 4 * grid[0] - cut,
+                                  4 * grid[1] - cut,
                                   exp.model.max_obj_num + 1),
           f'logits shape {tuple(logits.shape)}')
     check(bool(torch.isfinite(logits[..., :N_OBJ + 1].float()).all()),
@@ -645,12 +794,12 @@ def phase_main_path(torch, path: str, batch: int, n_warm: int = 5,
     fps = batch * n_timed / (total_ms / 1e3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tag = f'{path} streams={batch}'
-    print(f'main path bf16 {H}x{W} {N_OBJ} objects gap {spec["gap"]} {tag}: '
-          f'{fps:.2f} frames/s aggregate, p50 frame latency '
-          f'{statistics.median(per_frame):.3f} ms, peak memory {peak:.3f} '
-          f'GiB, {n_timed} timed frames after {n_warm} warm-up, launches '
-          f'(B1, B2, B3) {counts}')
-    profile_frames(torch, eng, state, frames, tag)
+    print(f'main path bf16 {size[0]}x{size[1]} {N_OBJ} objects gap '
+          f'{spec["gap"]} {tag}: {fps:.2f} frames/s aggregate, p50 frame '
+          f'latency {statistics.median(per_frame):.3f} ms, peak memory '
+          f'{peak:.3f} GiB, {n_timed} timed frames after {n_warm} warm-up, '
+          f'launches (B1, B2, B3) {counts}')
+    profile_frames(torch, eng, state, frames, tag, size)
     return counts
 
 
@@ -915,6 +1064,94 @@ def phase_eval_bf16(torch, out_root: str):
     return all_counts
 
 
+def oracle_sequence(size, n_frames: int, **seq_kw):
+    """A VOST-oracle sequence: 3 objects, each frame labelled, the objects
+    drifting a little from frame to frame."""
+    labels = {}
+    for t in range(n_frames):
+        lbl = object_labels(size, (1, 2, 3), 1, 3)
+        labels[t] = np.roll(lbl, (t * size[0] // 100, t * size[1] // 100),
+                            axis=(0, 1))
+    return array_sequence('oracle', size, n_frames, labels, seed=4, **seq_kw)
+
+
+def phase_oracle(torch, out_root: str):
+    """`r50_topdown_aotl` with the VOST oracle through the port's
+    Evaluator (every frame's ground truth conditions the TopDown encoder
+    and none re-references): fp32 on the card against the CPU on 129x225
+    frames with flip, the bank written every frame, holding eviction ids
+    at every update, masks, launches and the count of updates; then bf16
+    on 1080x1920 frames (577x1041, one augmentation). Returns the launches
+    (B1, B2, B3) of the bf16 run."""
+    from dataclasses import replace
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.data.eval_datasets import EvalDataset
+    from rmem_ocu_tpu_torch.eval.evaluator import Evaluator
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    exp = replace(get_config('pre_vost_2', model='r50_topdown_aotl',
+                             oracle=True),
+                  test_long_term_mem_gap=1, test_fixed_mem_gap=True)
+    cpu_model = build_vos_model(exp.model, device='cpu', seed=0)
+    gpu_model = build_vos_model(exp.model, seed=1)
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    n_frames, n_aug = 12, 2
+    seq = oracle_sequence(SMALL, n_frames, max_size=1040, flip=True)
+    evs = {dev: Evaluator(m, exp, os.path.join(out_root, dev))
+           for dev, m in (('cpu', cpu_model), ('cuda', gpu_model))}
+    ids = {dev: record_evictions(ev.engine) for dev, ev in evs.items()}
+    evs['cpu'].evaluate(EvalDataset({'oracle': seq}), verbose=False)
+    reset_counts()
+    evs['cuda'].evaluate(EvalDataset({'oracle': seq}), verbose=False)
+    counts = read_counts()
+    want = (6 * (n_frames - 1) * n_aug, 0, 0)
+    check(counts == want, f'oracle fp32: launches {counts}, expected {want}')
+    # a labelled frame that re-referenced would not update the memory
+    check(len(ids['cuda']) == len(ids['cpu']) == (n_frames - 1) * n_aug
+          and all(torch.equal(a, b) for a, b in zip(ids['cuda'],
+                                                    ids['cpu'])),
+          f'oracle fp32: eviction ids differ or a frame re-referenced: '
+          f'{len(ids["cuda"])} and {len(ids["cpu"])} updates')
+    check(int((ids['cuda'][-1][0] >= 0).sum()) == 9,
+          f'oracle fp32: bank {ids["cuda"][-1].tolist()}')
+    got = read_masks(os.path.join(out_root, 'cuda'), 'oracle')
+    want_m = read_masks(os.path.join(out_root, 'cpu'), 'oracle')
+    check(list(got) == list(want_m) and len(got) == n_frames - 1,
+          f'oracle fp32: files {list(got)} vs {list(want_m)}')
+    agree = [float((got[n] == want_m[n]).mean()) for n in got]
+    check(min(agree) > 0.999, f'oracle fp32: mask agreement {agree}')
+    print(f'oracle fp32 r50_topdown_aotl card vs CPU {SMALL[0]}x{SMALL[1]} '
+          f'flip: ok in {time.time() - t0:.1f} s, {len(ids["cuda"])} state '
+          f'updates with identical eviction ids (last '
+          f'{ids["cuda"][-1].tolist()}), no re-reference, worst mask '
+          f'agreement {min(agree):.6f}, launches (B1, B2, B3) {counts}')
+
+    exp = get_config('pre_vost_2', model='r50_topdown_aotl', oracle=True,
+                     compute_dtype='bfloat16')
+    model = build_vos_model(exp.model, seed=0).to(torch.bfloat16)
+    n_frames = 12
+    seq = oracle_sequence(EVAL_BF16_SIZE, n_frames,
+                          max_size=exp.test_max_size)
+    check(seq.frame(0)[0].image.shape[:2] == (577, 1041),
+          f'oracle bf16 input {seq.frame(0)[0].image.shape}')
+    ev = Evaluator(model, exp, os.path.join(out_root, 'bf16'))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    stats = ev.evaluate(EvalDataset({'oracle': seq}), verbose=False)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = (6 * (n_frames - 1), 0, 0)
+    check(counts == want, f'oracle bf16: launches {counts}, expected {want}')
+    print(f'oracle bf16 r50_topdown_aotl {EVAL_BF16_SIZE[0]}x'
+          f'{EVAL_BF16_SIZE[1]} (577x1041), {n_frames} frames: '
+          f'{stats.total_frames / stats.total_time:.3f} eval frames/s, p50 '
+          f'frame latency {stats.p50_latency_ms:.3f} ms, peak memory '
+          f'{peak:.3f} GiB, launches (B1, B2, B3) {counts}')
+    return counts
+
+
 def phase_eval_cli(out_root: str) -> None:
     """`python -m rmem_ocu_tpu_torch.tools.eval --dataset test` on its
     default device, the card: two synthetic 129x129 sequences of 10
@@ -964,14 +1201,14 @@ def print_resources(logs) -> None:
 
 # name, source, the TPU kernel it replaces, the row of phase 3 that times it
 # at its path's B=1 shape, its index in the counts, the path whose 1-stream
-# run gives `launches`
+# run gives `launches` (B1 and B2: this slice's main path, swinb_deaotl)
 KERNELS = (
     ('memory_read_fused', 'rmem_ocu_tpu_torch/csrc/memory_read.cu',
-     'rmem_ocu_tpu/ops/pallas/memory_read.py:281', 'b1_bf16_B1', 0,
-     'deaot_1head'),
+     'rmem_ocu_tpu/ops/pallas/memory_read.py:281', 'b1_bf16_B1_22x39', 0,
+     'swinb_deaotl'),
     ('local_window_attention', 'rmem_ocu_tpu_torch/csrc/local_attn.cu',
-     'rmem_ocu_tpu/ops/pallas/local_attn.py:91', 'b2_bf16_B1', 1,
-     'deaot_1head'),
+     'rmem_ocu_tpu/ops/pallas/local_attn.py:91', 'b2_bf16_B1_22x39', 1,
+     'swinb_deaotl'),
     ('memory_read_attention',
      'rmem_ocu_tpu_torch/csrc/memory_read_attention.cu',
      'rmem_ocu_tpu/ops/pallas/memory_read.py:88', 'b3_bf16_B1', 2,
@@ -1001,17 +1238,25 @@ def main() -> int:
     print_resources(build.BUILD_LOGS)
 
     rows = phase_kernels(torch)
+    print(f'phase 3 done at {time.time() - t_start:.1f} s')
     for path in PATHS:
         phase_engine_fp32(torch, path)
+    print(f'phase 4 done at {time.time() - t_start:.1f} s')
     counts = {}
     for path in PATHS:
-        counts[path] = phase_main_path(torch, path, 1)
-        phase_main_path(torch, path, 8)
+        for batch in spec_of(path)['streams']:
+            c = phase_main_path(torch, path, batch)
+            if batch == 1:
+                counts[path] = c
+    print(f'phase 5 done at {time.time() - t_start:.1f} s')
     with tempfile.TemporaryDirectory() as tmp:
         phase_eval_fp32(torch, os.path.join(tmp, 'fp32'))
         counts['eval_bf16'] = phase_eval_bf16(torch, os.path.join(tmp,
                                                                   'bf16'))
         phase_eval_cli(os.path.join(tmp, 'cli'))
+        print(f'phase 7 done at {time.time() - t_start:.1f} s')
+        counts['oracle_bf16'] = phase_oracle(torch, os.path.join(tmp,
+                                                                 'oracle'))
 
     kernels = []
     for name, src, replaces, row_name, idx, path in KERNELS:

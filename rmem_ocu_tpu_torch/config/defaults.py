@@ -2,9 +2,10 @@
 
 A copy of the parts of the JAX package's `config/defaults.py` that
 inference and evaluation read: every model field that is not a training
-setting, the eval and directory fields of `ExpConfig`, the `r50_deaotl`
-(DeAOT) and `r50_aotl` (AOT) registry entries, every stage with the model
-overrides it makes, and the reload of a `config_to_dict` snapshot. Values
+setting (and the TopDown encoder's two, which describe its model), the
+eval and directory fields of `ExpConfig`, the whole model registry, every
+stage with the model overrides it makes, and the reload of a
+`config_to_dict` snapshot. Values
 are the reference's (aot_plus/configs), so the two packages agree field by
 field; the CPU tests hold them to that.
 """
@@ -46,6 +47,11 @@ class ModelConfig:
     reverse_loss: float = 0.4
     use_mask: bool = False                # topdown-encoder mask conditioning
     oracle: bool = False
+    # TopDown encoder: weight of its reconstruction loss, and whether
+    # training freezes the backbone below its feedback decoders (read by
+    # training, which the port does not have yet; ROADMAP item 14)
+    var_loss_weight: Optional[float] = None
+    top_down_freeze_encoder: bool = False
     # read by no code, here or in the reference; kept so that a snapshot
     # of the JAX package keeps them
     norm_inp: bool = True
@@ -135,10 +141,37 @@ _R50 = dict(encoder='resnet50', encoder_dim=(256, 512, 1024, 1024),
 _RMEM = dict(former_mem_len=1, latter_mem_len=8, use_temporal_pe=True,
              temporal_pe_slot_4=True)
 
+_SWINB = dict(encoder='swin_base', encoder_dim=(128, 256, 512, 512),
+              align_corners=False, lstt_num=3, test_long_term_mem_gap=5)
+
 MODEL_REGISTRY: Dict[str, ModelConfig] = {
-    # r50_aotl carries the RMem flags in the reference fork
+    # AOT family (reference configs/models/aott.py, aots.py, aotb.py,
+    # aotl.py), MobileNetV2
+    'aott': ModelConfig(model_name='aott'),
+    'aots': ModelConfig(model_name='aots', lstt_num=2),
+    'aotb': ModelConfig(model_name='aotb', lstt_num=3),
+    'aotl': ModelConfig(model_name='aotl', lstt_num=3,
+                        test_long_term_mem_gap=5),
+    # ResNet / ResNeSt / Swin AOT-L; r50_aotl carries the RMem flags in the
+    # reference fork
     'r50_aotl': ModelConfig(model_name='r50_aotl', **_R50, **_RMEM),
+    'r101_aotl': ModelConfig(model_name='r101_aotl',
+                             **{**_R50, 'encoder': 'resnet101'}),
+    'rs101_aotl': ModelConfig(model_name='rs101_aotl',
+                              **{**_R50, 'encoder': 'resnest101'}),
+    'swinb_aotl': ModelConfig(model_name='swinb_aotl', **_SWINB),
+    'r50_topdown_aotl': ModelConfig(
+        model_name='r50_topdown_aotl',
+        **{**_R50, 'encoder': 'resnet50_topdown'}, var_loss_weight=0.01),
+    # DeAOT family (default_deaot.py, r50_deaotl.py)
+    'deaott': _deaot_defaults(model_name='deaott'),
+    'deaots': _deaot_defaults(model_name='deaots', lstt_num=2),
+    'deaotb': _deaot_defaults(model_name='deaotb', lstt_num=3),
+    'deaotl': _deaot_defaults(model_name='deaotl', lstt_num=3,
+                              test_long_term_mem_gap=5),
     'r50_deaotl': _deaot_defaults(model_name='r50_deaotl', **_R50, **_RMEM),
+    'swinb_deaotl': _deaot_defaults(model_name='swinb_deaotl', **_SWINB,
+                                    **_RMEM),
 }
 
 
@@ -218,8 +251,7 @@ TRAINING_FIELDS = frozenset((
     'train_spatial_sharding', 'train_zero1'))
 MODEL_TRAINING_FIELDS = frozenset((
     'freeze_bn', 'freeze_backbone', 'train_long_term_mem_gap',
-    'freeze_except_temporal_pe', 'freeze_except_gru', 'reverse_infer',
-    'var_loss_weight', 'top_down_freeze_encoder'))
+    'freeze_except_temporal_pe', 'freeze_except_gru', 'reverse_infer'))
 
 
 def config_from_dict(d: dict) -> ExpConfig:

@@ -176,7 +176,11 @@ class InferEngine:
         for hidden in (state.gru_hidden_k or []) + (state.gru_hidden_v or []):
             hidden.zero_()
         img = img.to(self.device, self.dtype)
-        xs = self.model.encode_image(img)
+        # a mask-conditioned encoder sees the reference label too
+        # (reference aot_engine.py:157-160, 258-260)
+        xs = self.model.encode_image(
+            img, mask[..., None].to(self.device) if self.cfg.use_mask
+            else None)
         b, _, h, w = xs[-1].shape
         size_2d = (h, w)
         id_emb = self._id_emb_from_label(mask, img.dtype)
@@ -210,13 +214,17 @@ class InferEngine:
         return state
 
     @torch.no_grad()
-    def propagate(self, state: EngineState, img: torch.Tensor
+    def propagate(self, state: EngineState, img: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, EngineState]:
-        """One frame against the memory. Returns (logits [B, H4, W4, O+1],
-        state)."""
+        """One frame against the memory. `mask` conditions a
+        mask-conditioned encoder (the oracle's ground truth, an int label
+        [B, H, W, 1]; reference aot_engine.py:404-417); other models ignore
+        it. Returns (logits [B, H4, W4, O+1], state)."""
         state.frame_step += 1
         img = img.to(self.device, self.dtype)
-        xs = self.model.encode_image(img)
+        xs = self.model.encode_image(
+            img, None if mask is None else mask.to(self.device))
         _, _, h, w = xs[-1].shape
         bank = state.bank
         tpe = self._temporal_pe(bank.length, bank.pos)

@@ -9,11 +9,10 @@ aot_plus/networks/managers/evaluator.py:30-631). As there:
 - each multi-scale / flip augmentation keeps its own engine state, and
   their softmaxes are averaged (evaluator.py:436-441),
 - per-frame time is host wall time, ended on the card by
-  `torch.cuda.synchronize()`.
-
-The reference's oracle branch (VOST ground truth conditioning the encoder
-every frame) needs the TopDown encoder, which the port does not have yet:
-the config refuses `oracle` without it (ROADMAP item 13).
+  `torch.cuda.synchronize()`,
+- with `oracle` (VOST, the mask-conditioned TopDown encoder), every
+  labelled frame's ground truth conditions the encoder and is not
+  re-referenced (reference evaluator.py:407-417).
 """
 from __future__ import annotations
 
@@ -190,6 +189,16 @@ class Evaluator:
                                       n_groups, self.cfg.max_obj_num)
         return torch.from_numpy(groups.astype(np.int64))
 
+    def _oracle_mask(self, label: np.ndarray, aug: _AugState,
+                     n_groups: int) -> torch.Tensor:
+        """A ground-truth label at the original size -> the aug's encoder
+        conditioning [n_groups, H, W, 1] at its input size (the encoder
+        ignore-clears and binarises it)."""
+        lbl = self._label_at(label[:, ::-1] if aug.flip else label,
+                             aug.in_size)
+        return torch.from_numpy(lbl[None, ..., None].astype(np.int64)).to(
+            self.device).repeat(n_groups, 1, 1, 1)
+
     def _add_ref_all(self, augs, samples, label_ori, n_groups, obj_nums):
         """(Re-)add a reference label (original resolution) to every aug."""
         for aug, sample in zip(augs, samples):
@@ -238,11 +247,18 @@ class Evaluator:
                                   obj_nums)
                 continue
 
+            # VOST oracle: the ground truth conditions the encoder and is
+            # consumed there, not re-referenced (reference
+            # evaluator.py:407-417)
+            oracle = cfg.oracle and base.label is not None
+
             t0 = time.perf_counter()
             prob_sum = None
             for aug, sample in zip(augs, samples):
                 logits, aug.state = engine.propagate(
-                    aug.state, self._images(sample, n_groups))
+                    aug.state, self._images(sample, n_groups),
+                    self._oracle_mask(base.label, aug, n_groups) if oracle
+                    else None)
                 # upsample per-group logits BEFORE the nonlinear group
                 # aggregation, like the reference (aot_engine.py:704-712)
                 logits = interpolate_bilinear(logits.permute(0, 3, 1, 2),
@@ -271,7 +287,7 @@ class Evaluator:
             # mid-video new objects (YouTube-VOS): ground truth wins where
             # labelled, then the merged map is re-added as the reference
             # (reference :484-508); re-adding resets the memory
-            if base.label is not None:
+            if base.label is not None and not oracle:
                 new_label = self._label_at(base.label, ori_size)
                 pred_ori = np.where(new_label == 0, pred_ori,
                                     new_label).astype(np.uint8)

@@ -1,4 +1,4 @@
-"""ResNet-50 backbone with frozen BN, output stride 16, stage 5 dropped.
+"""ResNet-50/101 backbone with frozen BN, output stride 16, stage 5 dropped.
 
 Counterpart of the JAX package's `models/encoders/resnet.py` (reference
 aot_plus/networks/encoders/resnet.py:10-213). NCHW. The stem is a plain
@@ -41,6 +41,8 @@ class ResNetEncoder(nn.Module):
     """Stages 1-3 at strides 4, 8, 16 (output stride 16, no dilation)."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6)):
+        """layers: blocks per stage, (3, 4, 6) for ResNet-50, (3, 4, 23)
+        for ResNet-101."""
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)

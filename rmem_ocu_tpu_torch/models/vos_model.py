@@ -25,6 +25,10 @@ from rmem_ocu_tpu_torch.ops.position import sine_position_embedding
 from rmem_ocu_tpu_torch.utils.device import resolve_device
 
 
+_INT_TYPES = (torch.uint8, torch.int8, torch.int16, torch.int32,
+              torch.int64)
+
+
 class VOSModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -33,7 +37,7 @@ class VOSModel(nn.Module):
         self.cfg = cfg
         self.is_deaot = cfg.vos == 'deaot'
         d = cfg.encoder_embedding_dim
-        self.encoder = build_encoder(cfg.encoder)
+        self.encoder = build_encoder(cfg.encoder, use_mask=cfg.use_mask)
         self.encoder_projector = nn.Conv2d(cfg.encoder_dim[-1], d, 1)
         if self.is_deaot:
             self.LSTT = GPMStack(num_layers=cfg.lstt_num, d_model=d,
@@ -67,10 +71,32 @@ class VOSModel(nn.Module):
             self.cur_pos_emb = nn.Parameter(torch.zeros(1, pe_dim))
             self.mem_pos_emb = nn.Parameter(torch.zeros(slots, pe_dim))
 
-    def encode_image(self, img: torch.Tensor) -> List[torch.Tensor]:
+    def encode_image(self, img: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None
+                     ) -> List[torch.Tensor]:
         """img: [B, H, W, 3] -> encoder maps [4x, 8x, 16x, 16x] as NCHW,
-        the last one projected to the embedding width."""
-        xs = self.encoder(img.permute(0, 3, 1, 2))
+        the last one projected to the embedding width.
+
+        mask conditions the mask-conditioned TopDown encoder (cfg.use_mask;
+        reference aot.py:115-129); other models ignore it. An int label map
+        [B, H, W, 1] is ignore-cleared (255 -> 0) and binarised; float
+        probabilities [B, H, W, O+1] become 1 - P(background). Anything
+        else raises."""
+        x = img.permute(0, 3, 1, 2)
+        if self.cfg.use_mask and mask is not None:
+            if mask.shape[-1] == 1 and mask.dtype in _INT_TYPES:
+                m = (torch.where(mask == 255, 0, mask) > 0).to(img.dtype)
+            elif mask.shape[-1] > 1 and mask.is_floating_point():
+                m = 1.0 - mask[..., 0:1].to(img.dtype)
+            else:
+                raise ValueError(
+                    f'use_mask conditioning expects an int label '
+                    f'[B,H,W,1] or float probabilities [B,H,W,O+1]; got '
+                    f'{mask.dtype} {tuple(mask.shape)} (reference '
+                    f'aot.py:115-124)')
+            xs = self.encoder(x, m.permute(0, 3, 1, 2))
+        else:
+            xs = self.encoder(x)
         xs[-1] = self.encoder_projector(xs[-1])
         return xs
 
@@ -161,15 +187,24 @@ class VOSModel(nn.Module):
 @torch.no_grad()
 def init_weights(model: VOSModel, generator: torch.Generator) -> None:
     """Random init from an explicit generator, following the JAX package's
-    initializers: lecun-normal convs and linears with zero biases, the
-    orthogonal id bank with gain k^-2 (reference aot.py:170-177) and
-    truncated-normal temporal PE (std 0.05, cut at 2 std)."""
+    initializers: lecun-normal convs, transposed convs and linears with
+    zero biases, the orthogonal id bank with gain k^-2 (reference
+    aot.py:170-177), truncated-normal temporal PE (std 0.05, cut at 2 std)
+    and Swin relative-position biases (std 0.02), and the TopDown
+    encoder's normal prompt and identity transform."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            # the fan-in flax takes from the kernel's shape
             fan_in = mod.weight[0].numel()
             mod.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
             if mod.bias is not None:
                 mod.bias.zero_()
+        if hasattr(mod, 'relative_position_bias_table'):
+            nn.init.trunc_normal_(mod.relative_position_bias_table, std=0.02,
+                                  a=-0.04, b=0.04, generator=generator)
+        if hasattr(mod, 'top_down_transform'):
+            mod.prompt.normal_(generator=generator)
+            nn.init.eye_(mod.top_down_transform)
     w = model.patch_wise_id_bank.weight
     nn.init.orthogonal_(w.view(w.shape[0], -1), gain=w.shape[-1] ** -2.0,
                         generator=generator)

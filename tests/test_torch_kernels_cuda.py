@@ -334,3 +334,53 @@ def test_local_attention_kernel_at_eval_grids(size_2d, b):
                              .astype(np.float32)).to(dev), (h, w), md, False)
     got = local_window_attention(*args)
     _assert_close(got, local_window_attention_plain(*args), None)
+
+
+# The Swin models' grid: 352x624 inputs with align_corners=False make 22x39
+# tokens (858), a ragged last key tile and query tile; 1 and 8 streams.
+SWIN_GRID = (22, 39)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 8])
+@pytest.mark.parametrize('heads,d,dvs', [(1, 128, (512, 512)),
+                                         (8, 32, (256,))],
+                         ids=['deaot_1head', 'aot_8heads'])
+def test_memory_read_kernel_at_swin_grid(heads, d, dvs, b):
+    """B1 as swinb_deaotl (one head of 128, V and ID_V of 512 each) and
+    swinb_aotl (8 heads of 32, one bank) call it: T_cap 10 with a dead
+    slot, the temporal PE."""
+    dev = _cuda()
+    rng = np.random.RandomState(heads + b)
+    hw, t_cap = SWIN_GRID[0] * SWIN_GRID[1], 10
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    q = t(rng.randn(b, hw, heads * d))
+    k = t(rng.randn(b, t_cap, hw, heads * d))
+    vs = tuple(t(rng.randn(b, t_cap, hw, dv)) for dv in dvs)
+    valid = torch.from_numpy(np.stack([_dead_slots(t_cap, 'middle')] * b))
+    pe = t(rng.randn(1, t_cap, heads * d) * 0.05)
+    args = (q, k, vs, valid.to(dev), heads, d ** -0.5)
+    got, got_mass = memory_read_fused(*args, mem_pe=pe)
+    want, want_mass = memory_read_fused_plain(*args, mem_pe=pe)
+    for g, w in zip(got, want):
+        _assert_close(g, w, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 8])
+def test_local_attention_kernel_at_swin_grid(b):
+    """B2 as swinb_deaotl calls it: D=128, E=1024 (V||ID_V), 15x15 windows
+    on 22x39, ragged against the 4x16 patch in both directions."""
+    dev = _cuda()
+    rng = np.random.RandomState(39 + b)
+    (h, w), d, e, md = SWIN_GRID, 128, 1024, 7
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    args = (t(rng.randn(b, h * w, d) * d ** -0.5), t(rng.randn(b, h * w, d)),
+            t(rng.randn(b, h * w, e)),
+            torch.from_numpy(rng.randn(b, h * w, (2 * md + 1) ** 2)
+                             .astype(np.float32)).to(dev), (h, w), md, False)
+    got = local_window_attention(*args)
+    _assert_close(got, local_window_attention_plain(*args), None)
