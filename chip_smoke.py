@@ -47,6 +47,15 @@ Phases, each fatal on failure:
 8. the VOST oracle, `r50_topdown_aotl`: the Evaluator fp32 on the card
    against the CPU (129x225, flip: eviction ids at every update, masks,
    launches, no re-reference), then bf16 on 1080x1920 frames.
+9. training, `r50_deaotl`: (a) one fp32 episode (129x129, T=5, gap 1,
+   evictions) on the card against the CPU, loss, per-frame losses and
+   every trainable gradient, and an AdamW update from the same gradients;
+   no kernel launched across the step (training reads densely: the
+   kernels have no backward); (b) bf16 AMP steps at the recipe shape
+   (465x465 crops, T=17, gap 4, remat 'full', batch 2 and 4, and batch 2
+   without remat): step time, episodes/s, frames/s, peak memory and a
+   profile of one step by part; (c) the trained model in eval mode: the
+   inference engine launches B1 and B2 again, as many as expected.
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -1173,6 +1182,345 @@ def phase_eval_cli(out_root: str) -> None:
           f'{n_masks} masks; {out.stdout.strip().splitlines()[-1]}')
 
 
+# ---------------------------------------------------------------- training
+def train_clip(batch: int, n_frames: int, size, seed: int, n_obj: int = N_OBJ):
+    """A clip of smooth random frames and blob labels of n_obj objects
+    (numpy, [B, T, H, W, 3] f32 and [B, T, H, W] int64)."""
+    rng = np.random.RandomState(seed)
+    h, w = size
+    frames = rng.randn(batch, n_frames, h, w, 3).astype(np.float32)
+    yy, xx = np.mgrid[:h, :w]
+    masks = np.zeros((batch, n_frames, h, w), np.int64)
+    for b in range(batch):
+        for t in range(n_frames):
+            for obj in range(1, n_obj + 1):
+                cy, cx = rng.rand(2) * (h, w)
+                r = (0.15 + 0.15 * rng.rand()) * min(h, w)
+                masks[b, t][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = obj
+    return frames, masks
+
+
+def nudged(frames, seed: int):
+    """The frames moved by 1e-5 of their value."""
+    return (frames * (1 + 1e-5 * np.random.RandomState(seed).randn(
+        *frames.shape))).astype(np.float32)
+
+
+def grad_pairs_pass(pairs, names):
+    """Each leaf's cosine >= 0.9999 and norm ratio in [0.999, 1.001] on one
+    of the (card, CPU) gradient pairs of nudged clips (with random weights
+    a ReLU input within rounding of 0 makes the gradient jump; the nudges
+    move which do), a leaf zero in exact arithmetic below 1e-6 of the
+    global norm on both. Returns the worst (1 - cosine, |ratio - 1|)."""
+    total = float(sum(float(pairs[0][1][n].double().square().sum())
+                      for n in names)) ** 0.5
+    worst = (0.0, 0.0)
+    for n in names:
+        best = None
+        for card, cpu in pairs:
+            a, b = card[n].double().cpu(), cpu[n].double()
+            na, nb = float(a.norm()), float(b.norm())
+            if max(na, nb) < 1e-6 * total:
+                best = (0.0, 0.0)
+                break
+            dev = (1.0 - float((a * b).sum()) / (na * nb), abs(na / nb - 1))
+            if best is None or max(dev) < max(best):
+                best = dev
+        check(best[0] <= 1e-4 and best[1] <= 1e-3,
+              f'training gradient {n}: (1 - cosine, |ratio - 1|) {best} on '
+              f'every nudged clip')
+        worst = (max(worst[0], best[0]), max(worst[1], best[1]))
+    return worst
+
+
+def phase_training_fp32(torch):
+    """9a: one training episode of r50_deaotl (pre_vost_2, 129x129, T=5,
+    write gap 1 and a latter budget of 2, so that writes and evictions
+    fire; 3 objects; seeded random weights, every train-time rate 0, no id
+    shuffle) on the card against the CPU: loss, per-frame losses and every
+    trainable gradient; no kernel launched across the step; then one AdamW
+    update on the card against the CPU from the same gradients."""
+    from dataclasses import replace
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.engine.train_engine import TrainEngine
+    from rmem_ocu_tpu_torch.models.vos_model import zero_dropout
+    from rmem_ocu_tpu_torch.train import optim
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exp = replace(get_config('pre_vost_2', model='r50_deaotl',
+                             latter_mem_len=2, data_seq_len=5,
+                             train_lstt_droppath=0.0),
+                  train_long_term_mem_gap=1)
+    t0 = time.time()
+    models = [zero_dropout(build_vos_model(exp.model, device=d, seed=0,
+                                           exp=exp)).train()
+              for d in ('cpu', None)]
+    models[1].load_state_dict(models[0].state_dict(), strict=True)
+    engines = [TrainEngine(m, exp) for m in models]
+    frames, masks = train_clip(1, 5, (129, 129), seed=21)
+    step = 1000                         # inside the hard-mining ramp
+    obj = torch.tensor([N_OBJ])
+
+    def episode(i, clip):
+        for p in models[i].parameters():
+            p.grad = None
+        loss, aux = engines[i].episode_loss(
+            torch.from_numpy(clip), torch.from_numpy(masks), obj, step, None,
+            enable_id_shuffle=False)
+        loss.backward()
+        return loss.detach().cpu(), aux['frame_losses'].detach().cpu(), {
+            n: p.grad.detach().clone() for n, p in
+            models[i].named_parameters()}
+
+    reset_counts()
+    card = episode(1, frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == (0, 0, 0), f'training launched kernels {counts}')
+    cpu = episode(0, frames)
+    loss_err = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    frame_err = float(((card[1] - cpu[1]).abs() / cpu[1].abs()).max())
+    check(loss_err <= 1e-5 and frame_err <= 1e-5,
+          f'training loss {float(card[0])} vs CPU {float(cpu[0])}, frame '
+          f'losses {card[1].tolist()} vs {cpu[1].tolist()}')
+    masks_fz = optim.make_masks(dict(models[0].named_parameters()), exp)
+    names = [n for n, fz in masks_fz.frozen.items() if not fz]
+    pairs = [(card[2], cpu[2])] + [(episode(1, c)[2], episode(0, c)[2])
+                                   for c in (nudged(frames, 1),
+                                             nudged(frames, 2))]
+    worst = grad_pairs_pass(pairs, names)
+
+    # one AdamW update from the CPU's gradients, on both devices
+    params = [{n: p.detach() for n, p in m.named_parameters()}
+              for m in models]
+    grads = {n: torch.zeros_like(g) if masks_fz.frozen[n] else g
+             for n, g in cpu[2].items()}
+    lr = optim.schedule_lr(step, exp)
+    new = []
+    for i, dev in enumerate(('cpu', 'cuda')):
+        g = {n: grads[n].to(dev) for n in grads}
+        upd, _ = optim.adam_update(
+            optim.clip_by_global_norm(g, exp.train_clip_grad_norm),
+            optim.init_opt_state(params[i], exp))
+        new.append(optim.apply_updates(params[i], upd, masks_fz, lr, exp))
+    step_err = max(float((new[1][n].cpu() - new[0][n]).abs().max())
+                   / max(float(new[0][n].abs().max()), 1e-30)
+                   for n in new[0])
+    moved = sum(not torch.equal(new[0][n], params[0][n]) for n in names)
+    check(step_err <= 1e-6 and moved == len(names),
+          f'AdamW update card vs CPU: {step_err} of the leaf max, '
+          f'{moved}/{len(names)} trainable leaves moved')
+    print(f'training fp32 r50_deaotl 129x129 T=5 card vs CPU: ok in '
+          f'{time.time() - t0:.1f} s; loss {float(card[0]):.6f} (rel err '
+          f'{loss_err:.2e}), frame losses rel err {frame_err:.2e}, '
+          f'{len(names)} trainable leaves, worst gradient (1 - cosine, '
+          f'|ratio - 1|) {worst[0]:.2e}, {worst[1]:.2e} (best of '
+          f'{len(pairs)} nudged clips); AdamW update rel err '
+          f'{step_err:.2e}; launches (B1, B2, B3) across the step {counts}')
+    return counts
+
+
+def annotate_training(model):
+    """Profiler ranges of a training step: the model's parts by forward
+    hooks (with remat their recompute in backward too), the loss, and the
+    optimizer + EMA, by wrapping the functions the trainer calls."""
+    from torch.profiler import record_function
+    from rmem_ocu_tpu_torch.engine import train_engine
+    from rmem_ocu_tpu_torch.train import optim
+    handles = annotate_modules(model)
+    saved = []
+
+    def wrap(mod, name, label):
+        fn = getattr(mod, name)
+
+        def ranged(*a, **k):
+            with record_function(f'part: {label}'):
+                return fn(*a, **k)
+        setattr(mod, name, ranged)
+        saved.append((mod, name, fn))
+    wrap(train_engine, 'segmentation_loss', 'loss')
+    for name in ('clip_by_global_norm', 'adam_update', 'apply_updates',
+                 'ema_update'):
+        wrap(optim, name, 'optimizer + ema')
+
+    def undo():
+        for h in handles:
+            h.remove()
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return undo
+
+
+def report_train_profile(prof, window_ms: float, tag: str):
+    """Device time of one profiled step by part and kernel group, the
+    backward's share (autograd's evaluate_function ranges, remat recompute
+    included) and the idle share of the step."""
+    busy, parts, groups, bwd = 0.0, {}, {g: 0.0 for g, _ in KERNEL_GROUPS}, 0.0
+    kernels = []
+    for evt in prof.key_averages():
+        cuda = str(evt.device_type).endswith('CUDA')
+        if evt.key.startswith('part: '):
+            # the CPU range's device time sums the kernels launched in it;
+            # its device-side twin spans the range, gaps included
+            if not cuda:
+                parts[evt.key[6:]] = evt.device_time_total / 1e3
+        elif (evt.key.startswith('autograd::engine::evaluate_function')
+              and not cuda):
+            bwd += evt.device_time_total / 1e3
+        elif cuda:
+            ms = evt.self_device_time_total / 1e3
+            busy += ms
+            kernels.append((ms, evt.count, evt.key))
+            for group, keys in KERNEL_GROUPS:
+                if any(k in evt.key.lower() for k in keys):
+                    groups[group] += ms
+                    break
+    if busy == 0.0:
+        print(f'profile {tag}: device time not measured (the profiler saw '
+              f'no kernels)')
+        return
+    print(f'profile {tag}: step window {window_ms:.1f} ms, device busy '
+          f'{busy:.1f} ms, idle share {max(0.0, 1 - busy / window_ms):.3f}; '
+          f'backward (autograd, with the remat recompute) {bwd:.1f} ms '
+          f'({100 * bwd / busy:.1f}%); by part (forward hooks: forward and '
+          f'recompute): ' + ', '.join(f'{g} {t:.1f} ms ({100 * t / busy:.1f}'
+                                      f'%)' for g, t in parts.items()))
+    print(f'profile {tag}: by kernel group: ' + ', '.join(
+        f'{g} {t:.1f} ms ({100 * t / busy:.1f}%)' for g, t in
+        sorted(groups.items(), key=lambda x: -x[1])))
+    print(f'profile {tag}: {sum(c for _, c, _ in kernels)} kernels a step')
+    for ms, count, name in sorted(kernels, reverse=True)[:10]:
+        print(f'  top kernel {tag}: {ms:.1f} ms, {count}x, {name[:100]}')
+
+
+def phase_training_bf16(torch):
+    """9b: bf16 AMP training of r50_deaotl at the recipe shape (pre_vost_2:
+    465x465 crops, T=17, write gap 4), 3 objects, remat 'full', per-card
+    batch 2 and 4: CUDA events over 5 steps after 2 warm-up, episodes/s,
+    frames/s, peak memory, a profile of one step; batch 2 again without
+    remat. Returns the trained model of the last batch-2 run."""
+    from dataclasses import replace
+    from torch.profiler import ProfilerActivity, profile
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.train.trainer import Trainer
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    base = get_config('pre_vost_2', model='r50_deaotl', train_amp=True)
+    size, n_frames = base.data_randomcrop, base.data_seq_len
+    check(base.train_long_term_mem_gap == 4 and n_frames == 17
+          and tuple(size) == (465, 465), f'recipe {size} T={n_frames} gap '
+          f'{base.train_long_term_mem_gap}')
+    trained = None
+    for batch, policy in ((2, 'full'), (4, 'full'), (2, 'none')):
+        exp = replace(base, train_remat_policy=policy)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_vos_model(exp.model, seed=0, exp=exp)
+        trainer = Trainer(model, exp)
+        state = trainer.init_state()
+        frames, masks = train_clip(batch, n_frames, size, seed=batch)
+        batch_d = {'frames': torch.from_numpy(frames).cuda(),
+                   'masks': torch.from_numpy(masks).cuda(),
+                   'obj_nums': torch.full((batch,), N_OBJ, device='cuda')}
+        gen = torch.Generator().manual_seed(7)
+        tag = f'training bf16 r50_deaotl B={batch} remat={policy}'
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ema0 = {n: v.clone() for n, v in state.ema.items()}
+        reset_counts()
+        try:
+            events, losses = [], []
+            n_steps = 7 if policy == 'full' else 2
+            for i in range(n_steps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, metrics = trainer.train_step(state, batch_d, gen)
+                end.record()
+                losses.append(metrics['loss'])
+                if i >= 2 or policy == 'none':
+                    events.append((start, end))
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            total = torch.cuda.get_device_properties(0).total_memory
+            print(f'{tag}: does not fit in {total / 2 ** 30:.1f} GiB '
+                  f'({str(e).splitlines()[0][:120]})')
+            del model, trainer, state
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if policy == 'none':
+            print(f'{tag}: fits, peak memory {peak:.3f} GiB')
+            continue
+        check(read_counts() == (0, 0, 0), f'{tag}: kernels launched '
+                                          f'{read_counts()}')
+        check(all(bool(torch.isfinite(x)) for x in losses), f'{tag}: '
+              f'non-finite loss {[float(x) for x in losses]}')
+        check(float(metrics['grad_norm']) > 0, f'{tag}: zero gradient')
+        moved = sum(not torch.equal(p.detach(), p0[n])
+                    for n, p in model.named_parameters()
+                    if p.requires_grad)
+        ema_moved = sum(not torch.equal(v, ema0[n])
+                        for n, v in state.ema.items())
+        check(moved > 0 and ema_moved > 0, f'{tag}: {moved} parameters and '
+                                           f'{ema_moved} EMA leaves moved')
+        step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+        print(f'{tag} {size[0]}x{size[1]} T={n_frames} gap 4: '
+              f'{step_ms:.1f} ms a step '
+              f'(median of {len(events)} after 2 warm-up), '
+              f'{1e3 * batch / step_ms:.3f} episodes/s, '
+              f'{1e3 * batch * n_frames / step_ms:.1f} frames/s, peak '
+              f'memory {peak:.3f} GiB, loss {float(losses[-1]):.4f}, grad '
+              f'norm {float(metrics["grad_norm"]):.3f}, {moved} parameter '
+              f'and {ema_moved} EMA leaves moved, launches (B1, B2, B3) '
+              f'{read_counts()}')
+        if batch == 2:
+            undo = annotate_training(model)
+            try:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    start.record()
+                    state, metrics = trainer.train_step(state, batch_d, gen)
+                    end.record()
+                    torch.cuda.synchronize()
+            finally:
+                undo()
+            report_train_profile(prof, start.elapsed_time(end), tag)
+            trained = model
+    return trained
+
+
+def phase_after_training(torch, model):
+    """9c: the trained model back in eval mode: the InferEngine under
+    no_grad launches the kernels again, exactly as many as the main path
+    does."""
+    from rmem_ocu_tpu_torch import InferEngine, get_config
+    exp = get_config('pre_vost_2', model='r50_deaotl')
+    model.eval()
+    size, n_frames = (225, 225), 4
+    eng = InferEngine(model, exp, long_term_mem_gap=1)
+    img0, mask0, frames = make_inputs(1, n_frames, seed=9, size=size)
+    state = eng.init_state(1, grid_of(size, True))
+    reset_counts()
+    state = eng.add_reference_frame(state, torch.from_numpy(img0),
+                                    torch.from_numpy(mask0),
+                                    torch.tensor([N_OBJ]))
+    for f in frames:
+        logits, state = eng.propagate(state, torch.from_numpy(f))
+        state = eng.update_memory(state, eng.predict_mask(logits, size))
+        check(bool(torch.isfinite(logits[..., :N_OBJ + 1]).all()),
+              'non-finite logits after training')
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == expected_counts('deaot_1head', n_frames),
+          f'after training: launches (B1, B2, B3) {counts}, expected '
+          f'{expected_counts("deaot_1head", n_frames)}')
+    print(f'after training, eval mode, no_grad: {n_frames} frames at '
+          f'{size[0]}x{size[1]}, launches (B1, B2, B3) {counts} as expected')
+    return counts
+
+
 def print_resources(logs) -> None:
     """Registers, shared memory and spills of each kernel: ptxas's report
     per entry (static shared memory only), then the runtime's view of the
@@ -1257,6 +1605,12 @@ def main() -> int:
         print(f'phase 7 done at {time.time() - t_start:.1f} s')
         counts['oracle_bf16'] = phase_oracle(torch, os.path.join(tmp,
                                                                  'oracle'))
+    print(f'phase 8 done at {time.time() - t_start:.1f} s')
+    counts['training_fp32'] = phase_training_fp32(torch)
+    trained = phase_training_bf16(torch)
+    check(trained is not None, 'the batch-2 training run did not finish')
+    counts['after_training'] = phase_after_training(torch, trained)
+    print(f'phase 9 done at {time.time() - t_start:.1f} s')
 
     kernels = []
     for name, src, replaces, row_name, idx, path in KERNELS:

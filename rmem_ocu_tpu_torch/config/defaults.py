@@ -1,13 +1,16 @@
 """Typed configuration for the PyTorch port.
 
-A copy of the parts of the JAX package's `config/defaults.py` that
-inference and evaluation read: every model field that is not a training
-setting (and the TopDown encoder's two, which describe its model), the
-eval and directory fields of `ExpConfig`, the whole model registry, every
-stage with the model overrides it makes, and the reload of a
-`config_to_dict` snapshot. Values
-are the reference's (aot_plus/configs), so the two packages agree field by
-field; the CPU tests hold them to that.
+A copy of the JAX package's `config/defaults.py`: every model and
+experiment field (training, data, eval and directories), the whole model
+registry, every stage with its training recipe and the model overrides it
+makes, and the reload of a `config_to_dict` snapshot. Values are the
+reference's (aot_plus/configs), so the two packages agree field by field;
+the CPU tests hold them to that. The data fields and the checkpoint and
+logging fields are read by no code of the port yet (ROADMAP item 14b);
+the mesh fields and `train_zero1`, `train_spatial_sharding`,
+`train_encoder_chunk`, `train_scan_unroll` and the `dots` remat policies
+exist for XLA, and the port's training raises on any value but their
+default.
 """
 from __future__ import annotations
 
@@ -29,11 +32,14 @@ class ModelConfig:
     encoder_embedding_dim: int = 256
     decoder_intermediate_lstt: bool = True
     linear_q: bool = True
+    freeze_bn: bool = True
+    freeze_backbone: bool = False
     max_obj_num: int = 10
     ignore_token: bool = True
     self_heads: int = 8
     att_heads: int = 8
     lstt_num: int = 1
+    train_long_term_mem_gap: int = 9999
     test_long_term_mem_gap: int = 9999
 
     # RMem feature flags (reference configs/models/r50_deaotl.py:7-28)
@@ -41,15 +47,20 @@ class ModelConfig:
     latter_mem_len: int = 8
     use_temporal_pe: bool = False
     temporal_pe_slot_4: bool = True       # 4-slot learnable memory PE vs 2
+    # training freezes all but the temporal PE / the ConvGRU
+    freeze_except_temporal_pe: bool = False
     gru_memory: bool = False
+    freeze_except_gru: bool = False
     no_long_memory: bool = False
     no_memory_gap: bool = False
+    # REVERSE_INFER: a backward-consistency loss in training (AOT only)
+    reverse_infer: bool = False
     reverse_loss: float = 0.4
     use_mask: bool = False                # topdown-encoder mask conditioning
     oracle: bool = False
     # TopDown encoder: weight of its reconstruction loss, and whether
-    # training freezes the backbone below its feedback decoders (read by
-    # training, which the port does not have yet; ROADMAP item 14)
+    # training freezes the backbone below its feedback decoders (get_config
+    # then sets train_encoder_freeze_at = 4)
     var_loss_weight: Optional[float] = None
     top_down_freeze_encoder: bool = False
     # read by no code, here or in the reference; kept so that a snapshot
@@ -84,12 +95,91 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ExpConfig:
-    """Experiment config composed with a model: the JAX package's
-    ExpConfig without its training fields (`TRAINING_FIELDS`)."""
+    """Experiment config composed with a model (reference
+    aot_plus/configs/default.py:5-151 plus the stage overrides)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     exp_name: str = 'default'
     stage_name: str = 'default'
+
+    # --- data (read by the training data of ROADMAP item 14b) ---
+    datasets: Tuple[str, ...] = ('youtubevos',)
+    data_workers: int = 8
+    data_randomcrop: Tuple[int, int] = (465, 465)
+    data_randomflip: float = 0.5
+    data_max_crop_steps: int = 10
+    data_short_edge_len: int = 480
+    data_min_scale_factor: float = 0.7
+    data_max_scale_factor: float = 1.3
+    data_random_reverse_seq: bool = True
+    data_seq_len: int = 5
+    data_davis_repeat: int = 5
+    data_vost_repeat: int = 1
+    data_vost_ignore_thresh: float = 0.2
+    data_vost_all_frames: bool = False
+    data_vost_valid_frames: bool = False
+    data_random_gap_davis: int = 12
+    data_random_gap_ytb: int = 3
+    data_random_gap_vost: int = 3
+    data_random_gap_visor: int = 1
+    data_dynamic_merge_prob: float = 0.2
+    ignore_in_merge: bool = True
+    enable_prev_frame: bool = False
+    data_visor_repeat: int = 1
+    data_visor_ignore_thresh: float = 0.2
+
+    pretrain: bool = True
+    pretrain_full: bool = False
+    pretrain_model: str = ''
+
+    # --- training ---
+    train_total_steps: int = 100_000
+    train_start_step: int = 0
+    train_tblog: bool = False
+    train_img_log_step: int = 200
+    train_weight_decay: float = 0.07
+    train_weight_decay_exemption: Tuple[str, ...] = (
+        'absolute_pos_embed', 'relative_position_bias_table',
+        'relative_emb_v', 'conv_out')
+    train_lr: float = 2e-4
+    train_lr_min: float = 1e-5
+    train_lr_power: float = 0.9
+    train_lr_encoder_ratio: float = 0.1
+    train_lr_warm_up_ratio: float = 0.05
+    train_lr_cosine_decay: bool = False
+    train_lr_restart: int = 1
+    train_aux_loss_weight: float = 1.0
+    train_aux_loss_ratio: float = 1.0
+    train_opt: str = 'adamw'              # 'adamw' | 'sgd'
+    train_sgd_momentum: float = 0.9
+    train_batch_size: int = 16
+    train_log_step: int = 20
+    train_top_k_percent_pixels: float = 0.15
+    train_seq_training_freeze_params: Tuple[str, ...] = ('patch_wise_id_bank',)
+    train_seq_training_start_ratio: float = 0.5
+    train_hard_mining_ratio: float = 0.5
+    train_ema_ratio: float = 0.1
+    train_clip_grad_norm: float = 5.0
+    train_save_step: int = 500
+    train_max_keep_ckpt: int = 8
+    train_resume: bool = False
+    train_auto_resume: bool = True
+    train_encoder_freeze_at: int = 2
+    train_lstt_emb_dropout: float = 0.0
+    train_lstt_id_dropout: float = 0.0
+    train_lstt_droppath: float = 0.1
+    train_lstt_droppath_scaling: bool = False
+    train_lstt_droppath_lst: bool = False
+    train_lstt_lt_dropout: float = 0.0
+    train_lstt_st_dropout: float = 0.0
+    train_long_term_mem_gap: int = 9999
+    train_short_term_mem_skip: int = 1
+    # 'full' checkpoints the encoder and each frame step, 'none' nothing;
+    # 'dots' / 'dots_k*' are XLA policies the port does not have
+    train_remat_policy: str = 'full'
+    train_encoder_chunk: int = 0          # XLA only: 0
+    train_amp: bool = False               # bf16 parameters and activations
+    train_scan_unroll: int = 1            # XLA only: 1
 
     # --- eval ---
     test_dataset: str = 'youtubevos'
@@ -120,6 +210,11 @@ class ExpConfig:
     dir_root: str = './results'
 
     compute_dtype: str = 'float32'        # 'float32' | 'bfloat16'
+    # the JAX package's device mesh and sharding knobs (ROADMAP item 15)
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axes: Tuple[str, ...] = ('data',)
+    train_spatial_sharding: bool = False
+    train_zero1: bool = False
 
     def dir_result(self) -> str:
         import os
@@ -137,12 +232,13 @@ def _deaot_defaults(**kw) -> ModelConfig:
 
 
 _R50 = dict(encoder='resnet50', encoder_dim=(256, 512, 1024, 1024),
-            lstt_num=3, test_long_term_mem_gap=5)
+            lstt_num=3, train_long_term_mem_gap=2, test_long_term_mem_gap=5)
 _RMEM = dict(former_mem_len=1, latter_mem_len=8, use_temporal_pe=True,
              temporal_pe_slot_4=True)
 
 _SWINB = dict(encoder='swin_base', encoder_dim=(128, 256, 512, 512),
-              align_corners=False, lstt_num=3, test_long_term_mem_gap=5)
+              align_corners=False, lstt_num=3, train_long_term_mem_gap=2,
+              test_long_term_mem_gap=5)
 
 MODEL_REGISTRY: Dict[str, ModelConfig] = {
     # AOT family (reference configs/models/aott.py, aots.py, aotb.py,
@@ -151,7 +247,7 @@ MODEL_REGISTRY: Dict[str, ModelConfig] = {
     'aots': ModelConfig(model_name='aots', lstt_num=2),
     'aotb': ModelConfig(model_name='aotb', lstt_num=3),
     'aotl': ModelConfig(model_name='aotl', lstt_num=3,
-                        test_long_term_mem_gap=5),
+                        train_long_term_mem_gap=2, test_long_term_mem_gap=5),
     # ResNet / ResNeSt / Swin AOT-L; r50_aotl carries the RMem flags in the
     # reference fork
     'r50_aotl': ModelConfig(model_name='r50_aotl', **_R50, **_RMEM),
@@ -168,6 +264,7 @@ MODEL_REGISTRY: Dict[str, ModelConfig] = {
     'deaots': _deaot_defaults(model_name='deaots', lstt_num=2),
     'deaotb': _deaot_defaults(model_name='deaotb', lstt_num=3),
     'deaotl': _deaot_defaults(model_name='deaotl', lstt_num=3,
+                              train_long_term_mem_gap=2,
                               test_long_term_mem_gap=5),
     'r50_deaotl': _deaot_defaults(model_name='r50_deaotl', **_R50, **_RMEM),
     'swinb_deaotl': _deaot_defaults(model_name='swinb_deaotl', **_SWINB,
@@ -192,86 +289,85 @@ def get_model_config(name: str, **overrides) -> ModelConfig:
 
 
 def _stage_default(model: ModelConfig, exp_name: str) -> ExpConfig:
-    return ExpConfig(model=model, exp_name=exp_name,
-                     test_long_term_mem_gap=model.test_long_term_mem_gap)
+    return ExpConfig(
+        model=model, exp_name=exp_name,
+        data_randomcrop=(465, 465) if model.align_corners else (464, 464),
+        train_lr_min=2e-5 if 'mobilenetv2' in model.encoder else 1e-5,
+        train_long_term_mem_gap=model.train_long_term_mem_gap,
+        test_long_term_mem_gap=model.test_long_term_mem_gap)
 
 
-def _stage(stage_name: str, **model_overrides):
-    """A stage of the reference (configs/*.py): its name and the model
-    settings it overrides. The stages differ otherwise only in training
-    settings, which the port does not have yet (ROADMAP item 14)."""
-    def make(model: ModelConfig, exp_name: str) -> ExpConfig:
-        return replace(_stage_default(replace(model, **model_overrides),
-                                      exp_name), stage_name=stage_name)
-    return make
+def _stage_pre(model, exp):
+    return replace(_stage_default(model, exp), stage_name='pre',
+                   datasets=('static',), data_dynamic_merge_prob=1.0,
+                   train_lr=4e-4, train_lr_min=2e-5, train_weight_decay=0.03,
+                   train_seq_training_start_ratio=1.0,
+                   train_aux_loss_ratio=0.1,
+                   model=replace(model, linear_q=True))
 
 
+def _stage_pre_vost(model, exp, stage_name='pre_vost', seq_len=15):
+    model = replace(model, linear_q=False, ignore_token=True)
+    gap = 1 if model.no_memory_gap else 4
+    return replace(_stage_default(model, exp), stage_name=stage_name,
+                   datasets=('vost',), train_total_steps=20_000,
+                   data_seq_len=seq_len, train_long_term_mem_gap=gap,
+                   train_auto_resume=False, pretrain_full=True)
+
+
+def _stage_pre_ytb(model, exp):
+    return replace(_stage_default(model, exp), stage_name='pre_ytb',
+                   data_seq_len=10, train_long_term_mem_gap=4,
+                   train_total_steps=80_000, pretrain_full=True,
+                   model=replace(model, linear_q=True))
+
+
+def _stage_pre_dav(model, exp):
+    return replace(_stage_default(model, exp), stage_name='pre_dav',
+                   datasets=('davis2017',), train_total_steps=50_000,
+                   pretrain_full=True)
+
+
+def _stage_pre_ytb_dav(model, exp):
+    return replace(_stage_default(model, exp), stage_name='pre_ytb_dav',
+                   datasets=('youtubevos', 'davis2017'), pretrain_full=True)
+
+
+def _stage_ytb(model, exp):
+    return replace(_stage_default(model, exp), stage_name='ytb')
+
+
+# the reference's stages (configs/*.py): each a training recipe and the
+# model settings it overrides
 STAGE_REGISTRY = {
-    'default': _stage('default'),
-    'pre': _stage('pre', linear_q=True),
-    'pre_vost': _stage('pre_vost', linear_q=False, ignore_token=True),
-    'pre_vost_2': _stage('pre_vost_2', linear_q=False, ignore_token=True),
-    'pre_vost_25q': _stage('pre_vost_25q', linear_q=False,
-                           ignore_token=True),
-    'pre_ytb': _stage('pre_ytb', linear_q=True),
-    'pre_dav': _stage('pre_dav'),
-    'pre_ytb_dav': _stage('pre_ytb_dav'),
-    'ytb': _stage('ytb'),
+    'default': _stage_default,
+    'pre': _stage_pre,
+    'pre_vost': lambda m, e: _stage_pre_vost(m, e, 'pre_vost', 15),
+    'pre_vost_2': lambda m, e: _stage_pre_vost(m, e, 'pre_vost_2', 17),
+    'pre_vost_25q': lambda m, e: _stage_pre_vost(m, e, 'pre_vost_25q', 25),
+    'pre_ytb': _stage_pre_ytb,
+    'pre_dav': _stage_pre_dav,
+    'pre_ytb_dav': _stage_pre_ytb_dav,
+    'ytb': _stage_ytb,
 }
-
-# Fields of a JAX package snapshot (`config_to_dict`) that only training
-# reads; config_from_dict drops them (ROADMAP item 14 ports training).
-TRAINING_FIELDS = frozenset((
-    'datasets', 'data_workers', 'data_randomcrop', 'data_randomflip',
-    'data_max_crop_steps', 'data_short_edge_len', 'data_min_scale_factor',
-    'data_max_scale_factor', 'data_random_reverse_seq', 'data_seq_len',
-    'data_davis_repeat', 'data_vost_repeat', 'data_vost_ignore_thresh',
-    'data_vost_all_frames', 'data_vost_valid_frames',
-    'data_random_gap_davis', 'data_random_gap_ytb', 'data_random_gap_vost',
-    'data_random_gap_visor', 'data_dynamic_merge_prob', 'ignore_in_merge',
-    'enable_prev_frame', 'data_visor_repeat', 'data_visor_ignore_thresh',
-    'pretrain', 'pretrain_full', 'pretrain_model',
-    'train_total_steps', 'train_start_step', 'train_tblog',
-    'train_img_log_step', 'train_weight_decay',
-    'train_weight_decay_exemption', 'train_lr', 'train_lr_min',
-    'train_lr_power', 'train_lr_encoder_ratio', 'train_lr_warm_up_ratio',
-    'train_lr_cosine_decay', 'train_lr_restart', 'train_aux_loss_weight',
-    'train_aux_loss_ratio', 'train_opt', 'train_sgd_momentum',
-    'train_batch_size', 'train_log_step', 'train_top_k_percent_pixels',
-    'train_seq_training_freeze_params', 'train_seq_training_start_ratio',
-    'train_hard_mining_ratio', 'train_ema_ratio', 'train_clip_grad_norm',
-    'train_save_step', 'train_max_keep_ckpt', 'train_resume',
-    'train_auto_resume', 'train_encoder_freeze_at', 'train_lstt_emb_dropout',
-    'train_lstt_id_dropout', 'train_lstt_droppath',
-    'train_lstt_droppath_scaling', 'train_lstt_droppath_lst',
-    'train_lstt_lt_dropout', 'train_lstt_st_dropout',
-    'train_long_term_mem_gap', 'train_short_term_mem_skip',
-    'train_remat_policy', 'train_encoder_chunk', 'train_amp',
-    'train_scan_unroll', 'mesh_shape', 'mesh_axes',
-    'train_spatial_sharding', 'train_zero1'))
-MODEL_TRAINING_FIELDS = frozenset((
-    'freeze_bn', 'freeze_backbone', 'train_long_term_mem_gap',
-    'freeze_except_temporal_pe', 'freeze_except_gru', 'reverse_infer'))
 
 
 def config_from_dict(d: dict) -> ExpConfig:
     """Rebuild an ExpConfig from a snapshot written by the JAX package's
     `config_to_dict` (and read back from JSON), the reload of the
-    reference's eval.py:97-102. Every model and eval field is kept; the
-    training fields listed in `TRAINING_FIELDS` and `MODEL_TRAINING_FIELDS`
-    are dropped. Any other field the port does not know raises."""
-    def take(values: dict, cls, dropped: frozenset) -> dict:
+    reference's eval.py:97-102, training recipe included. A field the port
+    does not know raises."""
+    def take(values: dict, cls) -> dict:
         known = {f.name for f in dataclasses.fields(cls)}
-        unknown = sorted(set(values) - known - dropped)
+        unknown = sorted(set(values) - known)
         if unknown:
             raise ValueError(f'{cls.__name__} has no fields {unknown}')
         return {k: tuple(v) if isinstance(v, list) else v
-                for k, v in values.items() if k in known}
+                for k, v in values.items()}
 
     d = dict(d)
-    model = ModelConfig(**take(d.pop('model'), ModelConfig,
-                               MODEL_TRAINING_FIELDS))
-    return ExpConfig(model=model, **take(d, ExpConfig, TRAINING_FIELDS))
+    model = ModelConfig(**take(d.pop('model'), ModelConfig))
+    return ExpConfig(model=model, **take(d, ExpConfig))
 
 
 def get_config(stage: str, exp_name: str = 'default',
@@ -287,6 +383,10 @@ def get_config(stage: str, exp_name: str = 'default',
     if model_overrides:
         model_overrides = _couple_no_memory_gap(cfg.model, model_overrides)
         cfg = replace(cfg, model=replace(cfg.model, **model_overrides))
+    if cfg.model.top_down_freeze_encoder:
+        # reference configs/models/r50_topdown_aotl.py:7 and
+        # configs/default.py:121; an explicit override still wins
+        cfg = replace(cfg, train_encoder_freeze_at=4)
     if exp_overrides:
         cfg = replace(cfg, **exp_overrides)
     return cfg

@@ -28,6 +28,7 @@ from rmem_ocu_tpu_torch.models.vos_model import VOSModel
 from rmem_ocu_tpu_torch.ops.idmask import label_to_one_hot
 from rmem_ocu_tpu_torch.ops.position import interpolated_memory_pe
 from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
+from rmem_ocu_tpu_torch.utils.precision import compute_dtype_of
 
 UNUSED_ID_LOGIT = -1e10
 
@@ -79,8 +80,7 @@ class InferEngine:
                     else exp_cfg.test_long_term_mem_gap)
         self.skip = (short_term_mem_skip if short_term_mem_skip is not None
                      else exp_cfg.test_short_term_mem_skip)
-        self.dtype = (torch.bfloat16 if exp_cfg.compute_dtype == 'bfloat16'
-                      else torch.float32)
+        self.dtype = compute_dtype_of(exp_cfg)
         self.device = next(model.parameters()).device
         self.is_deaot = self.cfg.vos == 'deaot'
         self._self_pos = {}

@@ -13,15 +13,20 @@ logical-position indirection:
   permutation-invariant); the temporal PE and the former/latter semantics
   are functions of `pos`.
 
-Unlike the JAX package the bank is updated IN PLACE: `append_frame` writes
-the new frame's slot into the K/V/ID_V buffers, and every function here
-replaces the bank's small per-slot tensors. The K/V/ID_V buffers are lists
+Unlike the JAX package the inference engine updates the bank IN PLACE:
+`append_frame` writes the new frame's slot into the K/V/ID_V buffers, and
+the other functions replace the bank's small per-slot tensors. Training
+differentiates through the memory, where an in-place write would corrupt
+the tensors autograd saved: the training engine uses the functional
+`append_frame_functional`, `evict_frame_functional` and
+`push_short_term_functional`, which build new tensors and return a new
+bank or window, as the JAX package's do. The K/V/ID_V buffers are lists
 of per-layer tensors [B, T_cap, HW, C]; the AOT family has no ID_V
 (`id_v` is None).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional
 
 import torch
@@ -169,6 +174,75 @@ def append_frame(bank: MemoryBank, new_k: LayerArrays, new_v: LayerArrays,
                               bank.length)
 
 
+def _free_slot(bank: MemoryBank) -> torch.Tensor:
+    """[B] the first free physical slot, or, if none is free, the newest
+    logical slot (never the protected former frame)."""
+    cap = bank.capacity
+    t = torch.arange(cap, device=bank.pos.device)[None]
+    idx = torch.where(bank.pos < 0, t, cap).min(dim=-1).values
+    newest = bank.phys_of((bank.length - 1).clamp_min(0))
+    return torch.where(idx >= cap, newest, idx)
+
+
+def append_frame_functional(bank: MemoryBank, new_k: LayerArrays,
+                            new_v: LayerArrays,
+                            new_id_v: Optional[LayerArrays], frame_idx,
+                            enabled: Optional[torch.Tensor] = None
+                            ) -> MemoryBank:
+    """`append_frame` without writing in place: returns a new bank whose
+    buffers select the new frame ([B, HW, C] per layer) at its slot and
+    the old content elsewhere, so autograd sees every write (the JAX
+    package's `append_frame`). frame_idx: int or [B]."""
+    cap = bank.capacity
+    dev = bank.pos.device
+    if enabled is None:
+        enabled = torch.ones_like(bank.length, dtype=torch.bool)
+    idx = _free_slot(bank)
+    t = torch.arange(cap, device=dev)[None]
+    sel = (t == idx[:, None]) & enabled[:, None]             # [B, T]
+
+    def write(arrs, news):
+        return [torch.where(sel[:, :, None, None], new.to(arr.dtype)[:, None],
+                            arr) for arr, new in zip(arrs, news)]
+    return replace(
+        bank, k=write(bank.k, new_k), v=write(bank.v, new_v),
+        id_v=None if bank.id_v is None else write(bank.id_v, new_id_v),
+        pos=torch.where(sel, bank.length.clamp_max(cap - 1)[:, None],
+                        bank.pos),
+        frame_ids=torch.where(sel, torch.as_tensor(frame_idx, device=dev)
+                              .reshape(-1, 1), bank.frame_ids),
+        attn_ema=torch.where(sel, 0.0, bank.attn_ema),
+        ema_present=bank.ema_present & ~sel,
+        visits=torch.where(sel, 0.0, bank.visits),
+        length=torch.where(enabled, (bank.length + 1).clamp_max(cap),
+                           bank.length))
+
+
+def evict_frame_functional(bank: MemoryBank, drop_idx: torch.Tensor,
+                           enabled: Optional[torch.Tensor] = None
+                           ) -> MemoryBank:
+    """`evict_frame` returning a new bank (no data moves either way)."""
+    if enabled is None:
+        enabled = torch.ones_like(drop_idx, dtype=torch.bool)
+    en = enabled[:, None]
+    dropped = (bank.pos == drop_idx[:, None]) & en
+    shift = (bank.pos > drop_idx[:, None]) & en
+    pos = torch.where(shift, bank.pos - 1, bank.pos)
+    return replace(
+        bank, pos=torch.where(dropped, -1, pos),
+        length=torch.where(enabled, (bank.length - 1).clamp_min(0),
+                           bank.length),
+        frame_ids=torch.where(dropped, -1, bank.frame_ids))
+
+
+def default_drop_index(bank: MemoryBank, former_len: int,
+                       gru_memory: bool = False) -> torch.Tensor:
+    """The training's drop slot, without attention scoring, as a LOGICAL
+    position (reference transformer.py:335-337)."""
+    return torch.full_like(bank.length, former_len + (1 if gru_memory
+                                                      else 0))
+
+
 def evict_frame(bank: MemoryBank, drop_idx: torch.Tensor,
                 enabled: Optional[torch.Tensor] = None,
                 compressed_kv=None) -> None:
@@ -301,3 +375,31 @@ def push_short_term(short: ShortTermMemory, new_k: LayerArrays,
             grown[rows, slot] = new
             arr.copy_(torch.where(full, shifted, grown))
     short.count += 1
+
+
+def push_short_term_functional(short: ShortTermMemory, new_k: LayerArrays,
+                               new_v: LayerArrays,
+                               new_id_v: Optional[LayerArrays]
+                               ) -> ShortTermMemory:
+    """`push_short_term` returning a new window of new tensors."""
+    s = short.k[0].shape[1]
+    full = (short.count >= s)[:, None, None, None]
+    slot = short.count.clamp_max(s - 1)
+    at = (torch.arange(s, device=short.count.device)[None]
+          == slot[:, None])[:, :, None, None]               # [B, S, 1, 1]
+
+    def push(arrs, news):
+        out = []
+        for arr, new in zip(arrs, news):
+            new = new.to(arr.dtype)[:, None]
+            if s == 1:
+                out.append(new)
+                continue
+            shifted = torch.cat([arr[:, 1:], new], dim=1)
+            grown = torch.where(at, new, arr)
+            out.append(torch.where(full, shifted, grown))
+        return out
+    return replace(
+        short, k=push(short.k, new_k), v=push(short.v, new_v),
+        id_v=None if short.id_v is None else push(short.id_v, new_id_v),
+        count=short.count + 1)

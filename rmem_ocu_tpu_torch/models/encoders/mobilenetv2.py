@@ -12,7 +12,7 @@ from typing import List
 import torch
 from torch import nn
 
-from rmem_ocu_tpu_torch.ops.layers import FrozenBatchNorm2d
+from rmem_ocu_tpu_torch.ops.layers import clip, make_bn
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:
@@ -23,35 +23,38 @@ def make_divisible(v: float, divisor: int = 8) -> int:
 
 
 class ReLU6(nn.Module):
-    """clip(x, 0, 6), as the JAX package writes it."""
+    """clip(x, 0, 6), as the JAX package writes it (its gradient too)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.clamp(0.0, 6.0)
+        return clip(x, 0.0, 6.0)
 
 
 def conv_bn_relu(inp: int, out: int, kernel: int = 3, stride: int = 1,
-                 groups: int = 1, dilation: int = 1) -> nn.Sequential:
-    """Conv (no bias) -> frozen BN -> ReLU6 (reference ConvBNReLU)."""
+                 groups: int = 1, dilation: int = 1,
+                 frozen_bn: bool = True) -> nn.Sequential:
+    """Conv (no bias) -> BN -> ReLU6 (reference ConvBNReLU)."""
     pad = (kernel - 1) // 2 * dilation
     return nn.Sequential(
         nn.Conv2d(inp, out, kernel, stride=stride, padding=pad,
                   dilation=dilation, groups=groups, bias=False),
-        FrozenBatchNorm2d(out), ReLU6())
+        make_bn(out, frozen_bn), ReLU6())
 
 
 class InvertedResidual(nn.Module):
     def __init__(self, inp: int, oup: int, stride: int, dilation: int,
-                 expand_ratio: int):
+                 expand_ratio: int, frozen_bn: bool = True):
         super().__init__()
         hidden = int(round(inp * expand_ratio))
         self.use_res = stride == 1 and inp == oup
         layers = []
         if expand_ratio != 1:
-            layers.append(conv_bn_relu(inp, hidden, kernel=1))
+            layers.append(conv_bn_relu(inp, hidden, kernel=1,
+                                       frozen_bn=frozen_bn))
         layers += [conv_bn_relu(hidden, hidden, stride=stride,
-                                dilation=dilation, groups=hidden),
+                                dilation=dilation, groups=hidden,
+                                frozen_bn=frozen_bn),
                    nn.Conv2d(hidden, oup, 1, bias=False),
-                   FrozenBatchNorm2d(oup)]
+                   make_bn(oup, frozen_bn)]
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,11 +78,13 @@ class MobileNetV2Encoder(nn.Module):
     """[4x (24), 8x (32), 16x (96), 16x (1280)]; past stride 16 the
     strides become dilations."""
 
-    def __init__(self, output_stride: int = 16, width_mult: float = 1.0):
+    def __init__(self, output_stride: int = 16, width_mult: float = 1.0,
+                 frozen_bn: bool = True):
         super().__init__()
         input_channel = make_divisible(32 * width_mult)
         last_channel = make_divisible(1280 * max(1.0, width_mult))
-        features = [conv_bn_relu(3, input_channel, stride=2)]
+        features = [conv_bn_relu(3, input_channel, stride=2,
+                                 frozen_bn=frozen_bn)]
         current_stride, rate = 2, 1
         for t, c, n, s in _SETTING:
             if current_stride == output_stride:
@@ -92,9 +97,10 @@ class MobileNetV2Encoder(nn.Module):
             for i in range(n):
                 features.append(InvertedResidual(
                     input_channel, out_ch, stride if i == 0 else 1,
-                    dilation if i == 0 else rate, t))
+                    dilation if i == 0 else rate, t, frozen_bn))
                 input_channel = out_ch
-        features.append(conv_bn_relu(input_channel, last_channel, kernel=1))
+        features.append(conv_bn_relu(input_channel, last_channel, kernel=1,
+                                     frozen_bn=frozen_bn))
         self.features = nn.Sequential(*features)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:

@@ -16,11 +16,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from rmem_ocu_tpu_torch.models.encoders.mobilenetv2 import make_divisible
-from rmem_ocu_tpu_torch.ops.layers import FrozenBatchNorm2d
+from rmem_ocu_tpu_torch.ops.layers import clip, make_bn
 
 
 def h_sigmoid(x: torch.Tensor) -> torch.Tensor:
-    return (x + 3.0).clamp(0.0, 6.0) / 6.0
+    return clip(x + 3.0, 0.0, 6.0) / 6.0
 
 
 def h_swish(x: torch.Tensor) -> torch.Tensor:
@@ -47,7 +47,8 @@ class SELayer(nn.Module):
 
 class MBV3Block(nn.Module):
     def __init__(self, inp: int, hidden: int, oup: int, kernel: int,
-                 stride: int, dilation: int, use_se: bool, use_hs: bool):
+                 stride: int, dilation: int, use_se: bool, use_hs: bool,
+                 frozen_bn: bool = True):
         super().__init__()
         self.act = h_swish if use_hs else F.relu
         self.identity = stride == 1 and inp == oup
@@ -56,14 +57,16 @@ class MBV3Block(nn.Module):
         dw = nn.Conv2d(hidden, hidden, kernel, stride=stride, padding=pad,
                        dilation=dilation, groups=hidden, bias=False)
         se = SELayer(hidden) if use_se else nn.Identity()
-        tail = [nn.Conv2d(hidden, oup, 1, bias=False), FrozenBatchNorm2d(oup)]
+        tail = [nn.Conv2d(hidden, oup, 1, bias=False),
+                make_bn(oup, frozen_bn)]
         # nn.Identity stands where the reference has an activation module
         if self.expand:
             layers = [nn.Conv2d(inp, hidden, 1, bias=False),
-                      FrozenBatchNorm2d(hidden), nn.Identity(), dw,
-                      FrozenBatchNorm2d(hidden), se, nn.Identity()] + tail
+                      make_bn(hidden, frozen_bn), nn.Identity(), dw,
+                      make_bn(hidden, frozen_bn), se, nn.Identity()] + tail
         else:
-            layers = [dw, FrozenBatchNorm2d(hidden), nn.Identity(), se] + tail
+            layers = [dw, make_bn(hidden, frozen_bn), nn.Identity(),
+                      se] + tail
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -102,12 +105,13 @@ _CFGS = (
 class MobileNetV3Encoder(nn.Module):
     """[4x (24), 8x (40), 16x (112), 16x (960)]."""
 
-    def __init__(self, output_stride: int = 16, width_mult: float = 1.0):
+    def __init__(self, output_stride: int = 16, width_mult: float = 1.0,
+                 frozen_bn: bool = True):
         super().__init__()
         input_channel = make_divisible(16 * width_mult)
         features = [nn.Sequential(
             nn.Conv2d(3, input_channel, 3, stride=2, padding=1, bias=False),
-            FrozenBatchNorm2d(input_channel))]
+            make_bn(input_channel, frozen_bn))]
         current_stride, rate = 2, 1
         for k, t, c, use_se, use_hs, s in _CFGS:
             if current_stride == output_stride:
@@ -119,13 +123,13 @@ class MobileNetV3Encoder(nn.Module):
             out_ch = make_divisible(c * width_mult)
             features.append(MBV3Block(
                 input_channel, make_divisible(input_channel * t), out_ch, k,
-                stride, dilation, bool(use_se), bool(use_hs)))
+                stride, dilation, bool(use_se), bool(use_hs), frozen_bn))
             input_channel = out_ch
         self.features = nn.Sequential(*features)
         last = make_divisible(input_channel * 6)
         self.conv = nn.Sequential(nn.Conv2d(input_channel, last, 1,
                                             bias=False),
-                                  FrozenBatchNorm2d(last))
+                                  make_bn(last, frozen_bn))
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x: [B, 3, H, W]; 4x after block 2, 8x after block 5, 16x after

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rmem_ocu_tpu_torch.ops.layers import FrozenBatchNorm2d, max_pool_3x3_s2
+from rmem_ocu_tpu_torch.ops.layers import make_bn, max_pool_3x3_s2
 
 
 class SplAtConv2d(nn.Module):
@@ -27,15 +27,16 @@ class SplAtConv2d(nn.Module):
     weighted by it."""
 
     def __init__(self, inp: int, channels: int, stride: int = 1,
-                 radix: int = 2, reduction_factor: int = 4):
+                 radix: int = 2, reduction_factor: int = 4,
+                 frozen_bn: bool = True):
         super().__init__()
         self.radix, self.channels = radix, channels
         inter = max(channels * radix // reduction_factor, 32)
         self.conv = nn.Conv2d(inp, channels * radix, 3, stride=stride,
                               padding=1, groups=radix, bias=False)
-        self.bn0 = FrozenBatchNorm2d(channels * radix)
+        self.bn0 = make_bn(channels * radix, frozen_bn)
         self.fc1 = nn.Conv2d(channels, inter, 1)
-        self.bn1 = FrozenBatchNorm2d(inter)
+        self.bn1 = make_bn(inter, frozen_bn)
         self.fc2 = nn.Conv2d(inter, channels * radix, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,14 +52,16 @@ class SplAtConv2d(nn.Module):
 
 class ResNeStBottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 avd: bool = False, downsample: bool = False):
+                 avd: bool = False, downsample: bool = False,
+                 frozen_bn: bool = True):
         super().__init__()
         self.stride, self.avd = stride, avd
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = SplAtConv2d(planes, planes, 1 if avd else stride)
+        self.bn1 = make_bn(planes, frozen_bn)
+        self.conv2 = SplAtConv2d(planes, planes, 1 if avd else stride,
+                                 frozen_bn=frozen_bn)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.bn3 = make_bn(planes * 4, frozen_bn)
         # avg-down (reference resnest/resnet.py:330-352): odd sizes end in
         # a partial window, averaged over its valid elements
         pool = (nn.AvgPool2d(stride, stride, ceil_mode=True,
@@ -66,7 +69,7 @@ class ResNeStBottleneck(nn.Module):
                 else nn.Identity())
         self.downsample = nn.Sequential(
             pool, nn.Conv2d(inplanes, planes * 4, 1, bias=False),
-            FrozenBatchNorm2d(planes * 4)) if downsample else None
+            make_bn(planes * 4, frozen_bn)) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -83,16 +86,17 @@ class ResNeStEncoder(nn.Module):
     """[4x (256), 8x (512), 16x (1024), 16x]; stem width 32 for ResNeSt-50,
     64 for ResNeSt-101."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 6)):
+    def __init__(self, layers: Sequence[int] = (3, 4, 6),
+                 frozen_bn: bool = True):
         super().__init__()
         sw = 32 if layers[2] == 6 else 64
         self.conv1 = nn.Sequential(
             nn.Conv2d(3, sw, 3, stride=2, padding=1, bias=False),
-            FrozenBatchNorm2d(sw), nn.ReLU(),
+            make_bn(sw, frozen_bn), nn.ReLU(),
             nn.Conv2d(sw, sw, 3, padding=1, bias=False),
-            FrozenBatchNorm2d(sw), nn.ReLU(),
+            make_bn(sw, frozen_bn), nn.ReLU(),
             nn.Conv2d(sw, sw * 2, 3, padding=1, bias=False))
-        self.bn1 = FrozenBatchNorm2d(sw * 2)
+        self.bn1 = make_bn(sw * 2, frozen_bn)
         inplanes = sw * 2
         for stage, (planes, blocks, stride) in enumerate(zip(
                 (64, 128, 256), layers, (1, 2, 2))):
@@ -103,7 +107,8 @@ class ResNeStEncoder(nn.Module):
                     inplanes, planes, stride=stride if first else 1,
                     avd=first and (stride > 1 or stage > 0),
                     downsample=first and (stride != 1
-                                          or inplanes != planes * 4)))
+                                          or inplanes != planes * 4),
+                    frozen_bn=frozen_bn))
                 inplanes = planes * 4
             setattr(self, f'layer{stage + 1}', nn.Sequential(*mods))
 

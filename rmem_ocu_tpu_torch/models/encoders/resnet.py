@@ -1,4 +1,5 @@
-"""ResNet-50/101 backbone with frozen BN, output stride 16, stage 5 dropped.
+"""ResNet-50/101 backbone, output stride 16, stage 5 dropped; frozen BN
+unless freeze_bn is off.
 
 Counterpart of the JAX package's `models/encoders/resnet.py` (reference
 aot_plus/networks/encoders/resnet.py:10-213). NCHW. The stem is a plain
@@ -13,20 +14,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rmem_ocu_tpu_torch.ops.layers import FrozenBatchNorm2d, max_pool_3x3_s2
+from rmem_ocu_tpu_torch.ops.layers import make_bn, max_pool_3x3_s2
 
 
 class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: Optional[nn.Module] = None):
+                 downsample: Optional[nn.Module] = None,
+                 frozen_bn: bool = True):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        self.bn1 = make_bn(planes, frozen_bn)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = FrozenBatchNorm2d(planes)
+        self.bn2 = make_bn(planes, frozen_bn)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.bn3 = make_bn(planes * 4, frozen_bn)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -40,12 +42,13 @@ class Bottleneck(nn.Module):
 class ResNetEncoder(nn.Module):
     """Stages 1-3 at strides 4, 8, 16 (output stride 16, no dilation)."""
 
-    def __init__(self, layers: Sequence[int] = (3, 4, 6)):
+    def __init__(self, layers: Sequence[int] = (3, 4, 6),
+                 frozen_bn: bool = True):
         """layers: blocks per stage, (3, 4, 6) for ResNet-50, (3, 4, 23)
         for ResNet-101."""
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = make_bn(64, frozen_bn)
         inplanes = 64
         for stage, (planes, blocks, stride) in enumerate(zip(
                 (64, 128, 256), layers, (1, 2, 2))):
@@ -56,10 +59,11 @@ class ResNetEncoder(nn.Module):
                     downsample = nn.Sequential(
                         nn.Conv2d(inplanes, planes * 4, 1, stride=stride,
                                   bias=False),
-                        FrozenBatchNorm2d(planes * 4))
+                        make_bn(planes * 4, frozen_bn))
                 mods.append(Bottleneck(inplanes, planes,
                                        stride=stride if idx == 0 else 1,
-                                       downsample=downsample))
+                                       downsample=downsample,
+                                       frozen_bn=frozen_bn))
                 inplanes = planes * 4
             setattr(self, f'layer{stage + 1}', nn.Sequential(*mods))
 

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rmem_ocu_tpu_torch.models.encoders.resnet import ResNetEncoder
-from rmem_ocu_tpu_torch.ops.layers import max_pool_3x3_s2
+from rmem_ocu_tpu_torch.ops.layers import clip, max_pool_3x3_s2
 from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
 
 
@@ -47,8 +47,8 @@ class ResNetTopDownEncoder(ResNetEncoder):
     """[4x (256), 8x (512), 16x (1024), 16x] of the second pass."""
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6),
-                 use_mask: bool = False):
-        super().__init__(layers)
+                 use_mask: bool = False, frozen_bn: bool = True):
+        super().__init__(layers, frozen_bn)
         self.use_mask = use_mask
         # decoders[d] inverts stage d (the stem for d = 0: its max pool,
         # then its conv) (reference :271-284)
@@ -94,7 +94,7 @@ class ResNetTopDownEncoder(ResNetEncoder):
                          + 1e-12)
             pn = self.prompt / (torch.linalg.vector_norm(self.prompt)
                                 + 1e-12)
-            m = torch.einsum('bchw,c->bhw', xn, pn)[:, None].clamp(0, 1)
+            m = clip(torch.einsum('bchw,c->bhw', xn, pn)[:, None], 0.0, 1.0)
         y = torch.einsum('bchw,cd->bdhw', feat * m, self.top_down_transform)
         td = []
         for depth in (3, 2, 1, 0):

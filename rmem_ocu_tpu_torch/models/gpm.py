@@ -3,11 +3,16 @@
 Counterpart of the JAX package's `models/gpm.py` (reference
 aot_plus/networks/layers/transformer.py:700-1249). The visual branch (tgt)
 and the id branch (tgt_id) propagate jointly; memory holds (K, V, ID_V) per
-layer. With more than one bank slot the long-term read is kernel B1 (one
-attention head) or B3 (several), which also return the per-slot attention
-mass that drives RMem eviction; the short-term read is kernel B2 with one
-head and the dense padded-grid attention with several. Eval only: dropout
-and drop-path are left out.
+layer. In eval mode, with more than one bank slot, the long-term read is
+kernel B1 (one attention head) or B3 (several), which also return the
+per-slot attention mass that drives RMem eviction; the short-term read is
+kernel B2 with one head and the dense padded-grid attention with several.
+In training mode every read is dense and differentiable (keys plus the PE,
+flattened over the slots, free slots masked by `bank_key_bias`, as the JAX
+package reads when not `deterministic`), and the train-time dropouts and
+drop-path of the JAX package apply: the long+short residual's dropout (or
+drop-path with `droppath_lst`), the attention-probability dropouts, the
+gated attentions' channel dropout and the self-attention's drop-path.
 """
 from __future__ import annotations
 
@@ -17,9 +22,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rmem_ocu_tpu_torch.models.lstt import bank_key_bias
 from rmem_ocu_tpu_torch.ops.attention import (GatedPropagation,
                                               LocalGatedPropagation)
-from rmem_ocu_tpu_torch.ops.layers import EPS, GroupNorm1D
+from rmem_ocu_tpu_torch.ops.layers import (EPS, DropPath, GroupNorm1D,
+                                           dropout)
 
 
 class GPMBlock(nn.Module):
@@ -27,10 +34,14 @@ class GPMBlock(nn.Module):
 
     def __init__(self, d_model: int, self_heads: int = 1, att_heads: int = 1,
                  layer_idx: int = 0, expand_ratio: float = 2.0,
-                 max_local_dis: int = 7):
+                 max_local_dis: int = 7, droppath: float = 0.1,
+                 lt_dropout: float = 0.0, st_dropout: float = 0.0,
+                 droppath_lst: bool = False):
         super().__init__()
         d = d_model
         self.att_heads = att_heads
+        self.lst_dropout = max(lt_dropout, st_dropout)
+        self.droppath_lst = droppath_lst
         self.expand_d_model = int(d * expand_ratio)
         # d_att: d/2 for one head, d/heads otherwise (reference :1033)
         self.d_att = d // 2 if att_heads == 1 else d // att_heads
@@ -44,17 +55,21 @@ class GPMBlock(nn.Module):
             self.id_norm1 = nn.LayerNorm(d, eps=EPS)
             self.linear_ID_V = nn.Linear(2 * d, self.expand_d_model)
             self.linear_ID_U = nn.Linear(d, self.expand_d_model)
+        # the lt / st dropout rates reach the attention probabilities too
+        # (reference transformer.py:1053, 1065)
         self.long_term_attn = GatedPropagation(
             d_qk=d, d_vu=d * 2, num_heads=att_heads, use_linear=False,
-            d_att=self.d_att, expand_ratio=expand_ratio)
+            d_att=self.d_att, expand_ratio=expand_ratio, dropout=lt_dropout)
         self.short_term_attn = LocalGatedPropagation(
             d_qk=d, d_vu=d * 2, num_heads=att_heads, d_att=self.d_att,
-            max_dis=max_local_dis, expand_ratio=expand_ratio)
+            max_dis=max_local_dis, expand_ratio=expand_ratio,
+            dropout=st_dropout)
         self.norm2 = nn.LayerNorm(d, eps=EPS)
         self.id_norm2 = nn.LayerNorm(d, eps=EPS)
         self.self_attn = GatedPropagation(
             d_qk=d * 2, d_vu=d * 2, num_heads=self_heads, d_att=self.d_att,
             expand_ratio=expand_ratio)
+        self.drop_path = DropPath(droppath)
 
     def forward(self, tgt, tgt_id, long_mem, short_kv, curr_id_emb,
                 size_2d: Tuple[int, int], temporal_pe,
@@ -94,7 +109,7 @@ class GPMBlock(nn.Module):
             mem_k, mem_v, mem_id_v, valid = long_mem
             local_k, local_v, local_id_v = short_kv
 
-        capacity = mem_k.shape[1]
+        capacity, hw = mem_k.shape[1], mem_k.shape[2]
         if temporal_pe is not None:
             cur_pe, mem_pe = temporal_pe
             mem_pe = mem_pe[..., :capacity, :]
@@ -104,27 +119,32 @@ class GPMBlock(nn.Module):
         else:
             mem_pe, q_time = None, curr_q
 
-        mass = None
-        if capacity > 1:
+        if capacity > 1 and not self.training:
             cat_tgt2, mass = self.long_term_attn.bank_read(
                 q_time, mem_k, mem_v, mem_id_v, cat_curr_u, valid, size_2d,
                 mem_pe=mem_pe)
-            if not need_mass:
-                mass = None
         else:
-            # the reference frame reads only itself: plain attention, with
-            # the PE added to its keys
+            # dense: the PE added to the keys, the slots flattened, free
+            # slots masked (the reference frame reads only itself)
             if mem_pe is not None:
                 mem_k = mem_k + mem_pe[:, :, None, :]
+            flat = lambda x: x.reshape(b, capacity * hw, -1)
+            bias = None if capacity == 1 else bank_key_bias(valid, hw)
+            mass_cap = capacity if need_mass and capacity > 1 else None
             if self.att_heads == 1:
-                cat_tgt2 = self.long_term_attn.multi_value_call(
-                    q_time, mem_k[:, 0], (mem_v[:, 0], mem_id_v[:, 0]),
-                    cat_curr_u, size_2d)
+                # V and ID_V share one probability matrix
+                cat_tgt2, mass = self.long_term_attn.multi_value_call(
+                    q_time, flat(mem_k), (flat(mem_v), flat(mem_id_v)),
+                    cat_curr_u, size_2d, key_bias=bias,
+                    mass_capacity=mass_cap)
             else:
-                cat_tgt2 = self.long_term_attn(
-                    q_time, mem_k[:, 0],
-                    torch.cat([mem_v[:, 0], mem_id_v[:, 0]], dim=-1),
-                    cat_curr_u, size_2d)
+                cat_tgt2, mass = self.long_term_attn(
+                    q_time, flat(mem_k),
+                    torch.cat([flat(mem_v), flat(mem_id_v)], dim=-1),
+                    cat_curr_u, size_2d, key_bias=bias,
+                    mass_capacity=mass_cap)
+        if not need_mass:
+            mass = None
 
         cat_local_v = torch.cat([local_v, local_id_v], dim=-1)
         cat_tgt3 = self.short_term_attn(curr_q, local_k, cat_local_v,
@@ -132,14 +152,22 @@ class GPMBlock(nn.Module):
 
         tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)
         tgt3, tgt_id3 = cat_tgt3.chunk(2, dim=-1)
-        tgt = tgt + (tgt2 + tgt3)
-        tgt_id = (tgt_id2 + tgt_id3 if tgt_id is None
-                  else tgt_id + (tgt_id2 + tgt_id3))
+        # the long+short residual (reference :1215-1220): drop-path with
+        # droppath_lst, else dropout at max(lt, st)
+        lst, lst_id = tgt2 + tgt3, tgt_id2 + tgt_id3
+        if self.droppath_lst:
+            lst, lst_id = self.drop_path(lst), self.drop_path(lst_id)
+        else:
+            lst = dropout(lst, self.lst_dropout, self.training)
+            lst_id = dropout(lst_id, self.lst_dropout, self.training)
+        tgt = tgt + lst
+        tgt_id = lst_id if tgt_id is None else tgt_id + lst_id
 
         cat_q = torch.cat([self.norm2(tgt), self.id_norm2(tgt_id)], dim=-1)
-        cat_tgt2 = self.self_attn(cat_q, cat_q, cat_q, cat_q, size_2d)
+        cat_tgt2, _ = self.self_attn(cat_q, cat_q, cat_q, cat_q, size_2d)
         tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)
-        return tgt + tgt2, tgt_id + tgt_id2, mems, mass
+        return (tgt + self.drop_path(tgt2), tgt_id + self.drop_path(tgt_id2),
+                mems, mass)
 
     def fuse_value_id(self, value, id_emb):
         """ID-value fusion (reference transformer.py:1238-1244)."""
@@ -151,13 +179,23 @@ class GPMBlock(nn.Module):
 class GPMStack(nn.Module):
     """DualBranchGPM (reference transformer.py:700-824). DeAOT decodes only
     the last layer, so the only decoder norm is the final GroupNorm(2) over
-    the concatenated [tgt, tgt_id] channels."""
+    the concatenated [tgt, tgt_id] channels. In training the input tokens
+    are dropped at emb_dropout; the drop-path rate grows linearly over the
+    layers from 0 with droppath_scaling."""
 
     def __init__(self, num_layers: int = 3, d_model: int = 256,
-                 self_heads: int = 1, att_heads: int = 1):
+                 self_heads: int = 1, att_heads: int = 1,
+                 emb_dropout: float = 0.0, droppath: float = 0.1,
+                 lt_dropout: float = 0.0, st_dropout: float = 0.0,
+                 droppath_lst: bool = False, droppath_scaling: bool = False):
         super().__init__()
+        self.emb_dropout = emb_dropout
         self.layers = nn.ModuleList([
-            GPMBlock(d_model, self_heads, att_heads, layer_idx=idx)
+            GPMBlock(d_model, self_heads, att_heads, layer_idx=idx,
+                     droppath=(droppath * idx / max(num_layers - 1, 1)
+                               if droppath_scaling else droppath),
+                     lt_dropout=lt_dropout, st_dropout=st_dropout,
+                     droppath_lst=droppath_lst)
             for idx in range(num_layers)])
         self.decoder_norms = nn.ModuleList([GroupNorm1D(2 * d_model, 2)])
 
@@ -171,7 +209,7 @@ class GPMStack(nn.Module):
         memories, layer-0 eviction mass or None)."""
         intermediates, memories = [], []
         mass0 = None
-        out, out_id = tgt, None
+        out, out_id = dropout(tgt, self.emb_dropout, self.training), None
         for idx, block in enumerate(self.layers):
             lm = None if long_mem is None else (
                 long_mem[0][idx], long_mem[1][idx], long_mem[2][idx],

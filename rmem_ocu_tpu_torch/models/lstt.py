@@ -2,13 +2,16 @@
 
 Counterpart of the JAX package's `models/lstt.py` (reference
 aot_plus/networks/layers/transformer.py:133-697, LongShortTermTransformer
-and SimplifiedTransformerBlock). Memory holds (K, V) per layer. With more
-than one bank slot the long-term read is kernel B1 in its multi-head,
-one-bank mode, which also returns the per-slot attention mass that drives
-RMem eviction; the reference frame reads only itself through plain
-attention. The id-fusion projections applied at memory-update time are
-module methods, called by the engine once the mask is known. Eval only:
-dropout and drop-path are left out.
+and SimplifiedTransformerBlock). Memory holds (K, V) per layer. In eval
+mode, with more than one bank slot, the long-term read is kernel B1 in its
+multi-head, one-bank mode, which also returns the per-slot attention mass
+that drives RMem eviction; the reference frame reads only itself through
+plain attention. In training mode the long-term read is dense and
+differentiable (keys plus the PE, flattened over the slots, free slots
+masked by `bank_key_bias`), and the self-attention and feed-forward
+residuals take drop-path, as in the JAX package. The id-fusion projections
+applied at memory-update time are module methods, called by the engine
+once the mask is known.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ from torch import nn
 
 from rmem_ocu_tpu_torch.models.gru import ConvGRUCellOutput
 from rmem_ocu_tpu_torch.ops.attention import MultiheadAttention
-from rmem_ocu_tpu_torch.ops.layers import EPS, GNActDWConv2d
+from rmem_ocu_tpu_torch.ops.layers import (EPS, DropPath, GNActDWConv2d,
+                                           dropout)
 
 SLOT_NEG = -1e9
 
@@ -46,10 +50,11 @@ class LSTTBlock(nn.Module):
 
     def __init__(self, d_model: int, self_heads: int = 8, att_heads: int = 8,
                  dim_feedforward: int = 1024, linear_q: bool = False,
-                 gru_memory: bool = False):
+                 gru_memory: bool = False, droppath: float = 0.1):
         super().__init__()
         d = d_model
         self.linear_q = linear_q
+        self.drop_path = DropPath(droppath)
         self.norm1 = nn.LayerNorm(d, eps=EPS)
         self.self_attn = MultiheadAttention(d, self_heads)
         self.norm2 = nn.LayerNorm(d, eps=EPS)
@@ -85,7 +90,7 @@ class LSTTBlock(nn.Module):
         Returns (tgt, memories dict, mass [B,HW,T] or None)."""
         _tgt = self.norm1(tgt)
         q = k = _tgt if self_pos is None else _tgt + self_pos
-        tgt = tgt + self.self_attn(q, k, _tgt)[0]
+        tgt = tgt + self.drop_path(self.self_attn(q, k, _tgt)[0])
 
         _tgt = self.norm2(tgt)
         curr_q = self.linear_Q(_tgt)
@@ -103,7 +108,7 @@ class LSTTBlock(nn.Module):
             mem_k, mem_v, valid = long_mem
             local_k, local_v = short_kv
 
-        capacity = mem_k.shape[1]
+        capacity, hw = mem_k.shape[1], mem_k.shape[2]
         if temporal_pe is not None:
             cur_pe, mem_pe = temporal_pe
             mem_pe = mem_pe[..., :capacity, :]
@@ -113,19 +118,22 @@ class LSTTBlock(nn.Module):
         else:
             mem_pe, q_time = None, curr_q
 
-        if capacity > 1:
+        if capacity > 1 and not self.training:
             tgt2, mass = self.long_term_attn.bank_read(
                 q_time, mem_k, mem_v, valid, mem_pe=mem_pe)
             if not need_mass:
                 mass = None
         else:
-            # one slot reads through plain attention, with the PE added to
-            # its keys
+            # dense: the PE added to the keys, the slots flattened, free
+            # slots masked (the reference frame reads only itself)
             if mem_pe is not None:
                 mem_k = mem_k + mem_pe[:, :, None, :]
+            b = mem_k.shape[0]
             tgt2, mass = self.long_term_attn(
-                q_time, mem_k[:, 0], mem_v[:, 0],
-                mass_capacity=1 if need_mass else None)
+                q_time, mem_k.reshape(b, capacity * hw, -1),
+                mem_v.reshape(b, capacity * hw, -1),
+                key_bias=None if capacity == 1 else bank_key_bias(valid, hw),
+                mass_capacity=capacity if need_mass else None)
 
         if self.linear_q:
             tgt3, _ = self.short_term_attn(
@@ -144,7 +152,8 @@ class LSTTBlock(nn.Module):
 
         tgt = tgt + tgt2 + tgt3
         _tgt = self.norm3(tgt)
-        tgt = tgt + self.linear2(self.activation(self.linear1(_tgt), size_2d))
+        tgt = tgt + self.drop_path(
+            self.linear2(self.activation(self.linear1(_tgt), size_2d)))
         return tgt, mems, mass
 
     def fuse_curr_value(self, curr_v, id_emb):
@@ -167,17 +176,24 @@ class LSTTBlock(nn.Module):
 
 
 class LSTTStack(nn.Module):
-    """LongShortTermTransformer (reference transformer.py:133-267)."""
+    """LongShortTermTransformer (reference transformer.py:133-267). In
+    training the input tokens are dropped at emb_dropout; the drop-path
+    rate grows linearly over the layers from 0 with droppath_scaling."""
 
     def __init__(self, num_layers: int = 3, d_model: int = 256,
                  self_heads: int = 8, att_heads: int = 8,
                  linear_q: bool = False, gru_memory: bool = False,
-                 intermediate_norm: bool = True):
+                 intermediate_norm: bool = True, emb_dropout: float = 0.0,
+                 droppath: float = 0.1, droppath_scaling: bool = False):
         super().__init__()
         self.intermediate_norm = intermediate_norm
+        self.emb_dropout = emb_dropout
         self.layers = nn.ModuleList([
             LSTTBlock(d_model, self_heads, att_heads, linear_q=linear_q,
-                      gru_memory=gru_memory) for _ in range(num_layers)])
+                      gru_memory=gru_memory,
+                      droppath=(droppath * idx / max(num_layers - 1, 1)
+                                if droppath_scaling else droppath))
+            for idx in range(num_layers)])
         # the last norm is the final one
         num_norms = (num_layers - 1 if intermediate_norm else 0) + 1
         self.decoder_norms = nn.ModuleList([
@@ -193,7 +209,7 @@ class LSTTStack(nn.Module):
         eviction mass or None)."""
         intermediates, memories = [], []
         mass0 = None
-        out = tgt
+        out = dropout(tgt, self.emb_dropout, self.training)
         for idx, block in enumerate(self.layers):
             lm = None if long_mem is None else (
                 long_mem[0][idx], long_mem[1][idx], long_mem[2])

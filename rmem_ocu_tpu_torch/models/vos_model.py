@@ -5,8 +5,14 @@ aot_plus/networks/models/aot.py and deaot.py); one module covers both
 families. The engine drives it through its methods (encode_image,
 get_id_emb, get_pos_emb, lstt_forward, decode_id_logits,
 fuse_memory_values, compress_evicted_slots) and keeps every piece of memory
-state outside it. Submodule names follow the reference so that its state_dict keys load
-unchanged (see utils/convert.py).
+state outside it; `forward(method, ...)` calls one of them by name, which
+lets `torch.func.functional_call` run any of them on other parameters (the
+training engine's bf16 copies). Submodule names follow the reference so
+that its state_dict keys load unchanged (see utils/convert.py).
+
+The train-time rates (drop-path, the embedding, id, long- and short-term
+dropouts) come from the experiment config (`build_vos_model(..., exp=)`)
+and act only in training mode.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from rmem_ocu_tpu_torch.models.decoders.fpn import FPNSegmentationHead
 from rmem_ocu_tpu_torch.models.encoders import build_encoder
 from rmem_ocu_tpu_torch.models.gpm import GPMStack
 from rmem_ocu_tpu_torch.models.lstt import LSTTStack
-from rmem_ocu_tpu_torch.ops.layers import EPS, tokens_from_2d
+from rmem_ocu_tpu_torch.ops.layers import (EPS, DropPath, dropout,
+                                           tokens_from_2d)
 from rmem_ocu_tpu_torch.ops.position import sine_position_embedding
 from rmem_ocu_tpu_torch.utils.device import resolve_device
 
@@ -30,25 +37,34 @@ _INT_TYPES = (torch.uint8, torch.int8, torch.int16, torch.int32,
 
 
 class VOSModel(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, droppath: float = 0.1,
+                 droppath_scaling: bool = False, emb_dropout: float = 0.0,
+                 id_dropout: float = 0.0, lt_dropout: float = 0.0,
+                 st_dropout: float = 0.0, droppath_lst: bool = False):
         super().__init__()
         if cfg.vos not in ('aot', 'deaot'):
             raise ValueError(f'unknown model family {cfg.vos!r}')
         self.cfg = cfg
         self.is_deaot = cfg.vos == 'deaot'
+        self.id_dropout = id_dropout
         d = cfg.encoder_embedding_dim
-        self.encoder = build_encoder(cfg.encoder, use_mask=cfg.use_mask)
+        self.encoder = build_encoder(cfg.encoder, use_mask=cfg.use_mask,
+                                     frozen_bn=cfg.freeze_bn)
         self.encoder_projector = nn.Conv2d(cfg.encoder_dim[-1], d, 1)
+        rates = dict(emb_dropout=emb_dropout, droppath=droppath,
+                     droppath_scaling=droppath_scaling)
         if self.is_deaot:
             self.LSTT = GPMStack(num_layers=cfg.lstt_num, d_model=d,
                                  self_heads=cfg.self_heads,
-                                 att_heads=cfg.att_heads)
+                                 att_heads=cfg.att_heads,
+                                 lt_dropout=lt_dropout, st_dropout=st_dropout,
+                                 droppath_lst=droppath_lst, **rates)
         else:
             self.LSTT = LSTTStack(
                 num_layers=cfg.lstt_num, d_model=d,
                 self_heads=cfg.self_heads, att_heads=cfg.att_heads,
                 linear_q=cfg.linear_q, gru_memory=cfg.gru_memory,
-                intermediate_norm=cfg.decoder_intermediate_lstt)
+                intermediate_norm=cfg.decoder_intermediate_lstt, **rates)
         # a GPM layer puts out [tgt, tgt_id], an LSTT layer tgt
         d_out = 2 * d if self.is_deaot else d
         self.decoder = FPNSegmentationHead(
@@ -71,9 +87,15 @@ class VOSModel(nn.Module):
             self.cur_pos_emb = nn.Parameter(torch.zeros(1, pe_dim))
             self.mem_pos_emb = nn.Parameter(torch.zeros(slots, pe_dim))
 
+    def forward(self, method: str, *args, **kwargs):
+        """Call the method named `method` (one of the engine's entry points
+        above); the module's forward, so that functional_call can run it on
+        other parameters."""
+        return getattr(self, method)(*args, **kwargs)
+
     def encode_image(self, img: torch.Tensor,
-                     mask: Optional[torch.Tensor] = None
-                     ) -> List[torch.Tensor]:
+                     mask: Optional[torch.Tensor] = None,
+                     var_loss: bool = False):
         """img: [B, H, W, 3] -> encoder maps [4x, 8x, 16x, 16x] as NCHW,
         the last one projected to the embedding width.
 
@@ -81,7 +103,8 @@ class VOSModel(nn.Module):
         reference aot.py:115-129); other models ignore it. An int label map
         [B, H, W, 1] is ignore-cleared (255 -> 0) and binarised; float
         probabilities [B, H, W, O+1] become 1 - P(background). Anything
-        else raises."""
+        else raises. With `var_loss` (TopDown only) returns (maps, the
+        encoder's reconstruction loss)."""
         x = img.permute(0, 3, 1, 2)
         if self.cfg.use_mask and mask is not None:
             if mask.shape[-1] == 1 and mask.dtype in _INT_TYPES:
@@ -94,17 +117,25 @@ class VOSModel(nn.Module):
                     f'[B,H,W,1] or float probabilities [B,H,W,O+1]; got '
                     f'{mask.dtype} {tuple(mask.shape)} (reference '
                     f'aot.py:115-124)')
-            xs = self.encoder(x, m.permute(0, 3, 1, 2))
+            m = m.permute(0, 3, 1, 2)
         else:
-            xs = self.encoder(x)
+            m = None
+        kw = dict(var_loss=True) if var_loss else {}
+        xs = (self.encoder(x, m, **kw) if m is not None or var_loss
+              else self.encoder(x))
+        loss = None
+        if var_loss:
+            xs, loss = xs
         xs[-1] = self.encoder_projector(xs[-1])
-        return xs
+        return (xs, loss) if var_loss else xs
 
     def get_id_emb(self, one_hot: torch.Tensor) -> torch.Tensor:
-        """one_hot: [B, H, W, id_dim] -> id tokens [B, HW/256, d]."""
+        """one_hot: [B, H, W, id_dim] -> id tokens [B, HW/256, d], dropped
+        at id_dropout in training (reference aot.py:84, 113)."""
         x = tokens_from_2d(self.patch_wise_id_bank(
             one_hot.permute(0, 3, 1, 2)))
-        return self.id_norm(x) if self.is_deaot else x
+        x = self.id_norm(x) if self.is_deaot else x
+        return dropout(x, self.id_dropout, self.training)
 
     def get_pos_emb(self, size_2d: Tuple[int, int]) -> torch.Tensor:
         """Sine position embedding [1, HW, d]: the LSTT's self-attention
@@ -214,12 +245,41 @@ def init_weights(model: VOSModel, generator: torch.Generator) -> None:
                                   generator=generator)
 
 
-def build_vos_model(cfg: ModelConfig, device=None, seed: int = 0
-                    ) -> VOSModel:
+def zero_dropout(model: VOSModel) -> VOSModel:
+    """Set every train-time rate of the model to 0 (dropouts, drop-path,
+    the gated attentions' channel dropout), so that a training-mode pass is
+    deterministic; for checks against another implementation."""
+    model.id_dropout = 0.0
+    for mod in model.modules():
+        if isinstance(mod, DropPath):
+            mod.rate = 0.0
+        elif hasattr(mod, 'dropout') and isinstance(mod.dropout, float):
+            mod.dropout = 0.0
+        for name in ('emb_dropout', 'lst_dropout'):
+            if hasattr(mod, name):
+                setattr(mod, name, 0.0)
+    return model
+
+
+def build_vos_model(cfg: ModelConfig, device=None, seed: int = 0,
+                    exp=None) -> VOSModel:
     """The eval-mode AOT / DeAOT model with random weights from `seed`, on
-    `device` (CUDA unless the caller passes 'cpu'). Load trained weights
-    with `model.load_state_dict`."""
+    `device` (CUDA unless the caller passes 'cpu'). `exp` (ExpConfig)
+    supplies the train-time rates (train_lstt_droppath and its scaling, the
+    embedding, id, long- and short-term dropouts, droppath_lst); without it
+    the reference defaults apply. Load trained weights with
+    `model.load_state_dict`."""
     device = resolve_device(device)
-    model = VOSModel(cfg)
+    if exp is None:
+        model = VOSModel(cfg)
+    else:
+        model = VOSModel(
+            cfg, droppath=exp.train_lstt_droppath,
+            droppath_scaling=exp.train_lstt_droppath_scaling,
+            emb_dropout=exp.train_lstt_emb_dropout,
+            id_dropout=exp.train_lstt_id_dropout,
+            lt_dropout=exp.train_lstt_lt_dropout,
+            st_dropout=exp.train_lstt_st_dropout,
+            droppath_lst=exp.train_lstt_droppath_lst)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

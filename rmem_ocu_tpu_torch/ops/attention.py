@@ -10,9 +10,13 @@ reference aot_plus/networks/layers/attention.py:8-86), `GatedPropagation`
 The long-term bank read runs a kernel of ops/kernels/: B1 for
 `MultiheadAttention.bank_read` and for `GatedPropagation.bank_read` with one
 head, B3 for `GatedPropagation.bank_read` with several heads. The one-head
-windowed attention runs kernel B2; with several heads it is the dense
-padded-grid form, as in the JAX package. Self-attention and the capacity-1
-reference-frame read stay plain matmul + softmax.
+windowed attention runs kernel B2 in eval mode; in training mode, and with
+several heads, it is the dense padded-grid form, as in the JAX package.
+Self-attention, the capacity-1 reference-frame read and every read in
+training mode stay plain matmul + softmax, which autograd differentiates
+(the kernels have no backward; the JAX package runs its kernels only when
+`deterministic`). In training mode the probabilities are dropped at the
+module's `dropout` rate (reference attention.py:61, 348).
 
 bf16 storage policy (the JAX package's `_qk_out_dtype` /
 `_maybe_compact_logits` at their default): on bf16 inputs the QK logits are
@@ -34,8 +38,9 @@ from rmem_ocu_tpu_torch.ops.kernels.local_attn import (NEG_INF,
 from rmem_ocu_tpu_torch.ops.kernels.memory_read import memory_read_fused
 from rmem_ocu_tpu_torch.ops.kernels.memory_read_mh import \
     memory_read_multihead
-from rmem_ocu_tpu_torch.ops.layers import (DWConv2d, scale_in_dtype,
-                                           tokens_from_2d, tokens_to_2d)
+from rmem_ocu_tpu_torch.ops.layers import (DWConv2d, dropout,
+                                           scale_in_dtype, tokens_from_2d,
+                                           tokens_to_2d)
 
 
 @functools.lru_cache(maxsize=2)
@@ -70,13 +75,15 @@ def _compact(x: torch.Tensor, in_dtype: torch.dtype) -> torch.Tensor:
 
 def scaled_dot_attention(q, k, v, num_heads: int,
                          scale: Optional[float] = None, key_bias=None,
-                         mass_capacity: Optional[int] = None):
+                         mass_capacity: Optional[int] = None,
+                         dropout_rate: float = 0.0, training: bool = False):
     """q: [B, Lq, H*Dq], k: [B, Lk, H*Dq], v: [B, Lk, H*Dv]. scale
     defaults to Dq**-0.5; key_bias, broadcastable to [B, H, Lq, Lk], is
-    added to the logits. Returns (out [B, Lq, H*Dv], mass), where mass is
-    the per-slot attention mass [B, Lq, T] (f32, mean over heads) when
-    mass_capacity=T is given and the keys are T slots of Lk/T, else
-    None."""
+    added to the logits; in training the probabilities are dropped at
+    dropout_rate. Returns (out [B, Lq, H*Dv], mass), where mass is the
+    per-slot attention mass [B, Lq, T] (f32, mean over heads, of the
+    probabilities before dropout) when mass_capacity=T is given and the
+    keys are T slots of Lk/T, else None."""
     qh = split_heads(q, num_heads)
     kh = split_heads(k, num_heads)
     vh = split_heads(v, num_heads)
@@ -87,7 +94,8 @@ def scaled_dot_attention(q, k, v, num_heads: int,
     if key_bias is not None:
         logits = logits + key_bias.to(logits.dtype)
     probs = _compact(torch.softmax(logits.float(), dim=-1), q.dtype)
-    out = merge_heads(probs.to(vh.dtype) @ vh)
+    attn = dropout(probs, dropout_rate, training)
+    out = merge_heads(attn.to(vh.dtype) @ vh)
     if mass_capacity is None:
         return out, None
     b, h, nq, nk = probs.shape
@@ -100,11 +108,12 @@ class MultiheadAttention(nn.Module):
     projections; the output projection always exists."""
 
     def __init__(self, d_model: int, num_heads: int = 8,
-                 use_linear: bool = True):
+                 use_linear: bool = True, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
         self.use_linear = use_linear
+        self.dropout = dropout
         if use_linear:
             self.linear_Q = nn.Linear(d_model, d_model)
             self.linear_K = nn.Linear(d_model, d_model)
@@ -119,7 +128,9 @@ class MultiheadAttention(nn.Module):
             q, k, v = self.linear_Q(q), self.linear_K(k), self.linear_V(v)
         out, mass = scaled_dot_attention(q, k, v, self.num_heads,
                                          key_bias=key_bias,
-                                         mass_capacity=mass_capacity)
+                                         mass_capacity=mass_capacity,
+                                         dropout_rate=self.dropout,
+                                         training=self.training)
         return self.projection(out), mass
 
     def bank_read(self, q, k_bank, v_bank, valid, mem_pe=None):
@@ -142,9 +153,10 @@ class GatedPropagation(nn.Module):
 
     def __init__(self, d_qk: int, d_vu: int, num_heads: int = 8,
                  d_att: Optional[int] = None, expand_ratio: float = 2.0,
-                 use_linear: bool = True):
+                 use_linear: bool = True, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.use_linear = use_linear
         self.expand_d_vu = int(d_vu * expand_ratio)
         self.hidden = self.expand_d_vu // num_heads
@@ -181,26 +193,40 @@ class GatedPropagation(nn.Module):
     def _gate_and_project(self, out, u, size_2d):
         return self.projection(self.dw_conv(out * u, size_2d))
 
-    def forward(self, q, k, v, u, size_2d: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, q, k, v, u, size_2d: Tuple[int, int], key_bias=None,
+                mass_capacity: Optional[int] = None):
+        """Returns (out, mass or None); see scaled_dot_attention."""
         if self.use_linear:
             q, v, u = self._project_inputs(q, v, u)
             k = q
-        out, _ = scaled_dot_attention(q, k, v, self.num_heads,
-                                      scale=self.att_dim ** -0.5)
-        return self._gate_and_project(out, u, size_2d)
+        out, mass = scaled_dot_attention(
+            q, k, v, self.num_heads, scale=self.att_dim ** -0.5,
+            key_bias=key_bias, mass_capacity=mass_capacity,
+            dropout_rate=self.dropout, training=self.training)
+        return self._gate_and_project(out, u, size_2d), mass
 
     def multi_value_call(self, q, k, vs: Sequence[torch.Tensor], u,
-                         size_2d) -> torch.Tensor:
+                         size_2d, key_bias=None,
+                         mass_capacity: Optional[int] = None):
         """Single-head gated attention sharing one probability matrix
         across several value banks: concat_i(P @ vs[i]), gated and
-        projected; equals forward(q, k, concat(vs)) with one head."""
+        projected; equals forward(q, k, concat(vs)) with one head.
+        key_bias: [B, 1, 1, Lk] or None. Returns (out, mass [B, Lq, T] of
+        the keys' T slots when mass_capacity=T, else None)."""
         if self.num_heads != 1:
             raise ValueError('shared-probs split requires one head')
         logits = scale_in_dtype(q, self.att_dim ** -0.5) @ k.transpose(1, 2)
+        if key_bias is not None:
+            logits = logits + key_bias.reshape(
+                key_bias.shape[0], 1, -1).to(logits.dtype)
         probs = _compact(torch.softmax(logits.float(), dim=-1), q.dtype)
-        attn = probs.to(vs[0].dtype)
+        attn = dropout(probs, self.dropout, self.training).to(vs[0].dtype)
         out = torch.cat([attn @ v for v in vs], dim=-1)
-        return self._gate_and_project(out, u, size_2d)
+        mass = None
+        if mass_capacity is not None:
+            b, nq, _ = probs.shape
+            mass = probs.float().reshape(b, nq, mass_capacity, -1).sum(-1)
+        return self._gate_and_project(out, u, size_2d), mass
 
     def bank_read(self, q, k_bank, v_bank, id_v_bank, u, valid, size_2d,
                   mem_pe=None):
@@ -239,15 +265,17 @@ class LocalGatedPropagation(nn.Module):
     input projections (the GPM configuration). The relative position bias
     is a learned grouped 1x1 conv of the query: head i's bias reads only
     head i's query channels (reference attention.py:260-264, 314). One
-    head runs kernel B2; several heads run the dense padded-grid form, as
-    the JAX package does."""
+    head runs kernel B2 in eval mode; training mode and several heads run
+    the dense padded-grid form, as the JAX package does, with the
+    probabilities dropped at `dropout` in training."""
 
     def __init__(self, d_qk: int, d_vu: int, num_heads: int = 1,
                  max_dis: int = 7, d_att: Optional[int] = None,
-                 expand_ratio: float = 2.0):
+                 expand_ratio: float = 2.0, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.max_dis = max_dis
+        self.dropout = dropout
         ws = 2 * max_dis + 1
         self.d_att = d_qk // num_heads if d_att is None else d_att
         expand_d_vu = int(d_vu * expand_ratio)
@@ -260,7 +288,7 @@ class LocalGatedPropagation(nn.Module):
     def forward(self, q, k, v, u, size_2d: Tuple[int, int]) -> torch.Tensor:
         """q, k: [B, HW, H*Datt]; v, u: [B, HW, E]."""
         w = self.relative_emb_k.weight
-        if self.num_heads == 1:
+        if self.num_heads == 1 and not self.training:
             rel = F.linear(q, w.reshape(w.shape[0], w.shape[1]),
                            self.relative_emb_k.bias)      # [B, HW, ws*ws]
             out = local_window_attention(
@@ -299,4 +327,5 @@ class LocalGatedPropagation(nn.Module):
         extra = bias + torch.where(inside, 0.0, NEG_INF).to(bias.dtype)
         logits = logits + extra.to(logits.dtype)
         probs = _compact(torch.softmax(logits.float(), dim=-1), q.dtype)
+        probs = dropout(probs, self.dropout, self.training)
         return merge_heads(probs.to(vh.dtype) @ vh)

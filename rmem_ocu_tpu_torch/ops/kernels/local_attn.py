@@ -7,7 +7,8 @@ the plain PyTorch version on a CPU tensor; it never falls back from a CUDA
 tensor. `local_window_attention_plain` is the plain version for any device:
 a dense attention over the zero-padded key grid with a window mask and a
 gathered bias (the JAX package's `_dense_core`), independent of the
-kernel's indexing.
+kernel's indexing. The wrapper has no backward and raises on an input
+that requires grad under grad mode, on every device.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from rmem_ocu_tpu_torch.ops.kernels import build
-from rmem_ocu_tpu_torch.ops.kernels.memory_read import _mm, read_operands
+from rmem_ocu_tpu_torch.ops.kernels.memory_read import (_mm, read_operands,
+                                                        refuse_autograd)
 from rmem_ocu_tpu_torch.ops.layers import tokens_from_2d, tokens_to_2d
 
 NEG_INF = -1e8
@@ -145,6 +147,7 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor,
     image take no part. Softmax in f32; precise=False rounds the matrix
     operands and p to bf16. Returns [B, HW, E] in v.dtype.
     """
+    refuse_autograd('local_window_attention', q, k, v, rel)
     if q.device.type == 'cpu':
         return local_window_attention_plain(q, k, v, rel, size_2d, max_dis,
                                             precise)

@@ -30,6 +30,21 @@ BLOCK_COLS = 512    # value columns per block of the wide-head kernel
 HEADS_PER_BLOCK = 8  # heads per block of the small-head kernel
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """The kernels define no backward: raise, on any device, when grad
+    mode is on and an input requires grad, rather than return an output
+    cut off from the graph. Training takes the modules' dense
+    differentiable branches (their `training` mode) and never calls a
+    kernel."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in tensors):
+        raise RuntimeError(
+            f'{name} has no backward: it takes no input that requires grad '
+            f'under grad mode (call it under torch.no_grad(), or run the '
+            f'module in training mode, which reads densely)')
+
+
 def _mm(x: torch.Tensor, precise: bool) -> torch.Tensor:
     """Matrix-operand rounding: bf16 operands unless precise."""
     return x.float() if precise else x.to(torch.bfloat16).float()
@@ -240,6 +255,7 @@ def memory_read_fused(q: torch.Tensor, k_bank: torch.Tensor,
     whatever the input dtype. Returns (outs [B, HWq, H*Dv_i] in q.dtype,
     mass [B, HWq, T_cap] f32, the mean over heads).
     """
+    refuse_autograd('memory_read_fused', q, k_bank, *v_banks, mem_pe)
     q, pe = _prepare(q, k_bank, v_banks, num_heads, scale, mem_pe)
     if q.device.type == 'cpu':
         return _plain(q, k_bank, v_banks, valid, num_heads, pe, precise)

@@ -16,6 +16,8 @@ whose channel-wise concatenation is meant (DeAOT's V||ID_V): with an even
 head count each head lies in one of them and no concatenation is
 materialised. On the card a read is two launches (the read split over
 slots and the combine), and `memory_read_attention.launches` counts both.
+Neither wrapper has a backward: each raises on an input that requires grad
+under grad mode, on every device.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from rmem_ocu_tpu_torch.ops.kernels import build
 from rmem_ocu_tpu_torch.ops.kernels.memory_read import (MAX_SLOTS,
                                                         online_softmax_read,
                                                         read_operands,
-                                                        read_plan)
+                                                        read_plan,
+                                                        refuse_autograd)
 from rmem_ocu_tpu_torch.ops.layers import scale_in_dtype
 
 ValueBanks = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -123,6 +126,7 @@ def memory_read_attention(q: torch.Tensor, k_bank: torch.Tensor,
     HWq, T_cap] f32). The CUDA kernel has bf16 operands only: precise=True
     on a CUDA tensor raises.
     """
+    refuse_autograd('memory_read_attention', q, k_bank, v_bank)
     if q.device.type == 'cpu':
         return memory_read_attention_plain(q, k_bank, v_bank, valid, precise)
     if precise:
@@ -171,6 +175,7 @@ def memory_read_multihead(q: torch.Tensor, k_bank: torch.Tensor,
     slots. Returns (out [B, HWq, H*Dv] f32, mass [B, HWq, T_cap] f32, the
     mean over heads).
     """
+    refuse_autograd('memory_read_multihead', q, k_bank, *_banks(v_bank))
     if q.device.type == 'cpu':
         return memory_read_multihead_plain(q, k_bank, v_bank, valid,
                                            num_heads, scale)

@@ -1,18 +1,78 @@
-"""Primitive layers (norms, conv blocks).
+"""Primitive layers (norms, conv blocks, dropout and drop-path).
 
 Counterpart of the JAX package's `ops/layers.py`. Tokens are [B, HW, C] at
 module boundaries, as in the JAX package; convolutions run on NCHW inside
 a module. Norm epsilons are torch's 1e-5.
+
+Train-time masks (dropout, drop-path, the channel dropout of DWConv2d) are
+drawn only in a module's training mode, from the generator that
+`noise_from` installs, or from torch's global generator outside it. The
+training engine installs a generator seeded per step inside each
+checkpointed function, so that a recompute draws the same masks.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import threading
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 EPS = 1e-5
+
+
+class _NoiseSource(threading.local):
+    generator: Optional[torch.Generator] = None
+
+
+_NOISE = _NoiseSource()
+
+
+@contextlib.contextmanager
+def noise_from(generator: Optional[torch.Generator]):
+    """Draw the train-time masks of the enclosed calls from `generator`
+    (on the device of the tensors masked)."""
+    prev, _NOISE.generator = _NOISE.generator, generator
+    try:
+        yield
+    finally:
+        _NOISE.generator = prev
+
+
+def keep_mask(shape, keep: float, like: torch.Tensor) -> torch.Tensor:
+    """A {0, 1} mask in like's dtype and device, 1 with probability
+    `keep`."""
+    u = torch.rand(shape, generator=_NOISE.generator, device=like.device)
+    return (u < keep).to(like.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            shape=None) -> torch.Tensor:
+    """x * mask / keep with mask ~ Bernoulli(1 - rate) of `shape` (x's by
+    default, broadcast over x), as the JAX package drops; the identity out
+    of training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return x * keep_mask(x.shape if shape is None else shape, keep, x) / keep
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """Stochastic depth: each sample of the batch (axis 0) is kept with
+    probability 1 - rate and scaled by 1 / keep (reference basic.py:98-117,
+    whose batch axis is 1)."""
+    return dropout(x, rate, training, (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+class DropPath(nn.Module):
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return drop_path(x, self.rate, self.training)
 
 
 def scale_in_dtype(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -80,16 +140,20 @@ class GNActDWConv2d(nn.Module):
 
 
 class DWConv2d(nn.Module):
-    """Depthwise 5x5 conv without bias on tokens (reference
-    basic.py:38-57; its Dropout2d is a train-time branch, left out)."""
+    """Depthwise 5x5 conv without bias on tokens, then, in training, the
+    reference's Dropout2d: whole channels of a sample dropped at `dropout`
+    (reference basic.py:38-57, 0.1 in every gated attention)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.conv = nn.Conv2d(dim, dim, 5, padding=2, groups=dim, bias=False)
 
     def forward(self, x: torch.Tensor, size_2d: Tuple[int, int]
                 ) -> torch.Tensor:
-        return tokens_from_2d(self.conv(tokens_to_2d(x, size_2d)))
+        x = tokens_from_2d(self.conv(tokens_to_2d(x, size_2d)))
+        return dropout(x, self.dropout, self.training,
+                       (x.shape[0], 1, x.shape[2]))
 
 
 def frozen_bn_scale_bias(weight, bias, running_mean, running_var,
@@ -118,6 +182,73 @@ class FrozenBatchNorm2d(nn.Module):
             self.epsilon)
         return (x * scale.to(x.dtype)[:, None, None]
                 + offset.to(x.dtype)[:, None, None])
+
+
+class BatchNorm2d(nn.Module):
+    """Trainable BatchNorm with torch BatchNorm2d semantics (the encoders'
+    norm when freeze_bn is off; the JAX package's `BatchNorm`). In
+    training the batch is normalised with its biased variance and the
+    running statistics move at momentum 0.1 towards the batch mean and
+    unbiased variance; statistics are f32 whatever x's dtype. In eval the
+    running statistics normalise.
+
+    With `defer_stats` set (the training engine sets it) a training
+    forward leaves the buffers alone and puts the new running statistics
+    in `pending` (mean, var): a checkpointed encoder runs its forward
+    twice, and each run must start from the same statistics."""
+
+    def __init__(self, dim: int, epsilon: float = EPS,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.epsilon = epsilon
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer('running_mean', torch.zeros(dim))
+        self.register_buffer('running_var', torch.ones(dim))
+        self.defer_stats = False
+        self.pending: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+            n = x.numel() / x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                new = ((1 - m) * self.running_mean.float() + m * mean,
+                       (1 - m) * self.running_var.float()
+                       + m * var * n / max(n - 1, 1))
+                if self.defer_stats:
+                    self.pending = new
+                else:
+                    self.running_mean.copy_(new[0])
+                    self.running_var.copy_(new[1])
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = self.weight * torch.rsqrt(var + self.epsilon)
+        offset = self.bias - mean * scale
+        return (x * scale.to(x.dtype)[:, None, None]
+                + offset.to(x.dtype)[:, None, None])
+
+
+def make_bn(dim: int, frozen: bool = True) -> nn.Module:
+    """The encoders' norm: FrozenBatchNorm2d, or the trainable
+    BatchNorm2d when freeze_bn is off (reference encoders/__init__.py:10-37
+    picks FrozenBatchNorm2d or BatchNorm2d)."""
+    return FrozenBatchNorm2d(dim) if frozen else BatchNorm2d(dim)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """x clipped to [lo, hi], with jnp.clip's gradient at the bounds: half
+    the incoming gradient where x equals one (torch.clamp passes all of it,
+    hardtanh none). Exact zeros are common at the bounds of a ReLU6 (a
+    depthwise conv over clipped zeros), so the convention moves gradients.
+    Without grad it is the one-kernel clamp."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x.clamp(lo, hi)
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 The inverse of the JAX package's `utils/torch_convert.py:
 convert_torch_params`, for every model of the registry. The input is the
-flax `{'params': ...}` tree as nested dicts of numpy arrays (the caller
+flax `{'params': ...}` tree (with `'batch_stats'` for trainable BN) as
+nested dicts of numpy arrays (the caller
 brings it to numpy, so the port never sees JAX); the output is keyed by
 the reference torch names, which are also the port's module paths, so
 published `.pth` checkpoints load the same way. The module-path rules are
@@ -154,32 +155,49 @@ def _module_key(parts: Tuple[str, ...], cfg: ModelConfig) -> str:
     return '.'.join(out)
 
 
+def _leaves(tree: dict, cfg: ModelConfig):
+    """(flax path, torch key, array in the torch layout) of every leaf of
+    the 'params' collection and, where there is one, of 'batch_stats'
+    (the trainable BN's running statistics, buffers of the same module)."""
+    colls = ([tree[c] for c in ('params', 'batch_stats') if c in tree]
+             if 'params' in tree else [tree])
+    for coll in colls:
+        for path, arr in _flatten(coll):
+            *mod, leaf = path
+            key = _module_key(tuple(mod), cfg)
+            pre = f'{key}.' if key else ''
+            if leaf == 'kernel':
+                yield path, pre + 'weight', (arr.transpose(3, 2, 0, 1)
+                                             if arr.ndim == 4 else arr.T)
+            elif leaf == 'scale':
+                yield path, pre + 'weight', arr
+            elif leaf == 'relative_emb_k_w':
+                heads, d_att, ws2 = arr.shape
+                yield path, pre + 'relative_emb_k.weight', arr.transpose(
+                    0, 2, 1).reshape(heads * ws2, d_att, 1, 1)
+            elif leaf == 'relative_emb_k_b':
+                yield path, pre + 'relative_emb_k.bias', arr.reshape(-1)
+            elif leaf in ('bias', 'weight', 'running_mean', 'running_var',
+                          'cur_pos_emb', 'mem_pos_emb',
+                          'relative_position_bias_table', 'prompt',
+                          'top_down_transform'):
+                yield path, pre + leaf, arr
+            else:
+                raise KeyError(f'unhandled flax leaf {"/".join(path)}')
+
+
 def params_from_flax(tree: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Convert a flax parameter tree of the VOS model into a state_dict
-    that `VOSModel.load_state_dict(..., strict=True)` accepts."""
-    tree = tree.get('params', tree)
-    sd = {}
-    for path, arr in _flatten(tree):
-        *mod, leaf = path
-        key = _module_key(tuple(mod), cfg)
-        pre = f'{key}.' if key else ''
-        if leaf == 'kernel':
-            w = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-            sd[pre + 'weight'] = w
-        elif leaf == 'scale':
-            sd[pre + 'weight'] = arr
-        elif leaf == 'relative_emb_k_w':
-            heads, d_att, ws2 = arr.shape
-            sd[pre + 'relative_emb_k.weight'] = arr.transpose(0, 2, 1).reshape(
-                heads * ws2, d_att, 1, 1)
-        elif leaf == 'relative_emb_k_b':
-            sd[pre + 'relative_emb_k.bias'] = arr.reshape(-1)
-        elif leaf in ('bias', 'weight', 'running_mean', 'running_var',
-                      'cur_pos_emb', 'mem_pos_emb',
-                      'relative_position_bias_table', 'prompt',
-                      'top_down_transform'):
-            sd[pre + leaf] = arr
-        else:
-            raise KeyError(f'unhandled flax leaf {"/".join(path)}')
-    return {k: torch.from_numpy(np.array(v))
-            for k, v in sd.items()}
+    """Convert a flax variable tree of the VOS model ({'params': ...} and,
+    with trainable BN, {'batch_stats': ...}) into a state_dict that
+    `VOSModel.load_state_dict(..., strict=True)` accepts. A tree of the
+    same structure, a JAX gradient or an optimizer moment, maps the same
+    way onto the port's parameter names."""
+    return {key: torch.from_numpy(np.array(arr))
+            for _, key, arr in _leaves(tree, cfg)}
+
+
+def flax_key_map(tree: dict, cfg: ModelConfig) -> Dict[str, str]:
+    """'/'-joined flax leaf path (within its collection) -> the port's
+    state_dict key, for trees of per-leaf scalars (the JAX package's
+    optimizer masks) that do not convert as arrays."""
+    return {'/'.join(path): key for path, key, _ in _leaves(tree, cfg)}

@@ -145,7 +145,7 @@ def test_lstt_block(path, linear_q, monkeypatch):
     params = _perturb(jmod.init(
         jax.random.PRNGKey(0), J(tgt), None, None, J(id_emb), J(self_pos),
         (h, w), (J(cur_pe), J(ref_pe))), 6)
-    mod = LSTTBlock(d, 8, 8, dim_feedforward=128, linear_q=linear_q)
+    mod = LSTTBlock(d, 8, 8, dim_feedforward=128, linear_q=linear_q).eval()
     mod.load_state_dict(params_from_flax(params, CFG), strict=True)
     if path == 'reference':
         jargs = (None, None, J(id_emb), J(self_pos), (h, w),

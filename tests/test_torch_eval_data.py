@@ -318,8 +318,8 @@ def test_metrics_and_scorer_match_jax(tmp_path):
 
 
 def test_config_from_jax_snapshot():
-    """A JAX config_to_dict snapshot, through JSON, keeps every model and
-    eval field; only training fields are dropped; unknown fields raise."""
+    """A JAX config_to_dict snapshot, through JSON, keeps every field,
+    the training recipe included; unknown fields raise."""
     jexp = replace(
         jax_get_config('pre_vost_2', 'snap', 'r50_deaotl',
                        latter_mem_len=4, no_memory_gap=True),
@@ -337,8 +337,8 @@ def test_config_from_jax_snapshot():
             assert getattr(exp, f.name) == getattr(jexp, f.name), f.name
     assert exp.test_multiscale == (1.0, 1.3)
     assert exp.dir_result() == jexp.dir_result()
-    dropped = set(snap) - {f.name for f in fields(exp)}
-    assert dropped and all(not n.startswith('test_') for n in dropped)
+    assert set(snap) == {f.name for f in fields(exp)}
+    assert exp.train_lr == 1.0
     snap['test_new_knob'] = 1
     with pytest.raises(ValueError, match='test_new_knob'):
         config_from_dict(snap)

@@ -111,7 +111,7 @@ def test_plain_local_attention_matches_pallas(h, w, monkeypatch):
     want, _ = jmod.apply(params, *args, (h, w))
 
     mod = LocalGatedPropagation(d_qk=d_qk, d_vu=d_vu, num_heads=1,
-                                max_dis=7, d_att=d_att)
+                                max_dis=7, d_att=d_att).eval()
     mod.load_state_dict(params_from_flax(params, CFG), strict=True)
     with torch.no_grad():
         got = mod(*(torch.from_numpy(x) for x in (q, k, v, u)), (h, w))

@@ -384,3 +384,74 @@ def test_local_attention_kernel_at_swin_grid(b):
                              .astype(np.float32)).to(dev), (h, w), md, False)
     got = local_window_attention(*args)
     _assert_close(got, local_window_attention_plain(*args), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('heads', [1, 2])
+def test_training_mode_reads_densely_on_the_card(heads):
+    """Fault C1: a GPM block in train() mode on the card launches no
+    kernel and gives outputs with a grad_fn, whose gradients reach its
+    parameters and inputs; in eval mode under no_grad the same block
+    launches B1 and B2 (one head) or B3 (two)."""
+    from rmem_ocu_tpu_torch.models.gpm import GPMBlock
+    from rmem_ocu_tpu_torch.models.vos_model import zero_dropout
+    dev = _cuda()
+    rng = np.random.RandomState(heads)
+    b, (h, w), d, t_cap = 2, (5, 6), 64, 4
+    d_att = d // 2 if heads == 1 else d // heads
+    r = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
+    valid = torch.ones(b, t_cap, dtype=torch.bool, device=dev)
+    valid[0, 1] = False
+    long_mem = (r(b, t_cap, h * w, heads * d_att), r(b, t_cap, h * w, 2 * d),
+                r(b, t_cap, h * w, 2 * d), valid)
+    short = (r(b, h * w, heads * d_att), r(b, h * w, 2 * d),
+             r(b, h * w, 2 * d))
+    block = zero_dropout(GPMBlock(d, att_heads=heads, layer_idx=1)).to(dev)
+    tgt = r(b, h * w, d).requires_grad_()
+    counts = lambda: (memory_read_fused.launches,
+                      local_window_attention.launches,
+                      memory_read_attention.launches)
+    before = counts()
+    out, out_id, _, _ = block.train()(tgt, r(b, h * w, d), long_mem, short,
+                                      None, (h, w), None)
+    assert counts() == before
+    assert out.grad_fn is not None and out_id.grad_fn is not None
+    (out.square().sum() + out_id.square().sum()).backward()
+    assert float(tgt.grad.abs().sum()) > 0
+    assert float(block.linear_QV.weight.grad.abs().sum()) > 0
+    with torch.no_grad():
+        block.eval()(tgt, r(b, h * w, d), long_mem, short, None, (h, w),
+                     None)
+    after = counts()
+    if heads == 1:
+        assert after[0] > before[0] and after[1] > before[1]
+    else:
+        assert after[2] > before[2]
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_autograd_on_the_card():
+    """No kernel has a backward: each wrapper raises on a CUDA input that
+    requires grad under grad mode, and launches under no_grad."""
+    dev = _cuda()
+    rng = np.random.RandomState(0)
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    q, k, v = t(1, 40, 32), t(1, 3, 40, 32), t(1, 3, 40, 16)
+    valid = torch.ones(1, 3, dtype=torch.bool, device=dev)
+    rel = torch.from_numpy(rng.randn(1, 40, 225).astype(np.float32)).to(dev)
+    calls = {
+        'memory_read_fused': lambda q: memory_read_fused(
+            q, k, (v,), valid, 1, 0.2),
+        'memory_read_multihead': lambda q: memory_read_multihead(
+            q, k, v, valid, 2, 0.2),
+        'memory_read_attention': lambda q: memory_read_attention(
+            q, k, v, valid),
+        'local_window_attention': lambda q: local_window_attention(
+            q, q.detach(), t(1, 40, 16), rel, (5, 8), 7, False),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match='no backward'):
+            call(q.clone().requires_grad_())
+        with torch.no_grad():
+            call(q.clone().requires_grad_())

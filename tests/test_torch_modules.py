@@ -179,7 +179,7 @@ def test_gpm_block(layer_idx, path, monkeypatch):
     w_tgt, w_id, w_mems, w_mass = jmod.apply(
         params, j(x['tgt']), jtgt_id, *jargs, need_mass=need_mass)
 
-    mod = GPMBlock(d, layer_idx=layer_idx)
+    mod = GPMBlock(d, layer_idx=layer_idx).eval()
     mod.load_state_dict(params_from_flax(params, get_config(
         'pre_vost_2').model), strict=True)
     t = lambda a: (None if a is None else

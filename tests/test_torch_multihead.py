@@ -161,7 +161,7 @@ def test_gated_propagation_bank_read_multihead(heads):
     want, want_mass = jmod.apply(
         params, j(q), j(k), j(v), j(id_v), j(u), j(valid), (h, w),
         mem_pe=j(pe), method=JaxGated.bank_read)
-    mod = GatedPropagation(**kw)
+    mod = GatedPropagation(**kw).eval()
     mod.load_state_dict(params_from_flax(params, CFG), strict=True)
     with torch.no_grad():
         got, got_mass = mod.bank_read(T(q), T(k), T(v), T(id_v), T(u),
@@ -190,7 +190,7 @@ def test_local_gated_propagation_multihead(h, w):
         lambda x: np.asarray(x) + 0.2 * rng.randn(*x.shape).astype(
             np.float32), jax.device_get(params))
     want, _ = jmod.apply(params, *args, (h, w))
-    mod = LocalGatedPropagation(**kw)
+    mod = LocalGatedPropagation(**kw).eval()
     mod.load_state_dict(params_from_flax(params, CFG), strict=True)
     with torch.no_grad():
         got = mod(T(q), T(k), T(v), T(u), (h, w))
@@ -239,7 +239,7 @@ def test_gpm_block_two_heads(layer_idx, path, monkeypatch):
     w_tgt, w_id, w_mems, w_mass = jmod.apply(
         params, j(x['tgt']), jtgt_id, jl, js, jid, (h, w),
         (j(x['cur_pe']), jpe), need_mass=need_mass)
-    mod = GPMBlock(d, att_heads=heads, layer_idx=layer_idx)
+    mod = GPMBlock(d, att_heads=heads, layer_idx=layer_idx).eval()
     mod.load_state_dict(params_from_flax(params, CFG), strict=True)
     with torch.no_grad():
         g_tgt, g_id, g_mems, g_mass = mod(
