@@ -56,6 +56,15 @@ Phases, each fatal on failure:
    without remat): step time, episodes/s, frames/s, peak memory and a
    profile of one step by part; (c) the trained model in eval mode: the
    inference engine launches B1 and B2 again, as many as expected.
+10. the pipeline, `r50_deaotl`: `tools.pipeline.main()` in-process on a
+   synthetic VOST tree written from a seed (3 train and 2 val sequences of
+   24 JPEG frames at 480x854, 2-3 moving objects): 4 training steps at the
+   recipe shape (465x465 crops, T=17, batch 2) with 0 kernel launches,
+   step_2 and step_4 checkpoints, the eval leg on the newest checkpoint's
+   EMA with exact B1 and B2 launches and a mask for every val frame, the
+   scorer's CSV, and the train state's EMA restored on the card equal to
+   the bare EMA checkpoint; the CLI's step time, the loader's time per
+   batch, the checkpoints' size and save time, and eval frames/s.
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -1521,6 +1530,228 @@ def phase_after_training(torch, model):
     return counts
 
 
+# ---------------------------------------------------------------- pipeline
+def write_sequence(img_dir: str, ann_dir: str, size, n_frames: int,
+                   rng: np.random.RandomState, n_obj: int = 0,
+                   label_every: int = 1) -> None:
+    """One synthetic sequence drawn from `rng`: n_obj (else 2 or 3)
+    ellipses moving over a smooth random background, as JPEG frames
+    %05d.jpg in img_dir and palette PNG masks %05d.png in ann_dir, one for
+    every `label_every`-th frame."""
+    import cv2
+    from rmem_ocu_tpu_torch.ops.masks import save_mask_png
+    h, w = size
+    yy, xx = np.mgrid[:h, :w]
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    n_obj = n_obj or rng.randint(2, 4)
+    centre = (0.25 + 0.5 * rng.rand(n_obj, 2)) * (h, w)
+    step = (rng.rand(n_obj, 2) - 0.5) * (0.2 / n_frames) * (h, w)
+    radius = (0.12 + 0.08 * rng.rand(n_obj, 2)) * (h, w)
+    colour = rng.randint(0, 256, (n_obj, 3)).astype(np.float32)
+    background = cv2.resize(
+        rng.rand(h // 32 + 2, w // 32 + 2, 3).astype(np.float32) * 255,
+        (w, h), interpolation=cv2.INTER_LINEAR)
+    for t in range(n_frames):
+        img = background.copy()
+        label = np.zeros((h, w), np.uint8)
+        for o in range(n_obj):
+            cy, cx = centre[o] + t * step[o]
+            inside = (((yy - cy) / radius[o, 0]) ** 2
+                      + ((xx - cx) / radius[o, 1]) ** 2) < 1
+            label[inside] = o + 1
+            img[inside] = 0.6 * colour[o] + 0.4 * img[inside]
+        cv2.imwrite(os.path.join(img_dir, f'{t:05d}.jpg'),
+                    img[:, :, ::-1].astype(np.uint8))
+        if t % label_every == 0:
+            save_mask_png(label, os.path.join(ann_dir, f'{t:05d}.png'))
+
+
+def write_vost_tree(root: str, size, n_frames: int, n_train: int = 3,
+                    n_val: int = 2, seed: int = 0) -> dict:
+    """A synthetic VOST tree from `seed`, in both layouts the pipeline
+    reads: the train sequences under root/VOST/{JPEGImages, Annotations,
+    ImageSets/train.txt}, the val sequences under root/{JPEGImages_10fps,
+    Annotations, ImageSets/val.txt}. Returns {'train': names, 'val':
+    names}."""
+    rng = np.random.RandomState(seed)
+    names = {}
+    for split, n_seq, base, image_dir in (
+            ('train', n_train, os.path.join(root, 'VOST'), 'JPEGImages'),
+            ('val', n_val, root, 'JPEGImages_10fps')):
+        names[split] = [f'{split}{i}' for i in range(n_seq)]
+        os.makedirs(os.path.join(base, 'ImageSets'), exist_ok=True)
+        with open(os.path.join(base, 'ImageSets', f'{split}.txt'), 'w') as f:
+            f.write('\n'.join(names[split]) + '\n')
+        for seq in names[split]:
+            write_sequence(os.path.join(base, image_dir, seq),
+                           os.path.join(base, 'Annotations', seq), size,
+                           n_frames, rng)
+    return names
+
+
+PIPELINE_SIZE, PIPELINE_FRAMES = (480, 854), 24
+PIPELINE_ARGS = ['--stage', 'pre_vost_2', '--model', 'r50_deaotl',
+                 '--dataset', 'vost', '--batch_size', '2', '--total_steps',
+                 '4', '--save_step', '2']
+
+
+def phase_pipeline(torch, root: str):
+    """10: `tools.pipeline.main()` in-process on a synthetic VOST tree (3
+    train and 2 val sequences of 24 frames at 480x854): R50-DeAOT-L at
+    full width trains 4 steps (recipe crops 465x465, T=17, batch 2, fp32,
+    the default loader of data_workers threads), saves step_2 and step_4,
+    evaluates the newest checkpoint's EMA and scores. Holds 0 launches
+    across training, the exact B1 and B2 launches of the eval leg, finite
+    metrics rows, the checkpoints, a mask for every val frame, J in [0, 1]
+    and ckpt/step_4's EMA equal to ema_ckpt/step_4 on the card. Returns
+    the eval leg's launches (B1, B2, B3)."""
+    import re
+    from rmem_ocu_tpu_torch.config import config_from_dict, get_config
+    from rmem_ocu_tpu_torch.data.eval_datasets import build_vost_dataset
+    from rmem_ocu_tpu_torch.data.train_datasets import (TrainDataLoader,
+                                                        build_train_dataset)
+    from rmem_ocu_tpu_torch.tools import eval as eval_tool
+    from rmem_ocu_tpu_torch.tools import pipeline
+    from rmem_ocu_tpu_torch.tools import train as train_tool
+    from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
+    # a fresh process's settings: cuDNN may use TF32, matmuls may not
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    data = os.path.join(root, 'data')
+    names = write_vost_tree(data, PIPELINE_SIZE, PIPELINE_FRAMES, seed=0)
+    print(f'pipeline: wrote the VOST tree in {time.time() - t0:.1f} s')
+    legs, saves = {}, []
+    train_main, eval_main = train_tool.main, eval_tool.main
+    save = ckpt.save_checkpoint
+
+    def leg(name, main, extra=()):
+        def run():
+            # the recipe logs every 20 steps; this run takes 4, so its
+            # train leg logs each one
+            sys.argv = sys.argv + list(extra)
+            reset_counts()
+            start = time.time()
+            main()
+            torch.cuda.synchronize()
+            legs[name] = (read_counts(), time.time() - start)
+        return run
+
+    def timed_save(root_dir, step, state, *a, **k):
+        start = time.time()
+        path = save(root_dir, step, state, *a, **k)
+        saves.append((os.path.basename(root_dir), time.time() - start,
+                      os.path.getsize(path) / 2 ** 20))
+        return path
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    train_tool.main = leg('train', train_main, ('--log_step', '1'))
+    eval_tool.main = leg('eval', eval_main)
+    ckpt.save_checkpoint = timed_save
+    try:
+        pipeline.main(PIPELINE_ARGS + ['--data_root', data])
+    finally:
+        train_tool.main, eval_tool.main = train_main, eval_main
+        ckpt.save_checkpoint = save
+        os.chdir(cwd)
+    result = os.path.join(root, get_config(
+        'pre_vost_2', model=PIPELINE_ARGS[PIPELINE_ARGS.index('--model') + 1]
+    ).dir_result())
+
+    with open(os.path.join(result, 'metrics.jsonl')) as f:
+        rows = [json.loads(line) for line in f]
+    check([r['step'] for r in rows] == [1, 2, 3, 4]
+          and all(np.isfinite(v) for r in rows for k, v in r.items()
+                  if k not in ('frame_losses', 'frame_ious'))
+          and all(np.isfinite(r['frame_losses']).all() for r in rows),
+          f'pipeline: metrics rows {rows}')
+    for sub in ('ckpt', 'ema_ckpt'):
+        check(ckpt.list_checkpoint_steps(os.path.join(result, sub))
+              == [2, 4], f'pipeline: {sub} steps')
+    check(os.path.isfile(os.path.join(result, 'config.json')),
+          'pipeline: config.json')
+    check(legs['train'][0] == (0, 0, 0),
+          f'pipeline: training launched kernels {legs["train"][0]}')
+    out = os.path.join(result, 'eval', 'vost')
+    dataset = build_vost_dataset(data, 'val')
+    want = tuple(sum(c) for c in zip(*(eval_counts(seq, 1)
+                                       for _, seq in dataset.items())))
+    check(legs['eval'][0] == want, f'pipeline eval: launches (B1, B2, B3) '
+                                   f'{legs["eval"][0]}, expected {want}')
+    for seq in names['val']:
+        masks = sorted(os.listdir(os.path.join(out, seq)))
+        check(masks == [f'{t:05d}.png' for t in range(PIPELINE_FRAMES)],
+              f'pipeline eval: masks of {seq}: {masks}')
+    with open(os.path.join(out, 'global_results-val.csv')) as f:
+        head, values = [line.strip().split(',') for line in f]
+    summary = dict(zip(head, map(float, values)))
+    check(0.0 <= summary['J_mean'] <= 1.0, f'pipeline: scores {summary}')
+    with open(os.path.join(out, 'print.log')) as f:
+        fps = float(re.findall(r'all-frame FPS: ([0-9.]+)', f.read())[-1])
+
+    # the train state's EMA against the bare EMA, restored on the card
+    dev = torch.device('cuda')
+    state, step = ckpt.restore_checkpoint(os.path.join(result, 'ckpt'),
+                                          step=4)
+    ema, _ = ckpt.restore_checkpoint(os.path.join(result, 'ema_ckpt'),
+                                     step=4)
+    ema_state = {k: v.to(dev) for k, v in state['ema'].items()}
+    ema_bare = {k: v.to(dev) for k, v in ema['state_dict'].items()}
+    check(step == 4 and state['step'] == 4 and ema_state.keys() ==
+          ema_bare.keys() and all(torch.equal(v, ema_bare[k])
+                                  for k, v in ema_state.items()),
+          'pipeline: the EMA of ckpt/step_4 differs from ema_ckpt/step_4')
+
+    # the loader alone, on the same tree and config, as the CLI's loop
+    # calls it: one next() after each step, serial with it
+    with open(os.path.join(result, 'config.json')) as f:
+        exp = config_from_dict(json.load(f))
+    loader = iter(TrainDataLoader(build_train_dataset(exp),
+                                  exp.train_batch_size, seed=0,
+                                  num_workers=exp.data_workers))
+    next(loader)
+    load_ms = []
+    for _ in range(6):
+        start = time.time()
+        next(loader)
+        load_ms.append(1e3 * (time.time() - start))
+    step_ms = [1e3 / r['it_per_s'] for r in rows[1:]]
+    n_eval = sum(len(seq) for _, seq in dataset.items())
+    ckpt_saves = [s for s in saves if s[0] == 'ckpt']
+    ema_saves = [s for s in saves if s[0] == 'ema_ckpt']
+    print(f'pipeline r50_deaotl pre_vost_2, {exp.data_randomcrop[0]}x'
+          f'{exp.data_randomcrop[1]} crops, T={exp.data_seq_len}, B='
+          f'{exp.train_batch_size}, fp32: train leg {legs["train"][1]:.1f} '
+          f's (model build included), CLI step '
+          f'{statistics.median(step_ms):.1f} ms median of steps 2-4 '
+          f'({[round(x, 1) for x in step_ms]}), '
+          f'{1e3 / statistics.median(step_ms):.3f} it/s; launches across '
+          f'training {legs["train"][0]}; losses '
+          f'{[round(r["loss"], 4) for r in rows]}')
+    print(f'pipeline loader: {statistics.median(load_ms):.1f} ms a batch '
+          f'(median of {len(load_ms)} next() after the first, '
+          f'{exp.data_workers} threads, {exp.train_batch_size} x '
+          f'{exp.data_seq_len} JPEG frames of {PIPELINE_SIZE[0]}x'
+          f'{PIPELINE_SIZE[1]}): {[round(x, 1) for x in load_ms]}; '
+          f'{statistics.median(load_ms) / statistics.median(step_ms):.3f} '
+          f'of the CLI step')
+    print(f'pipeline checkpoints: ckpt/ (train state) '
+          f'{ckpt_saves[-1][2]:.1f} MB in '
+          f'{[round(1e3 * s[1], 1) for s in ckpt_saves]} ms, ema_ckpt/ '
+          f'{ema_saves[-1][2]:.1f} MB in '
+          f'{[round(1e3 * s[1], 1) for s in ema_saves]} ms')
+    print(f'pipeline eval leg: {n_eval} frames of {len(names["val"])} '
+          f'sequences ({n_eval - len(names["val"])} propagated), '
+          f'{fps:.3f} eval frames/s (the evaluator\'s all-frame FPS), '
+          f'{legs["eval"][1]:.1f} s with the model build '
+          f'and checkpoint load, launches (B1, B2, B3) {legs["eval"][0]} '
+          f'as expected; scores {summary}; ckpt/step_4 EMA = '
+          f'ema_ckpt/step_4 on the card; ok in {time.time() - t0:.1f} s')
+    return legs['eval'][0]
+
+
 def print_resources(logs) -> None:
     """Registers, shared memory and spills of each kernel: ptxas's report
     per entry (static shared memory only), then the runtime's view of the
@@ -1611,6 +1842,11 @@ def main() -> int:
     check(trained is not None, 'the batch-2 training run did not finish')
     counts['after_training'] = phase_after_training(torch, trained)
     print(f'phase 9 done at {time.time() - t_start:.1f} s')
+    del trained
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts['pipeline_eval'] = phase_pipeline(torch, tmp)
+    print(f'phase 10 done at {time.time() - t_start:.1f} s')
 
     kernels = []
     for name, src, replaces, row_name, idx, path in KERNELS:

@@ -5,12 +5,11 @@ experiment field (training, data, eval and directories), the whole model
 registry, every stage with its training recipe and the model overrides it
 makes, and the reload of a `config_to_dict` snapshot. Values are the
 reference's (aot_plus/configs), so the two packages agree field by field;
-the CPU tests hold them to that. The data fields and the checkpoint and
-logging fields are read by no code of the port yet (ROADMAP item 14b);
-the mesh fields and `train_zero1`, `train_spatial_sharding`,
-`train_encoder_chunk`, `train_scan_unroll` and the `dots` remat policies
-exist for XLA, and the port's training raises on any value but their
-default.
+the CPU tests hold them to that. The data, checkpoint and logging fields
+are read by the training data and the train CLI; the mesh fields and
+`train_zero1`, `train_spatial_sharding`, `train_encoder_chunk`,
+`train_scan_unroll` and the `dots` remat policies exist for XLA, and the
+port's training raises on any value but their default.
 """
 from __future__ import annotations
 
@@ -102,7 +101,7 @@ class ExpConfig:
     exp_name: str = 'default'
     stage_name: str = 'default'
 
-    # --- data (read by the training data of ROADMAP item 14b) ---
+    # --- data (read by data/train_datasets.py) ---
     datasets: Tuple[str, ...] = ('youtubevos',)
     data_workers: int = 8
     data_randomcrop: Tuple[int, int] = (465, 465)
@@ -352,11 +351,18 @@ STAGE_REGISTRY = {
 }
 
 
+def config_to_dict(exp: ExpConfig) -> dict:
+    """The JSON-serialisable snapshot the train CLI writes as config.json
+    (reference cfg.save_self(), configs/default.py:186-196); the JAX
+    package writes the same one."""
+    return dataclasses.asdict(exp)
+
+
 def config_from_dict(d: dict) -> ExpConfig:
-    """Rebuild an ExpConfig from a snapshot written by the JAX package's
-    `config_to_dict` (and read back from JSON), the reload of the
-    reference's eval.py:97-102, training recipe included. A field the port
-    does not know raises."""
+    """Rebuild an ExpConfig from a `config_to_dict` snapshot of either
+    package (read back from JSON), the reload of the reference's
+    eval.py:97-102, training recipe included. A field the port does not
+    know raises."""
     def take(values: dict, cls) -> dict:
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = sorted(set(values) - known)

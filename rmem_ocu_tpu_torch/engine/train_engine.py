@@ -66,7 +66,7 @@ def check_port_knobs(exp: ExpConfig) -> None:
         if getattr(exp, name) != default:
             raise NotImplementedError(
                 f'{name}={getattr(exp, name)!r}: an XLA knob of the JAX '
-                f'package, not ported (ROADMAP item 14b / 15); leave it at '
+                f'package, not ported (ROADMAP item 15); leave it at '
                 f'{default!r}')
 
 

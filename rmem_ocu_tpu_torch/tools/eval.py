@@ -8,12 +8,17 @@ Example:
     python -m rmem_ocu_tpu_torch.tools.eval --stage pre_vost_2 \
         --model r50_deaotl --dataset vost --data_root ./datasets/VOST \
         --ckpt_path model.pth
+
+Checkpoints: a reference `.pth`, or the `step_<N>` directories that the
+port's train CLI writes (`ckpt/`, `ema_ckpt/`).
 """
 from __future__ import annotations
 
 import argparse
 import os
 from dataclasses import replace
+
+from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
 
 
 def parse_args():
@@ -29,11 +34,13 @@ def parse_args():
                    help='defaults to exp.test_dataset_split')
     p.add_argument('--data_root', type=str, default=None)
     p.add_argument('--ckpt_path', type=str, default=None,
-                   help='reference .pth checkpoint; orbax checkpoint '
-                        'directories are not read by the port yet')
+                   help="a .pth file (a reference checkpoint or a step's "
+                        "file) or a directory of the port's step_<N> "
+                        'checkpoints (the train CLI\'s ckpt/ or ema_ckpt/); '
+                        "defaults to the experiment's ema_ckpt/ or ckpt/")
     p.add_argument('--ckpt_step', type=int, default=None,
-                   help='step of an orbax checkpoint directory (reference '
-                        'TEST_CKPT_STEP)')
+                   help='step to load from a step_<N> checkpoint directory '
+                        '(reference TEST_CKPT_STEP); the newest by default')
     p.add_argument('--no_ema', action='store_true',
                    help='load raw train params instead of EMA weights '
                         '(reference TEST_EMA=False)')
@@ -92,7 +99,6 @@ def main():
     import torch
     from rmem_ocu_tpu_torch.config import get_config
     from rmem_ocu_tpu_torch.models import build_vos_model
-    from rmem_ocu_tpu_torch.utils.checkpoint import load_torch_pretrained
 
     if args.mesh and args.mesh > 1:
         raise SystemExit(f'--mesh {args.mesh}: model-parallel serving is '
@@ -135,26 +141,7 @@ def main():
 
     cfg = exp.model
     model = build_vos_model(cfg, device=args.device)
-    # checkpoint selection (reference evaluator.py:59-110): an explicit
-    # path wins; the JAX package's orbax directories (the experiment's
-    # ckpt/ and ema_ckpt/, or a --ckpt_path that is not a .pth) wait for
-    # the port's training
-    ckpt_path = args.ckpt_path or exp.test_ckpt_path
-    if not ckpt_path:
-        sub = 'ema_ckpt' if exp.test_ema else 'ckpt'
-        candidate = os.path.join(exp.dir_result(), sub)
-        if os.path.isdir(candidate) and any(
-                n.startswith('step_') for n in os.listdir(candidate)):
-            ckpt_path = candidate
-    if ckpt_path:
-        if not ckpt_path.endswith('.pth'):
-            raise SystemExit(f'{ckpt_path}: orbax checkpoint directories '
-                             f'are not read by the port yet (ROADMAP item '
-                             f'14); pass a reference .pth')
-        load_torch_pretrained(ckpt_path, model)
-        print(f'loaded {ckpt_path}')
-    else:
-        print('warning: no checkpoint found; evaluating random init')
+    load_checkpoint(args, exp, model)
     if args.bf16:
         model = model.to(torch.bfloat16)
 
@@ -174,6 +161,55 @@ def main():
         _evaluate(args, exp, model, output)
     finally:
         tee.close()
+
+
+def load_checkpoint(args, exp, model) -> None:
+    """Checkpoint selection (reference evaluator.py:59-110, the JAX CLI's
+    tools/eval.py:150-185): an explicit path wins, else the experiment's
+    ema_ckpt/ (or ckpt/ without test_ema) when it holds steps. A `.pth`
+    loads as a reference checkpoint; a directory of step_<N> checkpoints
+    gives the requested (or newest) step, from which a train state gives
+    its EMA under test_ema and its model weights otherwise."""
+    ckpt_path = args.ckpt_path or exp.test_ckpt_path
+    if not ckpt_path:
+        sub = 'ema_ckpt' if exp.test_ema else 'ckpt'
+        candidate = os.path.join(exp.dir_result(), sub)
+        if ckpt.list_checkpoint_steps(candidate):
+            ckpt_path = candidate
+    if not ckpt_path:
+        print('warning: no checkpoint found; evaluating random init')
+        return
+    if ckpt_path.endswith('.pth'):
+        ckpt.load_torch_pretrained(ckpt_path, model)
+        print(f'loaded {ckpt_path}')
+        return
+    step = (args.ckpt_step if args.ckpt_step is not None
+            else exp.test_ckpt_step)
+    try:
+        state, step = ckpt.restore_checkpoint(ckpt_path, step=step)
+    except FileNotFoundError as e:
+        raise SystemExit(
+            f'{e}: the port reads only its own step_<N> directories '
+            f'(rmem_ocu_tpu_torch.tools.train) and .pth files, not the JAX '
+            f"package's Orbax checkpoints") from e
+    if state is None:
+        raise SystemExit(f'no step_<N> checkpoints in {ckpt_path}')
+    # the dir may hold full train states (ckpt/) or bare weights
+    # (ema_ckpt/); duck-type both, loudly
+    if isinstance(state, dict) and 'ema' in state and 'state_dict' in state:
+        which = 'ema' if exp.test_ema else 'state_dict'
+        weights = state[which]
+    elif isinstance(state, dict) and 'state_dict' in state:
+        which, weights = 'state_dict', state['state_dict']
+    else:
+        keys = (list(state.keys()) if isinstance(state, dict)
+                else type(state).__name__)
+        raise SystemExit(
+            f'{ckpt_path} step {step} is not a train state or weights '
+            f'(found {keys}); point --ckpt_path at a train ckpt/ or '
+            f'ema_ckpt/ directory')
+    ckpt.load_state_dict(weights, model)
+    print(f'loaded {which} from step {step} ({ckpt_path})')
 
 
 def _evaluate(args, exp, model, output):

@@ -12,7 +12,7 @@ are `requires_grad=False` during the step, as the reference freezes them.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -60,6 +60,28 @@ class Trainer:
                 opt_state=optim.init_opt_state(params, self.exp),
                 ema={k: v.detach().clone()
                      for k, v in self._floating_state().items()})
+
+    def restart_ema(self, state: TrainState) -> TrainState:
+        """The EMA set to the model's current weights, as after a
+        pretrained load (the JAX CLI's tools/train.py:264-267)."""
+        return replace(state, ema={k: v.detach().clone() for k, v
+                                   in self._floating_state().items()})
+
+    def state_dict(self, state: TrainState) -> dict:
+        """The checkpoint of the model and `state`: tensors and plain
+        containers only, the model's weights under the reference keys."""
+        return {'state_dict': self.model.state_dict(),
+                'opt_state': state.opt_state, 'ema': state.ema,
+                'step': state.step, 'ema_updates': state.ema_updates}
+
+    def load_state_dict(self, ckpt: dict) -> TrainState:
+        """Load a `state_dict` checkpoint into the model (strictly) and
+        return its TrainState. Restore the checkpoint onto the model's
+        device first (`restore_checkpoint(root, target=...)`)."""
+        self.model.load_state_dict(ckpt['state_dict'], strict=True)
+        return TrainState(opt_state=ckpt['opt_state'], ema=ckpt['ema'],
+                          step=int(ckpt['step']),
+                          ema_updates=int(ckpt['ema_updates']))
 
     def train_step(self, state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None

@@ -27,6 +27,7 @@ from rmem_ocu_tpu.ops.attention import MultiheadAttention as JaxMHA
 from rmem_ocu_tpu.ops.layers import GNActDWConv2d as JaxGNAct
 from rmem_ocu_tpu.utils.torch_convert import convert_torch_params
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.memory import bank
 from rmem_ocu_tpu_torch.models.decoders.fpn import FPNSegmentationHead

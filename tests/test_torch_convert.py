@@ -13,6 +13,7 @@ from rmem_ocu_tpu.models import build_vos_model as jax_build
 from rmem_ocu_tpu.utils.torch_convert import (_flax_key_to_torch,
                                               convert_torch_params)
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.utils.convert import params_from_flax
 

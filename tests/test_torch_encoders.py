@@ -43,6 +43,7 @@ from rmem_ocu_tpu.models import build_vos_model as jax_build
 from rmem_ocu_tpu.models.encoders import build_encoder as jax_build_encoder
 from rmem_ocu_tpu.models.encoders.swin import SwinEncoder as JaxSwin
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
 from rmem_ocu_tpu_torch.config import ModelConfig
 from rmem_ocu_tpu_torch.models.encoders import build_encoder

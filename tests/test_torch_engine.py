@@ -26,6 +26,7 @@ from rmem_ocu_tpu.engine import InferEngine as JaxEngine
 from rmem_ocu_tpu.memory import bank as jax_bank
 from rmem_ocu_tpu.models import build_vos_model as jax_build
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
 from rmem_ocu_tpu_torch.memory import bank
 from rmem_ocu_tpu_torch.utils.convert import params_from_flax

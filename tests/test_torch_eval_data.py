@@ -26,6 +26,7 @@ from rmem_ocu_tpu.eval import metrics as jmetrics
 from rmem_ocu_tpu.eval import scorer as jscorer
 from rmem_ocu_tpu.ops import masks as jmasks
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch.config import (STAGE_REGISTRY, config_from_dict,
                                        get_config)
 from rmem_ocu_tpu_torch.data import eval_datasets as ds

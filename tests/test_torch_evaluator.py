@@ -42,6 +42,7 @@ from rmem_ocu_tpu.ops.masks import save_mask_png as jax_save_mask_png
 from rmem_ocu_tpu.utils.checkpoint import (
     load_torch_pretrained as jax_load_torch_pretrained)
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.data.eval_datasets import VOSSequence
 from rmem_ocu_tpu_torch.eval.evaluator import Evaluator

@@ -20,6 +20,7 @@ from rmem_ocu_tpu.ops.attention import LocalGatedPropagation as JaxLocal
 from rmem_ocu_tpu.ops.pallas.memory_read import \
     memory_read_fused as jax_memory_read_fused
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch.config import get_model_config
 from rmem_ocu_tpu_torch.models.lstt import (bank_key_bias,
                                             frame_mass_from_probs)

@@ -455,3 +455,39 @@ def test_kernel_wrappers_refuse_autograd_on_the_card():
             call(q.clone().requires_grad_())
         with torch.no_grad():
             call(q.clone().requires_grad_())
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """A train state on the card (model, AdamW moments after one update,
+    EMA, counters) saved as a step_<N> checkpoint and restored onto the
+    card with weights_only=True is equal to it, tensor for tensor."""
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.train import optim
+    from rmem_ocu_tpu_torch.train.trainer import Trainer
+    from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
+    dev = _cuda()
+    exp = get_config('pre_vost_2', model='aott')
+    trainer = Trainer(build_vos_model(exp.model, device=dev, seed=0), exp)
+    state = trainer.init_state()
+    params = {k: p.detach() for k, p in trainer.model.named_parameters()}
+    grads = {k: torch.randn_like(p) for k, p in params.items()}
+    _, opt_state = optim.adam_update(grads, state.opt_state)
+    state = type(state)(opt_state=opt_state, ema=state.ema, step=3,
+                        ema_updates=2)
+    saved = trainer.state_dict(state)
+    ckpt.save_checkpoint(str(tmp_path / 'ckpt'), 3, saved)
+    other = Trainer(build_vos_model(exp.model, device=dev, seed=1), exp)
+    restored, step = ckpt.restore_checkpoint(
+        str(tmp_path / 'ckpt'), other.state_dict(other.init_state()))
+    back = other.state_dict(other.load_state_dict(restored))
+    assert step == 3 and back['step'] == 3 and back['ema_updates'] == 2
+    assert back['opt_state']['count'] == 1
+    for part in ('state_dict', 'ema'):
+        for k, v in saved[part].items():
+            assert back[part][k].device.type == 'cuda'
+            assert torch.equal(back[part][k], v), (part, k)
+    for moment in ('mu', 'nu'):
+        for k, v in saved['opt_state'][moment].items():
+            assert back['opt_state'][moment][k].device.type == 'cuda'
+            assert torch.equal(back['opt_state'][moment][k], v), k

@@ -21,6 +21,7 @@ from rmem_ocu_tpu.ops import losses as jlosses
 from rmem_ocu_tpu.ops import masks as jmasks
 from rmem_ocu_tpu.utils.metric import batched_iou as jax_batched_iou
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch.memory import bank
 from rmem_ocu_tpu_torch.ops import losses
 from rmem_ocu_tpu_torch.ops.layers import (BatchNorm2d, DropPath, DWConv2d,

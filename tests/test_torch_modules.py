@@ -22,6 +22,7 @@ from rmem_ocu_tpu.models.vos_model import VOSModel as JaxVOSModel
 from rmem_ocu_tpu.ops.position import \
     interpolated_memory_pe as jax_interpolated_memory_pe
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
 from rmem_ocu_tpu_torch.models.gpm import GPMBlock
 from rmem_ocu_tpu_torch.ops.position import interpolated_memory_pe

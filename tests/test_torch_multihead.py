@@ -32,6 +32,7 @@ from rmem_ocu_tpu.ops.pallas.memory_read import \
 from rmem_ocu_tpu.ops.pallas.memory_read import \
     memory_read_multihead as jax_memory_read_multihead
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
 from rmem_ocu_tpu_torch.models.gpm import GPMBlock
 from rmem_ocu_tpu_torch.models.lstt import bank_key_bias

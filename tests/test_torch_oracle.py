@@ -36,6 +36,7 @@ from rmem_ocu_tpu.eval.evaluator import Evaluator as JaxEvaluator
 from rmem_ocu_tpu.models import build_vos_model as jax_build
 from rmem_ocu_tpu.ops.masks import save_mask_png as jax_save_mask_png
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.data.eval_datasets import build_vost_dataset
 from rmem_ocu_tpu_torch.eval.evaluator import Evaluator

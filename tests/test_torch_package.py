@@ -15,6 +15,7 @@ import torch
 
 from rmem_ocu_tpu.config import get_config as jax_get_config
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
 from rmem_ocu_tpu_torch.utils.device import resolve_device
 
@@ -30,8 +31,13 @@ def _port_modules():
 
 def test_import_loads_no_jax():
     """In a fresh interpreter (this one has JAX loaded by conftest),
-    importing every module of the port leaves JAX, flax and the JAX
-    package out of sys.modules."""
+    importing every module of the port (the training data, checkpoints and
+    CLIs among them) leaves JAX, flax and the JAX package out of
+    sys.modules."""
+    assert {f'rmem_ocu_tpu_torch.{m}' for m in (
+        'data.train_datasets', 'data.video_transforms', 'utils.checkpoint',
+        'utils.run_utils', 'tools.train', 'tools.pipeline', 'tools.accept',
+        'tools.prepare_extracted', 'tools.eval')} <= set(_port_modules())
     code = (
         'import importlib, sys\n'
         f'for name in {_port_modules()!r}:\n'

@@ -20,6 +20,7 @@ from rmem_ocu_tpu.config import defaults as jax_defaults
 from rmem_ocu_tpu.models import build_vos_model as jax_build
 from rmem_ocu_tpu.utils.torch_convert import _flax_key_to_torch
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.config import MODEL_REGISTRY, STAGE_REGISTRY
 from rmem_ocu_tpu_torch.utils.checkpoint import load_torch_pretrained

@@ -47,6 +47,7 @@ from rmem_ocu_tpu.engine.train_engine import TrainEngine as JaxTrainEngine
 from rmem_ocu_tpu.models import build_vos_model as jax_build
 from rmem_ocu_tpu.ops import layers as jlayers
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.engine.train_engine import TrainEngine
 from rmem_ocu_tpu_torch.models.vos_model import zero_dropout

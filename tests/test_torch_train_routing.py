@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.engine import train_engine
 from rmem_ocu_tpu_torch.engine.train_engine import TrainEngine

@@ -39,6 +39,7 @@ from rmem_ocu_tpu.train import optim as joptim
 from rmem_ocu_tpu.train.trainer import Trainer as JaxTrainer
 from rmem_ocu_tpu.utils.torch_convert import convert_torch_params
 
+import torch_threads  # noqa: F401
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.engine import train_engine
 from rmem_ocu_tpu_torch.models.vos_model import VOSModel, zero_dropout
