@@ -65,6 +65,19 @@ Phases, each fatal on failure:
    scorer's CSV, and the train state's EMA restored on the card equal to
    the bare EMA checkpoint; the CLI's step time, the loader's time per
    batch, the checkpoints' size and save time, and eval frames/s.
+11. data parallelism, `r50_deaotl`: (a) two ranks on the card in child
+   processes (`--dp-worker`), a gloo group over CUDA tensors (NCCL takes
+   one rank a card), one sample each, against this process on both, two
+   fp32 steps at 129x129, T=5, gap 1 in four settings (AdamW, AdamW with
+   ZeRO-1 and remat, trainable BN with SGD, the same with ZeRO-1): loss
+   and metrics, weights and EMA, the ranks alike, no kernel launched; (b)
+   `tools.train.main(['--multihost', '--mesh', '1', '--zero1', ...])` in
+   this process over NCCL on phase 10's tree at the recipe shape (4 steps,
+   saves at 2 and 4), step_4 restored bitwise: the CLI's step beside phase
+   10's, each all-reduce's bytes and CUDA-event time, the moment bytes a
+   rank holds; (c) the eval CLI of that EMA in two processes on the card
+   (`--eval-worker`, RANK 0 and 1): their masks together equal one
+   process's file for file, and their launches sum to its and phase 10's.
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -1749,7 +1762,345 @@ def phase_pipeline(torch, root: str):
           f'and checkpoint load, launches (B1, B2, B3) {legs["eval"][0]} '
           f'as expected; scores {summary}; ckpt/step_4 EMA = '
           f'ema_ckpt/step_4 on the card; ok in {time.time() - t0:.1f} s')
-    return legs['eval'][0]
+    return legs['eval'][0], statistics.median(step_ms)
+
+
+# ---------------------------------------------------------- data parallel
+DP_SIZE, DP_T = (129, 129), 5
+# the settings of 11a: name, config overrides of r50_deaotl, ZeRO-1. The
+# trainable BN trains with SGD: AdamW's first steps move a parameter by
+# ~lr whatever its gradient, so the trainable BN's near-cancelled
+# gradients, rounding in either world, would move it by ~lr in either
+DP_SETTINGS = (
+    ('adamw', dict(train_remat_policy='none'), False),
+    ('adamw_zero1', dict(train_remat_policy='full'), True),
+    ('bn_sgd', dict(freeze_bn=False, train_opt='sgd',
+                    train_remat_policy='full'), False),
+    ('bn_sgd_zero1', dict(freeze_bn=False, train_opt='sgd',
+                          train_remat_policy='none'), True),
+)
+DP_METRICS = ('loss', 'aux_loss', 'pred_loss', 'iou', 'frame_losses',
+              'frame_ious')
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(n: int, argv, cwd=None):
+    """n processes of `python argv...`, ranks of one world on card 0 (each
+    its LOCAL_RANK 0, as n hosts of one card each)."""
+    port = str(free_port())
+    root = os.path.dirname(os.path.abspath(__file__))
+    return [subprocess.Popen(
+        [sys.executable, *argv], cwd=cwd or root,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK='0',
+                 MASTER_ADDR='127.0.0.1', MASTER_PORT=port,
+                 PYTHONPATH=root + os.pathsep
+                 + os.environ.get('PYTHONPATH', '')),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+
+
+def wait_ranks(procs, timeout: float):
+    """The processes' outputs; raises if one fails or outlives `timeout`
+    seconds, after ending them all."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f'rank {r} exited {p.returncode}:\n'
+                                 f'{out[-6000:]}')
+    return outs
+
+
+def dp_train(torch, setting, world) -> dict:
+    """Two fp32 steps of r50_deaotl (129x129, T=5, gap 1, 3 objects) in
+    one setting, on this rank's rows of a global batch of 2; returns the
+    world's metrics of each step, the weights before and after, the EMA,
+    whether every rank holds the same, and the kernel launches."""
+    from dataclasses import replace
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.parallel.dist import same_on_all_ranks
+    from rmem_ocu_tpu_torch.train.trainer import Trainer
+    name, overrides, zero1 = setting
+    exp = replace(get_config('pre_vost_2', model='r50_deaotl',
+                             data_seq_len=DP_T, train_total_steps=100,
+                             **overrides),
+                  train_long_term_mem_gap=1, train_zero1=zero1)
+    model = build_vos_model(exp.model, device=world.device, seed=0, exp=exp)
+    trainer = Trainer(model, exp, world)
+    state = trainer.init_state()
+    flat = lambda d: torch.cat([v.detach().float().reshape(-1)
+                                for v in d.values()])
+    weights = lambda: flat({k: v for k, v in model.state_dict().items()
+                            if v.is_floating_point()})
+    out = {'weights0': weights(), 'steps': []}
+    n = 2 // world.size
+    rows = slice(world.rank * n, (world.rank + 1) * n)
+    generator = torch.Generator().manual_seed(1)
+    reset_counts()
+    for i in range(2):
+        frames, masks = train_clip(2, DP_T, DP_SIZE, seed=20 + i)
+        batch = {'frames': torch.from_numpy(frames[rows]).to(world.device),
+                 'masks': torch.from_numpy(masks[rows]).to(world.device),
+                 'obj_nums': torch.full((n,), N_OBJ, device=world.device)}
+        state, m = trainer.train_step(state, batch, generator)
+        out['steps'].append({k: torch.as_tensor(m[k]).tolist()
+                             for k in DP_METRICS})
+    torch.cuda.synchronize(world.device)
+    out.update(weights=weights(), ema=flat(state.ema),
+               launches=read_counts())
+    out['same'] = same_on_all_ranks([out['weights'], out['ema']], world)
+    return {k: v.cpu() if torch.is_tensor(v) else v for k, v in out.items()}
+
+
+def dp_worker(out_path: str) -> int:
+    """A rank of 11a, in a child process: every setting over a gloo group
+    on CUDA tensors; rank 0 writes the results to out_path."""
+    import torch
+    from rmem_ocu_tpu_torch.parallel import dist
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.init_from_env('cuda:0', backend='gloo', timeout_s=600)
+    try:
+        results = {s[0]: dp_train(torch, s, world) for s in DP_SETTINGS}
+        if world.is_main:
+            torch.save(results, out_path)
+    finally:
+        dist.destroy(world)
+    return 0
+
+
+def eval_worker(argv_json: str) -> int:
+    """A rank of 11c, in a child process: the eval CLI, then its kernel
+    launches on a line of their own."""
+    import torch
+    from rmem_ocu_tpu_torch.tools import eval as eval_tool
+    reset_counts()
+    eval_tool.main(json.loads(argv_json))
+    torch.cuda.synchronize()
+    print('COUNTS ' + json.dumps(read_counts()))
+    return 0
+
+
+def phase_dp_two_ranks(torch, root: str):
+    """11a: two ranks on the one card (gloo over CUDA tensors; NCCL takes
+    one rank a card), one sample each, against this process on both, in
+    the four DP_SETTINGS. Gates: loss and metrics within 1e-5 (the ious
+    of the second step, which count pixels of an argmax, within 1e-3),
+    weights and EMA within 1e-4, the weights' change within 1e-2 of its
+    L2 norm, both ranks alike, no kernel launched."""
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    t0 = time.time()
+    out = os.path.join(root, 'dp_two_ranks.pt')
+    procs = spawn_ranks(2, [os.path.abspath(__file__), '--dp-worker', out])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        one = {s[0]: dp_train(torch, s, World(device=torch.device('cuda')))
+               for s in DP_SETTINGS}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        wait_ranks(procs, 900)
+    two = torch.load(out)
+    launches = tuple(sum(c) for c in zip(*(r[name]['launches'] for r in
+                                           (one, two)
+                                           for name, _, _ in DP_SETTINGS)))
+    for name, _, _ in DP_SETTINGS:
+        a, b = one[name], two[name]
+        err = 0.0
+        for i, (sa, sb) in enumerate(zip(a['steps'], b['steps'])):
+            for k in DP_METRICS:
+                e = float(np.abs(np.subtract(sb[k], sa[k])).max())
+                check(e <= (1e-3 if i and 'iou' in k else 1e-5),
+                      f'11a {name}: {k} of step {i + 1} off by {e}')
+                if 'iou' not in k:
+                    err = max(err, e)
+        moved = a['weights'] - a['weights0']
+        dw = float((b['weights'] - a['weights']).abs().max())
+        de = float((b['ema'] - a['ema']).abs().max())
+        rel = float((b['weights'] - b['weights0'] - moved).norm()
+                    / moved.norm())
+        check(torch.equal(a['weights0'], b['weights0']) and dw <= 1e-4
+              and de <= 1e-4 and rel <= 1e-2 and b['same'],
+              f'11a {name}: weights {dw}, EMA {de}, change {rel}, ranks '
+              f'alike {b["same"]}')
+        check(a['launches'] == b['launches'] == (0, 0, 0),
+              f'11a {name}: training launched {a["launches"]}, '
+              f'{b["launches"]}')
+        losses = [[s['loss'] for s in r['steps']] for r in (b, a)]
+        print(f'dp 11a {name}: world 2 x B=1 (gloo, CUDA tensors) vs world '
+              f'1 x B=2, fp32, 2 steps: losses {losses[0]} vs '
+              f'{losses[1]}, max loss/metric diff '
+              f'{err:.3g}, weights {dw:.3g}, EMA {de:.3g}, change '
+              f'{rel:.3g} of its norm; ranks alike; launches (0, 0, 0)')
+    print(f'dp 11a ok in {time.time() - t0:.1f} s')
+    return launches
+
+
+def phase_dp_cli(torch, root: str, data: str, pipeline_ms: float):
+    """11b: `tools.train.main(['--multihost', '--mesh', '1', '--zero1',
+    ...])` in this process over NCCL at world 1, on phase 10's tree at the
+    recipe shape (465x465, T=17, B=2, fp32, 4 steps, saves at 2 and 4),
+    then step_4 restored on the card. Reports the CLI's step beside phase
+    10's, the bytes and CUDA-event time of each all-reduce, and the moment
+    bytes a rank holds with ZeRO-1 and without. Returns (the launches
+    across training, the result directory)."""
+    from rmem_ocu_tpu_torch.config import get_config
+    from rmem_ocu_tpu_torch.models import build_vos_model
+    from rmem_ocu_tpu_torch.parallel import dist
+    from rmem_ocu_tpu_torch.parallel.tp import zero1_dim
+    from rmem_ocu_tpu_torch.tools import train as train_tool
+    from rmem_ocu_tpu_torch.train.trainer import Trainer
+    from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
+    t0 = time.time()
+    env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+               MASTER_ADDR='127.0.0.1', MASTER_PORT=str(free_port()))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    calls = []
+    real = dist.all_reduce_
+
+    def timed(tensors, world, mean=False):
+        tensors = list(tensors)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        real(tensors, world, mean)
+        end.record()
+        calls.append((sum(t.numel() * t.element_size() for t in tensors),
+                      start, end))
+    dist.all_reduce_ = timed
+    reset_counts()
+    try:
+        train_tool.main(['--multihost', '--mesh', '1', '--zero1', '--stage',
+                         'pre_vost_2', '--model', 'r50_deaotl', '--exp_name',
+                         'dp', '--datasets', 'vost', '--data_root', data,
+                         '--batch_size', '2', '--total_steps', '4',
+                         '--save_step', '2', '--log_step', '1'])
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce_ = real
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = read_counts()
+    check(launches == (0, 0, 0), f'11b: training launched {launches}')
+    result = get_config('pre_vost_2', 'dp', 'r50_deaotl').dir_result()
+    with open(os.path.join(result, 'metrics.jsonl')) as f:
+        rows = [json.loads(line) for line in f]
+    check([r['step'] for r in rows] == [1, 2, 3, 4] and all(
+        np.isfinite(r['loss']) for r in rows), f'11b: metrics rows {rows}')
+    for sub in ('ckpt', 'ema_ckpt'):
+        check(ckpt.list_checkpoint_steps(os.path.join(result, sub))
+              == [2, 4], f'11b: {sub} steps')
+    step_ms = [1e3 / r['it_per_s'] for r in rows[1:]]
+    sizes = {}
+    for n_bytes, start, end in calls:
+        sizes.setdefault(n_bytes, []).append(start.elapsed_time(end))
+
+    # step_4 restored on the card, into a trainer of one process
+    exp = get_config('pre_vost_2', 'dp', 'r50_deaotl')
+    trainer = Trainer(build_vos_model(exp.model, device='cuda', seed=3),
+                      exp)
+    state0 = trainer.init_state()
+    restored, step = ckpt.restore_checkpoint(
+        os.path.join(result, 'ckpt'), trainer.state_dict(state0))
+    back = trainer.state_dict(trainer.load_state_dict(restored))
+    check(step == 4 and back['step'] == 4 and all(
+        torch.equal(back[part][k], v) for part in ('state_dict', 'ema')
+        for k, v in restored[part].items()) and all(
+        torch.equal(back['opt_state'][m][k], v) for m in ('mu', 'nu')
+        for k, v in restored['opt_state'][m].items()),
+        '11b: ckpt/step_4 does not restore bitwise')
+    # the Adam moments' bytes on a rank: f32 mu and nu, each split over n
+    # ranks where zero1_dim finds a dimension
+    shapes = [v.shape for v in restored['opt_state']['mu'].values()]
+    held = {n: 2 * 4 * sum(
+        int(np.prod(s)) // (1 if zero1_dim(s, (), n) is None else n)
+        for s in shapes) for n in (1, 2, 4, 8)}
+    whole = 2 * 4 * sum(int(np.prod(s)) for s in shapes)
+    print(f'dp 11b train CLI --multihost --mesh 1 --zero1 (NCCL, world 1), '
+          f'r50_deaotl 465x465, T={exp.data_seq_len}, B=2, fp32: CLI step '
+          f'{statistics.median(step_ms):.1f} ms median of steps 2-4 '
+          f'({[round(x, 1) for x in step_ms]}) against phase 10\'s '
+          f'{pipeline_ms:.1f} ms; launches across training {launches}; '
+          f'losses {[round(r["loss"], 4) for r in rows]}')
+    print('dp 11b all-reduces (bytes, calls, median / max ms by CUDA '
+          'events): ' + '; '.join(
+              f'{b} B x{len(v)} {statistics.median(v):.3f} / {max(v):.3f}'
+              for b, v in sorted(sizes.items(), reverse=True)))
+    print(f'dp 11b Adam moments a rank holds: {whole / 2 ** 20:.1f} MB '
+          f'without ZeRO-1; with it (from the shapes) ' + ', '.join(
+              f'world {n}: {b / 2 ** 20:.1f} MB' for n, b in held.items())
+          + f'; step_4 restored bitwise on the card; ok in '
+            f'{time.time() - t0:.1f} s')
+    return launches, result
+
+
+def phase_dp_eval(torch, root: str, data: str, result: str, want):
+    """11c: the eval CLI of 11b's step_4 EMA over the val split in two
+    processes on the card (RANK 0 and 1, no group) and in this process.
+    Gates: the two ranks' masks together equal this process's, file for
+    file; their B1, B2, B3 launches sum to this process's and to phase
+    10's eval leg; print.log is rank 0's. Returns the ranks' launches."""
+    from PIL import Image
+    from rmem_ocu_tpu_torch.tools import eval as eval_tool
+    t0 = time.time()
+    argv = ['--stage', 'pre_vost_2', '--model', 'r50_deaotl', '--exp_name',
+            'dp', '--dataset', 'vost', '--data_root', data, '--ckpt_path',
+            os.path.join(result, 'ema_ckpt'), '--ckpt_step', '4',
+            '--output']
+    two, one = os.path.join(root, 'eval_two'), os.path.join(root, 'eval_one')
+    procs = spawn_ranks(2, [os.path.abspath(__file__), '--eval-worker',
+                            json.dumps(argv + [two])], cwd=os.getcwd())
+    try:
+        reset_counts()
+        eval_tool.main(argv + [one])
+        torch.cuda.synchronize()
+        mine = read_counts()
+    finally:
+        outs = wait_ranks(procs, 900)
+    ranks = [tuple(json.loads(line[len('COUNTS '):]))
+             for out in outs for line in out.splitlines()
+             if line.startswith('COUNTS ')]
+    total = tuple(sum(c) for c in zip(*ranks))
+    check(len(ranks) == 2 and total == mine == tuple(want),
+          f'11c: launches by rank {ranks}, one process {mine}, phase 10 '
+          f'{want}')
+    n_masks = 0
+    for seq in sorted(os.listdir(one)):
+        if not os.path.isdir(os.path.join(one, seq)):
+            continue
+        names = sorted(os.listdir(os.path.join(one, seq)))
+        check(names == sorted(os.listdir(os.path.join(two, seq))),
+              f'11c: masks of {seq}')
+        for name in names:
+            check(np.array_equal(
+                np.asarray(Image.open(os.path.join(one, seq, name))),
+                np.asarray(Image.open(os.path.join(two, seq, name)))),
+                f'11c: {seq}/{name} differs between 2 ranks and 1')
+            n_masks += 1
+    with open(os.path.join(two, 'print.log')) as f:
+        log = f.read()
+    check('[rank 0]' in log and '[rank 1]' not in log,
+          '11c: print.log is not rank 0\'s alone')
+    print(f'dp 11c eval CLI in 2 processes on the card (RANK 0 and 1): '
+          f'launches (B1, B2, B3) by rank {ranks}, sum {total} = one '
+          f'process = phase 10; {n_masks} masks equal file for file; ok in '
+          f'{time.time() - t0:.1f} s')
+    return total
 
 
 def print_resources(logs) -> None:
@@ -1845,8 +2196,20 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        counts['pipeline_eval'] = phase_pipeline(torch, tmp)
-    print(f'phase 10 done at {time.time() - t_start:.1f} s')
+        counts['pipeline_eval'], pipeline_ms = phase_pipeline(torch, tmp)
+        print(f'phase 10 done at {time.time() - t_start:.1f} s')
+        counts['dp_two_ranks'] = phase_dp_two_ranks(torch, tmp)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            counts['dp_cli'], result = phase_dp_cli(
+                torch, tmp, os.path.join(tmp, 'data'), pipeline_ms)
+            counts['dp_eval'] = phase_dp_eval(
+                torch, tmp, os.path.join(tmp, 'data'), result,
+                counts['pipeline_eval'])
+        finally:
+            os.chdir(cwd)
+    print(f'phase 11 done at {time.time() - t_start:.1f} s')
 
     kernels = []
     for name, src, replaces, row_name, idx, path in KERNELS:
@@ -1866,4 +2229,8 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dp-worker']:
+        sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ['--eval-worker']:
+        sys.exit(eval_worker(sys.argv[2]))
     sys.exit(main())

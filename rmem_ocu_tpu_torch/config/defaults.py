@@ -6,10 +6,15 @@ registry, every stage with its training recipe and the model overrides it
 makes, and the reload of a `config_to_dict` snapshot. Values are the
 reference's (aot_plus/configs), so the two packages agree field by field;
 the CPU tests hold them to that. The data, checkpoint and logging fields
-are read by the training data and the train CLI; the mesh fields and
-`train_zero1`, `train_spatial_sharding`, `train_encoder_chunk`,
-`train_scan_unroll` and the `dots` remat policies exist for XLA, and the
-port's training raises on any value but their default.
+are read by the training data and the train CLI. The mesh is read as a
+data-only mesh: `mesh_shape` (N,) over `mesh_axes` ('data',), N the
+number of processes (one per card, 1 meaning all of them), and
+`train_zero1` shards the optimizer's moments over them (parallel/tp.py).
+A `model` axis (tensor parallelism, ROADMAP item 15b) and
+`train_spatial_sharding` (item 15c) raise until ported;
+`train_encoder_chunk`, `train_scan_unroll` and the `dots` remat policies
+exist for XLA, and the port's training raises on any value but their
+default.
 """
 from __future__ import annotations
 
@@ -209,7 +214,8 @@ class ExpConfig:
     dir_root: str = './results'
 
     compute_dtype: str = 'float32'        # 'float32' | 'bfloat16'
-    # the JAX package's device mesh and sharding knobs (ROADMAP item 15)
+    # the device mesh: data-only in the port (a `model` axis waits for
+    # ROADMAP item 15b, spatial sharding for 15c)
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ('data',)
     train_spatial_sharding: bool = False

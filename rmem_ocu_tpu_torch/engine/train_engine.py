@@ -24,6 +24,13 @@ bf16 inside the loss, as the JAX package's `episode_loss` does: the model
 runs on the bf16 copies through `torch.func.functional_call`, the losses
 upcast to f32, and the gradients reach the f32 parameters in f32. (Not
 `torch.autocast`, which picks per op what runs in bf16.)
+
+Under data parallelism (`world`, parallel/dist.py) a rank's episode is its
+rows of the world's episode: its masks (ops/layers.py `noise_from`) and
+its id shuffle are its rows of what one process draws for the world's
+batch, and the trainable BatchNorm normalises by the world's moments. The
+loss and metrics stay this rank's; the trainer averages them and the
+gradients.
 """
 from __future__ import annotations
 
@@ -44,16 +51,15 @@ from rmem_ocu_tpu_torch.ops.masks import (generate_permute_matrix,
                                           unshuffle_logits)
 from rmem_ocu_tpu_torch.ops.position import interpolated_memory_pe
 from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
+from rmem_ocu_tpu_torch.parallel.dist import World
 from rmem_ocu_tpu_torch.utils.metric import batched_iou
 from rmem_ocu_tpu_torch.utils.precision import cast_floating
 
 UNUSED_ID_LOGIT = -1e10
 
-# knobs of the JAX package that exist for XLA and its device mesh; the
-# port raises on any value but the default rather than ignore them
-XLA_ONLY_DEFAULTS = (('train_scan_unroll', 1), ('train_encoder_chunk', 0),
-                     ('train_spatial_sharding', False),
-                     ('train_zero1', False))
+# knobs of the JAX package that exist for XLA; the port raises on any value
+# but the default rather than ignore them
+XLA_ONLY_DEFAULTS = (('train_scan_unroll', 1), ('train_encoder_chunk', 0))
 
 
 def check_port_knobs(exp: ExpConfig) -> None:
@@ -66,8 +72,18 @@ def check_port_knobs(exp: ExpConfig) -> None:
         if getattr(exp, name) != default:
             raise NotImplementedError(
                 f'{name}={getattr(exp, name)!r}: an XLA knob of the JAX '
-                f'package, not ported (ROADMAP item 15); leave it at '
-                f'{default!r}')
+                f'package, not ported; leave it at {default!r}')
+    # the port's mesh is data-parallel only: one process per card
+    if tuple(exp.mesh_axes) != ('data',) or len(exp.mesh_shape) != 1:
+        raise NotImplementedError(
+            f'mesh_axes={tuple(exp.mesh_axes)!r}, mesh_shape='
+            f'{tuple(exp.mesh_shape)!r}: tensor parallelism over a model '
+            f'axis waits for ROADMAP item 15b; the port takes a data-only '
+            f"mesh, mesh_axes=('data',)")
+    if exp.train_spatial_sharding:
+        raise NotImplementedError(
+            'train_spatial_sharding=True: spatial sharding (H-sharded '
+            'convolutions with halo exchange) waits for ROADMAP item 15c')
 
 
 def _new_seed(generator: Optional[torch.Generator]) -> int:
@@ -80,9 +96,11 @@ class TrainEngine:
     statistics to the caller: `episode_loss` returns them as
     aux['batch_stats'] and the trainer writes them back."""
 
-    def __init__(self, model: VOSModel, exp: ExpConfig):
+    def __init__(self, model: VOSModel, exp: ExpConfig,
+                 world: World = World()):
         check_port_knobs(exp)
         self.model = model
+        self.world = world
         self.cfg = model.cfg
         self.exp = exp
         self.gap = exp.train_long_term_mem_gap
@@ -92,6 +110,7 @@ class TrainEngine:
                     if isinstance(m, BatchNorm2d)}
         for m in self.bns.values():
             m.defer_stats = True
+            m.world = world
 
     @property
     def device(self) -> torch.device:
@@ -111,7 +130,7 @@ class TrainEngine:
             return nullcontext()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return noise_from(gen)
+        return noise_from(gen, self.world.rank, self.world.size)
 
     def _dims(self):
         """(key width, value width, the bank holds ID_V)."""
@@ -228,8 +247,12 @@ class TrainEngine:
         one_hot_all = one_hot_all.to(frames.dtype).reshape(
             b, t_total, h, w, -1)
         ignore_all = ignore_all.to(frames.dtype).reshape(b, t_total, h, w, 1)
-        shuffle = (generate_permute_matrix(cfg.max_obj_num + 1, b, generator,
-                                           dev)
+        # the world's permutations, one sample after another; this rank's
+        # rows of them
+        rank, world = self.world.rank, self.world.size
+        shuffle = (generate_permute_matrix(cfg.max_obj_num + 1, b * world,
+                                           generator, dev)[rank * b:
+                                                           (rank + 1) * b]
                    if enable_id_shuffle else None)
         self_pos = (None if cfg.vos == 'deaot' else
                     self.model.get_pos_emb(size_2d).to(dev, frames.dtype))

@@ -8,7 +8,11 @@ Train-time masks (dropout, drop-path, the channel dropout of DWConv2d) are
 drawn only in a module's training mode, from the generator that
 `noise_from` installs, or from torch's global generator outside it. The
 training engine installs a generator seeded per step inside each
-checkpointed function, so that a recompute draws the same masks.
+checkpointed function, so that a recompute draws the same masks. Under
+data parallelism it also installs the rank's block of the batch: each rank
+draws the masks of the whole world's batch, as one process would, and
+keeps its own rows, so that W ranks of B samples draw what one process of
+W*B samples draws.
 """
 from __future__ import annotations
 
@@ -20,32 +24,43 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rmem_ocu_tpu_torch.parallel.dist import World, all_reduce_sum
+
 EPS = 1e-5
 
 
 class _NoiseSource(threading.local):
     generator: Optional[torch.Generator] = None
+    rank: int = 0
+    world: int = 1
 
 
 _NOISE = _NoiseSource()
 
 
 @contextlib.contextmanager
-def noise_from(generator: Optional[torch.Generator]):
+def noise_from(generator: Optional[torch.Generator], rank: int = 0,
+               world: int = 1):
     """Draw the train-time masks of the enclosed calls from `generator`
-    (on the device of the tensors masked)."""
-    prev, _NOISE.generator = _NOISE.generator, generator
+    (on the device of the tensors masked), as rows rank*B:(rank+1)*B of
+    the world's batch of world*B (axis 0 of every mask is the batch, or a
+    batch-major flattening of it)."""
+    prev = _NOISE.generator, _NOISE.rank, _NOISE.world
+    _NOISE.generator, _NOISE.rank, _NOISE.world = generator, rank, world
     try:
         yield
     finally:
-        _NOISE.generator = prev
+        _NOISE.generator, _NOISE.rank, _NOISE.world = prev
 
 
 def keep_mask(shape, keep: float, like: torch.Tensor) -> torch.Tensor:
     """A {0, 1} mask in like's dtype and device, 1 with probability
-    `keep`."""
-    u = torch.rand(shape, generator=_NOISE.generator, device=like.device)
-    return (u < keep).to(like.dtype)
+    `keep`: this rank's rows of the world's draw."""
+    shape = tuple(shape)
+    n, rank = shape[0], _NOISE.rank
+    u = torch.rand((n * _NOISE.world,) + shape[1:],
+                   generator=_NOISE.generator, device=like.device)
+    return (u[rank * n:(rank + 1) * n] < keep).to(like.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -195,7 +210,15 @@ class BatchNorm2d(nn.Module):
     With `defer_stats` set (the training engine sets it) a training
     forward leaves the buffers alone and puts the new running statistics
     in `pending` (mean, var): a checkpointed encoder runs its forward
-    twice, and each run must start from the same statistics."""
+    twice, and each run must start from the same statistics.
+
+    With `world` set to a data-parallel World (the training engine sets
+    it) the batch moments are those of the world's batch, as the JAX
+    package's one program over a data mesh computes them (SyncBN): the
+    sum, then the squared deviations from the global mean, and the
+    element count, each summed over the ranks by a differentiable
+    all-reduce. Every rank runs the same reduces in the same order, the
+    recompute of a checkpointed encoder included."""
 
     def __init__(self, dim: int, epsilon: float = EPS,
                  momentum: float = 0.1):
@@ -208,18 +231,31 @@ class BatchNorm2d(nn.Module):
         self.register_buffer('running_var', torch.ones(dim))
         self.defer_stats = False
         self.pending: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.world: Optional[World] = None
+
+    def _moments(self, xf: torch.Tensor):
+        """(mean, biased var, n / (n - 1)) over the batch's n elements a
+        channel: this process's batch, or the world's."""
+        world = self.world or World()
+        # [sum of each channel, n] in one reduce; n stays on the device
+        sums = all_reduce_sum(torch.cat([
+            xf.sum(dim=(0, 2, 3)),
+            xf.new_full((1,), xf.numel() / xf.shape[1])]), world)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        sq = (xf - mean[:, None, None]).square().sum(dim=(0, 2, 3))
+        return (mean, all_reduce_sum(sq, world) / n,
+                (n / (n - 1).clamp_min(1)).detach())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
-            n = x.numel() / x.shape[1]
+            mean, var, unbias = self._moments(xf)
             m = self.momentum
             with torch.no_grad():
                 new = ((1 - m) * self.running_mean.float() + m * mean,
                        (1 - m) * self.running_var.float()
-                       + m * var * n / max(n - 1, 1))
+                       + m * var * unbias)
                 if self.defer_stats:
                     self.pending = new
                 else:

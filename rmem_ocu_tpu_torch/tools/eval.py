@@ -4,10 +4,20 @@ Counterpart of the JAX package's `tools/eval.py` (reference
 aot_plus/tools/eval.py): the same arguments and the same output layout,
 plus `--device`. Runs on the card unless `--device cpu` is given.
 
-Example:
+Under torchrun (its `RANK`, `WORLD_SIZE` and `LOCAL_RANK`) each process
+evaluates every WORLD_SIZE-th sequence from its RANK-th on
+`cuda:LOCAL_RANK`, as the JAX CLI splits them by `jax.process_index()`
+(its tools/eval.py:215, 255-257); the ranks need no process group. Rank 0
+writes print.log. Model-parallel serving (`--mesh M`) waits for ROADMAP
+item 15b.
+
+Examples:
     python -m rmem_ocu_tpu_torch.tools.eval --stage pre_vost_2 \
         --model r50_deaotl --dataset vost --data_root ./datasets/VOST \
         --ckpt_path model.pth
+    torchrun --nproc_per_node 8 -m rmem_ocu_tpu_torch.tools.eval \
+        --stage pre_vost_2 --model r50_deaotl --dataset vost \
+        --data_root ./datasets/VOST --ckpt_path model.pth
 
 Checkpoints: a reference `.pth`, or the `step_<N>` directories that the
 port's train CLI writes (`ckpt/`, `ema_ckpt/`).
@@ -21,7 +31,7 @@ from dataclasses import replace
 from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
 
 
-def parse_args():
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description='Evaluate VOS (PyTorch port)')
     p.add_argument('--exp_name', type=str, default='default')
     p.add_argument('--stage', type=str, default='pre_vost_2')
@@ -86,23 +96,31 @@ def parse_args():
                    help='ignore the training config.json snapshot '
                         '(reference eval.py:97-102 prefers the snapshot)')
     p.add_argument('--mesh', type=int, default=0,
-                   help='model-parallel serving over N devices; the port '
-                        'runs on one device (0/1)')
+                   help='model-parallel serving over N devices; waits for '
+                        'ROADMAP item 15b (0/1). Sequences split over '
+                        'torchrun\'s processes without it')
     p.add_argument('--device', type=str, default=None,
                    help="torch device; the card by default, 'cpu' only "
                         'when asked')
-    return p.parse_args()
+    return p.parse_args(argv)
 
 
-def main():
-    args = parse_args()
+def main(argv=None):
+    args = parse_args(argv)
     import torch
     from rmem_ocu_tpu_torch.config import get_config
     from rmem_ocu_tpu_torch.models import build_vos_model
+    from rmem_ocu_tpu_torch.parallel.dist import env_rank_and_size
 
     if args.mesh and args.mesh > 1:
-        raise SystemExit(f'--mesh {args.mesh}: model-parallel serving is '
-                         f'not ported yet (ROADMAP item 15)')
+        raise SystemExit(f'--mesh {args.mesh}: model-parallel serving '
+                         f'waits for ROADMAP item 15b; to split the '
+                         f'sequences over N cards run torchrun '
+                         f'--nproc_per_node N -m rmem_ocu_tpu_torch.tools.'
+                         f'eval ... without --mesh')
+    rank, world, local_rank = env_rank_and_size()
+    if args.device is None and world > 1:
+        args.device = f'cuda:{local_rank}'
     exp = get_config(args.stage, args.exp_name, args.model)
     # prefer the training run's saved config snapshot, like the reference
     # (tools/eval.py:97-102 re-imports result_path/config.py)
@@ -156,11 +174,12 @@ def main():
             else '480p')
     os.makedirs(output, exist_ok=True)
     from rmem_ocu_tpu_torch.utils.run_utils import Tee
-    tee = Tee(os.path.join(output, 'print.log'))
+    tee = Tee(os.path.join(output, 'print.log')) if rank == 0 else None
     try:
-        _evaluate(args, exp, model, output)
+        _evaluate(args, exp, model, output, rank, world)
     finally:
-        tee.close()
+        if tee is not None:
+            tee.close()
 
 
 def load_checkpoint(args, exp, model) -> None:
@@ -212,7 +231,7 @@ def load_checkpoint(args, exp, model) -> None:
     print(f'loaded {which} from step {step} ({ckpt_path})')
 
 
-def _evaluate(args, exp, model, output):
+def _evaluate(args, exp, model, output, rank=0, world=1):
     from rmem_ocu_tpu_torch.data import eval_datasets as ds
     from rmem_ocu_tpu_torch.eval.evaluator import Evaluator
     cfg = exp.model
@@ -253,8 +272,8 @@ def _evaluate(args, exp, model, output):
     else:
         dataset = ds.build_synthetic_dataset(num_seqs=2)
 
-    ev = Evaluator(model, exp, output, frame_log=args.frame_log,
-                   probe=args.probe)
+    ev = Evaluator(model, exp, output, rank=rank, world=world,
+                   frame_log=args.frame_log, probe=args.probe)
     stats = ev.evaluate(dataset)
     print(f'done: {stats.total_frames} frames, '
           f'p50 {stats.p50_latency_ms:.1f}ms, '

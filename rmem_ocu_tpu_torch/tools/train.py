@@ -4,12 +4,25 @@ Counterpart of the JAX package's `tools/train.py` (reference
 aot_plus/tools/train.py): the same arguments, the same result directory
 (`print.log`, `code_snapshot/`, `config.json`, `metrics.jsonl`, `ckpt/`
 and `ema_ckpt/` of `step_<N>` checkpoints), plus `--device`. One process
-trains on one device, the card unless `--device cpu` is given; the device
-mesh, ZeRO-1 and multi-host training wait for ROADMAP item 15.
+trains on one device, the card unless `--device cpu` is given.
 
-Example:
+Data-parallel training runs one process per card under torchrun, with
+`--multihost --mesh N` (N the number of processes) and, optionally,
+`--zero1`. One port process stands for one JAX host with one device:
+`--batch_size` is per process, as `per_host_batch` is in the JAX CLI, and
+rank r trains on the samples that host r of a JAX run of the same world
+sees. The JAX CLI's `--mesh D` in one process over D local chips has no
+exact counterpart here, because torch runs one process per card. Rank 0
+writes print.log, config.json, metrics.jsonl, the code snapshot, the
+TensorBoard logs and the checkpoints; every rank logs the world's loss.
+Tensor parallelism (`--mesh DxM`) waits for ROADMAP item 15b.
+
+Examples:
     python -m rmem_ocu_tpu_torch.tools.train --stage pre_vost \
         --model r50_deaotl --exp_name rmem --batch_size 8
+    torchrun --nproc_per_node 8 -m rmem_ocu_tpu_torch.tools.train \
+        --multihost --mesh 8 --zero1 --stage pre_vost --model r50_deaotl \
+        --exp_name rmem --batch_size 1
 """
 from __future__ import annotations
 
@@ -29,6 +42,8 @@ from rmem_ocu_tpu_torch.data.train_datasets import (TrainDataLoader,
 from rmem_ocu_tpu_torch.engine.train_engine import check_port_knobs
 from rmem_ocu_tpu_torch.models import build_vos_model
 from rmem_ocu_tpu_torch.ops.masks import label2colormap
+from rmem_ocu_tpu_torch.parallel import dist
+from rmem_ocu_tpu_torch.parallel.dist import World
 from rmem_ocu_tpu_torch.train.trainer import Trainer
 from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
 from rmem_ocu_tpu_torch.utils.device import resolve_device
@@ -40,7 +55,9 @@ def parse_args(argv=None):
     p.add_argument('--exp_name', type=str, default='default')
     p.add_argument('--stage', type=str, default='pre_vost')
     p.add_argument('--model', type=str, default='r50_deaotl')
-    p.add_argument('--batch_size', type=int, default=None)
+    p.add_argument('--batch_size', type=int, default=None,
+                   help='samples a step in each process (per card, as the '
+                        "JAX CLI's per-host batch)")
     p.add_argument('--total_steps', type=int, default=None)
     p.add_argument('--lr', type=float, default=None)
     p.add_argument('--datasets', nargs='+', default=None)
@@ -76,12 +93,18 @@ def parse_args(argv=None):
                         '(reference trainer.py:687-804); needs '
                         'tensorboardX')
     p.add_argument('--mesh', type=str, default=None,
-                   help='device mesh as DATAxMODEL; the port trains on one '
-                        'device (1), the mesh waits for ROADMAP item 15')
+                   help='data-parallel processes N, one per card, launched '
+                        'by torchrun with --multihost; it must equal '
+                        "torchrun's world size. DATAxMODEL (tensor "
+                        'parallelism) waits for ROADMAP item 15b')
     p.add_argument('--zero1', action='store_true',
-                   help='ZeRO stage 1; waits for ROADMAP item 15')
+                   help="ZeRO stage 1: the optimizer's moments sharded over "
+                        'the data-parallel processes')
     p.add_argument('--multihost', action='store_true',
-                   help='one process per host; waits for ROADMAP item 15')
+                   help="form the process group from torchrun's "
+                        'environment (RANK, WORLD_SIZE, LOCAL_RANK, '
+                        'MASTER_ADDR, MASTER_PORT); each process trains on '
+                        'cuda:LOCAL_RANK')
     p.add_argument('--amp', action='store_true',
                    help='mixed-precision training: bf16 forward/backward, '
                         'fp32 params/optimizer (reference --amp autocast + '
@@ -103,13 +126,14 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _fix_random() -> int:
+def _fix_random(rank: int) -> int:
     """The determinism harness of the JAX CLI (tools/train.py:127-146, after
-    the reference's tools/train.py:20-37) on rank 0: python and numpy take
-    seeds from 1 << rank, and the run's --seed becomes 4."""
+    the reference's tools/train.py:20-37): python and numpy take seeds from
+    1 << rank, and the run's --seed becomes 4 on every rank (the initial
+    weights and the loader's permutation must be the same on all)."""
     import random
-    seed = 1 << 0
-    print(f'[0] fix random seed {seed}')
+    seed = 1 << rank
+    print(f'[{rank}] fix random seed {seed}')
     os.environ['PYTHONHASHSEED'] = str(seed)
     random.seed(seed + 1)
     np.random.seed(seed + 2)
@@ -188,51 +212,91 @@ def metrics_row(step: int, metrics: dict, it_per_s: float) -> dict:
     return row
 
 
+def _data_parallel_size(args) -> int:
+    """The number of processes --mesh and --multihost ask for, checked
+    against torchrun's world before any group forms: exits with the
+    torchrun line to use."""
+    module = 'rmem_ocu_tpu_torch.tools.train'
+    world = dist.env_rank_and_size()[1]
+    if args.mesh and 'x' in args.mesh.lower():
+        raise SystemExit(
+            f'--mesh {args.mesh}: the port\'s mesh is data-parallel only '
+            f'(--mesh N, one process per card); tensor parallelism over a '
+            f'model axis waits for ROADMAP item 15b')
+    n = int(args.mesh) if args.mesh else (world if args.multihost else 1)
+    if not args.multihost:
+        if n > 1 or world > 1:
+            raise SystemExit(
+                f'--mesh {n} in {world} process(es) without --multihost: '
+                f'data-parallel training (ROADMAP item 15a) runs one '
+                f'process per card, e.g. '
+                f'{dist.torchrun_line(max(n, world), module)}')
+        return 1
+    if 'WORLD_SIZE' not in os.environ or n != world:
+        raise SystemExit(
+            f'--multihost --mesh {n}: torchrun\'s world size is '
+            f'{os.environ.get("WORLD_SIZE", "unset")}; data-parallel '
+            f'training (ROADMAP item 15a) runs one process per card: '
+            f'{dist.torchrun_line(n, module)}')
+    return n
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh and any(int(d) != 1 for d in args.mesh.lower().split('x')):
-        raise SystemExit(f'--mesh {args.mesh}: the port trains on one '
-                         f'device; the mesh waits for ROADMAP item 15')
-    if args.zero1 or args.multihost:
-        raise SystemExit('--zero1 and --multihost wait for ROADMAP item 15 '
-                         '(multi-GPU); the port trains on one device')
-    if args.fix_random:
-        args.seed = _fix_random()
+    n_proc = _data_parallel_size(args)
     exp = _exp_from_args(args)
+    if args.mesh:
+        exp = replace(exp, mesh_shape=(n_proc,), mesh_axes=('data',))
+    if args.zero1:
+        exp = replace(exp, train_zero1=True)
     check_port_knobs(exp)
-    device = resolve_device(args.device)
-
-    result_dir = exp.dir_result()
-    for sub in ('ckpt', 'ema_ckpt'):
-        os.makedirs(os.path.join(result_dir, sub), exist_ok=True)
-    # stdout tee + source snapshot (reference tools/train.py:40-41, 78-79)
-    # and the reloadable config snapshot (reference cfg.save_self())
-    tee = Tee(os.path.join(result_dir, 'print.log'))
+    world = (dist.init_from_env(args.device) if args.multihost
+             else World(device=resolve_device(args.device)))
     try:
-        copy_codes(result_dir)
-        with open(os.path.join(result_dir, 'config.json'), 'w') as f:
-            json.dump(config_to_dict(exp), f, indent=2)
-        _train(args, exp, device, result_dir)
+        if args.fix_random:
+            args.seed = _fix_random(world.rank)
+        result_dir = exp.dir_result()
+        for sub in ('ckpt', 'ema_ckpt'):
+            os.makedirs(os.path.join(result_dir, sub), exist_ok=True)
+        # stdout tee + source snapshot (reference tools/train.py:40-41,
+        # 78-79) and the reloadable config snapshot (reference
+        # cfg.save_self()), on rank 0 only
+        tee = (Tee(os.path.join(result_dir, 'print.log')) if world.is_main
+               else None)
+        try:
+            if world.is_main:
+                copy_codes(result_dir)
+                with open(os.path.join(result_dir, 'config.json'),
+                          'w') as f:
+                    json.dump(config_to_dict(exp), f, indent=2)
+            _train(args, exp, world, result_dir)
+        finally:
+            if tee is not None:
+                tee.close()
     finally:
-        tee.close()
+        dist.destroy(world)
 
 
-def _train(args, exp, device, result_dir):
+def _train(args, exp, world, result_dir):
+    device = world.device
     ckpt_dir = os.path.join(result_dir, 'ckpt')
     ema_dir = os.path.join(result_dir, 'ema_ckpt')
     loader = TrainDataLoader(build_train_dataset(exp), exp.train_batch_size,
-                             seed=args.seed, num_workers=exp.data_workers)
+                             seed=args.seed, rank=world.rank,
+                             world=world.size, num_workers=exp.data_workers)
     data_iter = iter(loader)
     batch = next(data_iter)
 
     # the model's init draws from --seed, the episodes' randomness from
-    # --seed + 1 (the JAX CLI's PRNGKey(seed) and PRNGKey(seed + 1))
+    # --seed + 1 (the JAX CLI's PRNGKey(seed) and PRNGKey(seed + 1)), the
+    # same on every rank; init_state broadcasts rank 0's weights all the
+    # same
     model = build_vos_model(exp.model, device=device, seed=args.seed,
                             exp=exp)
-    trainer = Trainer(model, exp)
+    trainer = Trainer(model, exp, world)
     state = trainer.init_state()
 
-    # pretrained / resume (reference trainer.py:186-284)
+    # pretrained / resume (reference trainer.py:186-284), on every rank
     restored, step0 = (ckpt.restore_checkpoint(ckpt_dir,
                                                trainer.state_dict(state))
                        if exp.train_auto_resume else (None, None))
@@ -253,7 +317,7 @@ def _train(args, exp, device, result_dir):
     generator = torch.Generator().manual_seed(args.seed + 1)
     metrics_path = os.path.join(result_dir, 'metrics.jsonl')
     tb = None
-    if exp.train_tblog:
+    if exp.train_tblog and world.is_main:
         # reference trainer.py:181-184 (tensorboardX SummaryWriter)
         from tensorboardX import SummaryWriter
         tb = SummaryWriter(os.path.join(result_dir, 'tblogs'))
@@ -276,8 +340,9 @@ def _train(args, exp, device, result_dir):
                   f'loss {row["loss"]:.4f} iou {row["iou"]:.1f} '
                   f'lr {row["lr"]:.2e} ({row["it_per_s"]:.2f} it/s)',
                   flush=True)
-            with open(metrics_path, 'a') as f:
-                f.write(json.dumps(row) + '\n')
+            if world.is_main:
+                with open(metrics_path, 'a') as f:
+                    f.write(json.dumps(row) + '\n')
             if tb is not None:
                 # scalar logging (reference trainer.py:763-775)
                 for k in ('loss', 'aux_loss', 'pred_loss', 'iou', 'lr',
@@ -288,12 +353,14 @@ def _train(args, exp, device, result_dir):
         if tb is not None and step % exp.train_img_log_step == 0:
             _tb_log_images(tb, step, batch_used, metrics)
         if step % exp.train_save_step == 0:
+            # collective: every rank gathers and saves, rank 0 writes
             ckpt.save_checkpoint(ckpt_dir, step, trainer.state_dict(state),
-                                 exp.train_max_keep_ckpt)
+                                 exp.train_max_keep_ckpt, world=world)
             # EMA weights in a parallel dir (reference trainer.py:659-676)
             ckpt.save_checkpoint(ema_dir, step, {'state_dict': state.ema},
-                                 exp.train_max_keep_ckpt)
-            print(f'saved step {step}')
+                                 exp.train_max_keep_ckpt, world=world)
+            if world.is_main:
+                print(f'saved step {step}')
     if tb is not None:
         tb.close()
 

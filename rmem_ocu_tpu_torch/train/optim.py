@@ -9,6 +9,12 @@ SGD adds L2 decay to the gradient before Nesterov momentum. Global-norm
 clipping and the Adam and EMA arithmetic follow optax's formulas (f32
 scalars), so that one step matches the JAX package's; torch's
 `clip_grad_norm_` adds 1e-6 to the norm and would not.
+
+The optimizer's arithmetic is elementwise, so `init_opt_state`,
+`adam_update` and `sgd_update` work on a ZeRO-1 slice of each tensor
+(parallel/tp.py) as on the whole; the clip comes before them, on the whole
+gradients, which under data parallelism are already averaged over the
+ranks.
 """
 from __future__ import annotations
 
@@ -165,7 +171,8 @@ def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
 
 
 def init_opt_state(params: Tensors, exp) -> dict:
-    """Zero moments (AdamW) or zero momentum trace (SGD) per parameter."""
+    """Zero moments (AdamW) or zero momentum trace (SGD) per parameter (or
+    per slice of one)."""
     zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
     if exp.train_opt == 'sgd':
         return {'trace': zeros()}
@@ -190,10 +197,9 @@ def adam_update(grads: Tensors, state: dict) -> Tuple[Tensors, dict]:
 def sgd_update(grads: Tensors, state: dict, params: Tensors,
                masks: ParamMasks, exp) -> Tuple[Tensors, dict]:
     """The JAX package's SGD chain (reference trainer.py:155-161, torch SGD
-    semantics): clip the raw gradients, add L2 decay where the decay
-    coefficient is positive, then Nesterov momentum
-    (trace = g + m * trace; update = g + m * trace)."""
-    grads = clip_by_global_norm(grads, exp.train_clip_grad_norm)
+    semantics) after its clip, which the caller applies to the whole
+    gradients: add L2 decay where the decay coefficient is positive, then
+    Nesterov momentum (trace = g + m * trace; update = g + m * trace)."""
     m = exp.train_sgd_momentum
     grads = {k: g + exp.train_weight_decay * params[k] if masks.wd[k] > 0.0
              else g for k, g in grads.items()}

@@ -1,14 +1,26 @@
-"""The train step on one device.
+"""The train step, on one device or data-parallel over processes.
 
 Counterpart of the JAX package's `train/trainer.py` (reference
-aot_plus/networks/managers/trainer.py) without its mesh: one step takes the
-episode loss and its gradients (engine/train_engine.py), zeroes the frozen
-parameters' gradients, clips by the global norm over the trainable ones,
-updates with AdamW (or SGD) at the scheduled learning rate, writes the
-trainable BatchNorm statistics back and moves the EMA. The model holds the
+aot_plus/networks/managers/trainer.py): one step takes the episode loss
+and its gradients (engine/train_engine.py), zeroes the frozen parameters'
+gradients, clips by the global norm over the trainable ones, updates with
+AdamW (or SGD) at the scheduled learning rate, writes the trainable
+BatchNorm statistics back and moves the EMA. The model holds the
 parameters; `TrainState` holds the optimizer state, the EMA of every
 floating parameter and buffer, and the step counters. Frozen parameters
 are `requires_grad=False` during the step, as the reference freezes them.
+
+Data-parallel (`world`, parallel/dist.py), the step is the JAX package's
+one program over a `data` mesh (its :78-110, :214-245), run as one process
+per card: each rank takes its rows of the world's batch, the gradients are
+averaged over the ranks by one all-reduce of a flat buffer after the
+backward (not torch's DistributedDataParallel, whose bucket hooks would
+meet the non-reentrant checkpoint and the frozen parameters), and the
+metrics by another. With `train_zero1` each rank keeps and updates its
+ZeRO-1 slice of the optimizer's moments (parallel/tp.py) and the slices
+of the update are gathered. Every rank then holds the same parameters.
+The loss is a mean over samples, so with equal batches on every rank the
+mean over the ranks is the world's mean.
 """
 from __future__ import annotations
 
@@ -20,7 +32,15 @@ import torch
 from rmem_ocu_tpu_torch.config import ExpConfig
 from rmem_ocu_tpu_torch.engine.train_engine import TrainEngine
 from rmem_ocu_tpu_torch.models.vos_model import VOSModel
+from rmem_ocu_tpu_torch.parallel import dist
+from rmem_ocu_tpu_torch.parallel.dist import World
+from rmem_ocu_tpu_torch.parallel.tp import OPT_MOMENTS, Zero1
 from rmem_ocu_tpu_torch.train import optim
+
+# the metrics that are means over the samples of the batch; iou and
+# frame_ious are means over the samples that hold an object
+MEAN_METRICS = ('loss', 'aux_loss', 'pred_loss', 'frame_losses', 'var_loss')
+IOU_METRICS = ('iou', 'frame_ious')
 
 
 @dataclass
@@ -32,13 +52,25 @@ class TrainState:
 
 
 class Trainer:
-    def __init__(self, model: VOSModel, exp: ExpConfig):
+    def __init__(self, model: VOSModel, exp: ExpConfig,
+                 world: World = World()):
         self.model = model
         self.exp = exp
-        self.engine = TrainEngine(model, exp)
+        self.world = world
+        self.engine = TrainEngine(model, exp, world)
         self.ema_decay = 1.0 - 1.0 / (exp.train_total_steps
                                       * exp.train_ema_ratio)
         self._masks = {}
+        mesh = exp.mesh_shape[0]
+        if mesh not in (1, world.size):
+            raise ValueError(f'mesh_shape={tuple(exp.mesh_shape)} but the '
+                             f'world has {world.size} processes')
+        # ZeRO-1 at one process keeps the moments whole (the JAX package's
+        # `zero1 and dp > 1`), but a process group of one still gathers
+        self.zero1 = (Zero1({k: p.shape for k, p in
+                             self._params().items()}, world)
+                      if exp.train_zero1 and world.group is not None
+                      else None)
 
     def _params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -53,11 +85,28 @@ class Trainer:
                 self._params(), self.exp, extra_frozen)
         return self._masks[extra_frozen]
 
+    def _shard(self, tensors: Dict[str, torch.Tensor]):
+        return tensors if self.zero1 is None else self.zero1.shard(tensors)
+
+    def _map_moments(self, opt_state: dict, fn) -> dict:
+        return {k: fn(v) if k in OPT_MOMENTS else v
+                for k, v in opt_state.items()}
+
+    def _broadcast_model(self, state: TrainState) -> None:
+        """Rank 0's weights, floating buffers and EMA on every rank (the
+        reference's DDP broadcast of the module, trainer.py:107-113)."""
+        dist.broadcast_([*self._floating_state().values(),
+                         *state.ema.values()], self.world)
+
     def init_state(self) -> TrainState:
+        """Zero optimizer state (this rank's slices under ZeRO-1) and the
+        EMA at the model's weights, after rank 0's model is broadcast."""
         with torch.no_grad():
+            dist.broadcast_(self._floating_state().values(), self.world)
             params = {k: p.detach() for k, p in self._params().items()}
             return TrainState(
-                opt_state=optim.init_opt_state(params, self.exp),
+                opt_state=optim.init_opt_state(self._shard(params),
+                                               self.exp),
                 ema={k: v.detach().clone()
                      for k, v in self._floating_state().items()})
 
@@ -69,30 +118,65 @@ class Trainer:
 
     def state_dict(self, state: TrainState) -> dict:
         """The checkpoint of the model and `state`: tensors and plain
-        containers only, the model's weights under the reference keys."""
+        containers only, the model's weights under the reference keys, the
+        optimizer's moments whole whatever the world (collective under
+        ZeRO-1: every rank calls it)."""
+        opt_state = state.opt_state
+        if self.zero1 is not None:
+            opt_state = self._map_moments(opt_state, self.zero1.gather)
         return {'state_dict': self.model.state_dict(),
-                'opt_state': state.opt_state, 'ema': state.ema,
+                'opt_state': opt_state, 'ema': state.ema,
                 'step': state.step, 'ema_updates': state.ema_updates}
 
     def load_state_dict(self, ckpt: dict) -> TrainState:
-        """Load a `state_dict` checkpoint into the model (strictly) and
-        return its TrainState. Restore the checkpoint onto the model's
-        device first (`restore_checkpoint(root, target=...)`)."""
+        """Load a `state_dict` checkpoint, of any world, into the model
+        (strictly) and return its TrainState with this rank's slices of
+        the moments. Restore the checkpoint onto the model's device first
+        (`restore_checkpoint(root, target=...)`); every rank calls it."""
         self.model.load_state_dict(ckpt['state_dict'], strict=True)
-        return TrainState(opt_state=ckpt['opt_state'], ema=ckpt['ema'],
-                          step=int(ckpt['step']),
-                          ema_updates=int(ckpt['ema_updates']))
+        opt_state = ckpt['opt_state']
+        if self.zero1 is not None:
+            opt_state = self._map_moments(opt_state, lambda m: {
+                k: v.clone() for k, v in self.zero1.shard(m).items()})
+        state = TrainState(opt_state=opt_state, ema=ckpt['ema'],
+                           step=int(ckpt['step']),
+                           ema_updates=int(ckpt['ema_updates']))
+        with torch.no_grad():
+            self._broadcast_model(state)
+        return state
+
+    def _reduce_metrics(self, metrics: dict, obj_nums: torch.Tensor
+                        ) -> None:
+        """The world's means in place of this rank's: one all-reduce.
+        The ious weigh each rank by its samples that hold an object."""
+        world = self.world
+        if world.group is None:
+            return
+        has = (obj_nums > 0).sum().to(torch.float32)
+        names = [k for k in MEAN_METRICS + IOU_METRICS if k in metrics]
+        flat = torch.cat([
+            (metrics[k].float() * (has if k in IOU_METRICS else 1.0)
+             ).reshape(-1) for k in names] + [has.reshape(1)])
+        dist.all_reduce_([flat], world)
+        total = flat[-1]
+        parts = flat[:-1].split([metrics[k].numel() for k in names])
+        for k, part in zip(names, parts):
+            value = (torch.where(total > 0, part / total.clamp_min(1), 1.0)
+                     if k in IOU_METRICS else part / world.size)
+            metrics[k] = value.reshape(metrics[k].shape)
 
     def train_step(self, state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, dict]:
-        """batch: frames [B, T, H, W, 3], masks [B, T, H, W], obj_nums [B].
-        From train_seq_training_start_ratio of training on, the memory
-        takes the previous prediction and the seq-training parameters
-        (the id bank) freeze (reference trainer.py:469-474). The masks'
-        randomness comes from `generator`. Returns (new state, metrics:
-        loss, aux_loss, pred_loss, iou, frame_losses, frame_ious, lr,
-        grad_norm, pred_mask, and var_loss for TopDown)."""
+        """batch: frames [B, T, H, W, 3], masks [B, T, H, W], obj_nums [B]
+        (this rank's rows of the world's batch). From
+        train_seq_training_start_ratio of training on, the memory takes
+        the previous prediction and the seq-training parameters (the id
+        bank) freeze (reference trainer.py:469-474). The masks' randomness
+        comes from `generator` (seeded alike on every rank). Returns (new
+        state, metrics: loss, aux_loss, pred_loss, iou, frame_losses,
+        frame_ious, lr, grad_norm, pred_mask, and var_loss for TopDown;
+        the world's means, except pred_mask, this rank's)."""
         exp = self.exp
         use_prev_pred = (state.step >= exp.train_seq_training_start_ratio
                          * exp.train_total_steps)
@@ -115,23 +199,29 @@ class Trainer:
             grads = {k: (torch.zeros_like(p) if masks.frozen[k]
                          or p.grad is None else p.grad)
                      for k, p in params.items()}
+            dist.all_reduce_([g for k, g in grads.items()
+                              if not masks.frozen[k]], self.world,
+                             mean=True)
             grad_norm = optim.global_norm(grads)
             now_lr = optim.schedule_lr(state.step, exp)
             current = {k: p.detach() for k, p in params.items()}
+            clipped = optim.clip_by_global_norm(grads,
+                                                exp.train_clip_grad_norm)
             if exp.train_opt == 'sgd':
                 updates, opt_state = optim.sgd_update(
-                    grads, state.opt_state, current, masks, exp)
+                    self._shard(clipped), state.opt_state,
+                    self._shard(current), masks, exp)
             else:
                 updates, opt_state = optim.adam_update(
-                    optim.clip_by_global_norm(grads,
-                                              exp.train_clip_grad_norm),
-                    state.opt_state)
+                    self._shard(clipped), state.opt_state)
+            if self.zero1 is not None:
+                updates = self.zero1.gather(updates)
             new = optim.apply_updates(current, updates, masks, now_lr, exp)
             for k, p in params.items():
                 p.copy_(new[k])
                 p.grad = None
-            # the trainable BN statistics of the episode, stored at the
-            # buffers' f32
+            # the trainable BN statistics of the episode (the world's
+            # under data parallelism), stored at the buffers' f32
             for name, (mean, var) in aux.pop('batch_stats', {}).items():
                 bn = self.model.get_submodule(name)
                 bn.running_mean.copy_(mean)
@@ -146,5 +236,6 @@ class Trainer:
             'grad_norm': grad_norm, 'pred_mask': aux['final_pred_mask']}
         if 'var_loss' in aux:
             metrics['var_loss'] = aux['var_loss'].detach()
+        self._reduce_metrics(metrics, batch['obj_nums'].to(loss.device))
         return TrainState(opt_state=opt_state, ema=ema, step=state.step + 1,
                           ema_updates=state.ema_updates + 1), metrics

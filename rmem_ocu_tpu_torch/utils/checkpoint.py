@@ -8,7 +8,14 @@ newest, with a retry into `<root>_backup` when the primary write fails
 :118-130). Each directory holds one torch file, written under a
 temporary name and renamed into place, and read with `weights_only=True`:
 a checkpoint holds tensors and plain containers only. The JAX package's
-Orbax directories are not read by the port. Saves are single-process.
+Orbax directories are not read by the port.
+
+Under data parallelism the save is collective, as the JAX package's is
+(:26-89): every rank calls it with the same state (the trainer's
+`state_dict` gathers ZeRO-1's slices), rank 0 writes and prunes, the ranks
+vote on whether the write failed and fall back to the backup root
+together, and they leave together. Every rank restores from the shared
+file system.
 
 The train CLI writes two kinds: `ckpt/` holds the whole train state
 (`Trainer.state_dict`), `ema_ckpt/` a bare `{'state_dict': ema}` that
@@ -23,6 +30,8 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from rmem_ocu_tpu_torch.parallel.dist import World, agree
 
 CKPT_FILE = 'state.pth'
 
@@ -56,29 +65,48 @@ def _write(root: str, step: int, state, max_keep: int) -> None:
                       ignore_errors=True)
 
 
+def _attempt(root: str, step: int, state, max_keep: int, world: World):
+    """Rank 0's write; the error it raised, or None."""
+    if not world.is_main:
+        return None
+    try:
+        _write(root, step, state, max_keep)
+    except (OSError, RuntimeError) as err:  # torch.save's writer raises
+        # RuntimeError when the disk fills
+        return err
+    return None
+
+
 def save_checkpoint(root: str, step: int, state, max_keep: int = 8,
-                    backup_root: Optional[str] = None) -> str:
+                    backup_root: Optional[str] = None,
+                    world: World = World()) -> str:
     """Save `state` (tensors and plain containers) at `root/step_<N>`;
-    prune to the `max_keep` newest steps.
+    prune to the `max_keep` newest steps. Collective: every rank of
+    `world` calls it, and rank 0 writes.
 
     If the primary write fails (full, read-only or flaky filesystem), the
     half-written primary `step_<N>` is removed and the save retries once
     into `backup_root` (default `<root>_backup`), so that one bad write
-    does not lose a long run's state. Raises only if the backup write
-    fails too. Returns the path written."""
-    try:
-        _write(root, step, state, max_keep)
+    does not lose a long run's state; the ranks agree on that before any
+    moves on. Raises, on every rank, only if the backup write fails too.
+    Returns the path written."""
+    err = _attempt(root, step, state, max_keep, world)
+    if not agree(err is not None, world):
         return step_path(root, step)
-    except (OSError, RuntimeError) as err:  # torch.save's writer raises
-        # RuntimeError when the disk fills
-        backup = backup_root or backup_root_for(root)
+    backup = backup_root or backup_root_for(root)
+    if world.is_main:
         print(f'save_checkpoint: primary write to {root!r} failed '
               f'({type(err).__name__}: {err}); retrying into {backup!r}')
         # a half-written primary step must not shadow the backup copy
         shutil.rmtree(os.path.dirname(step_path(root, step)),
                       ignore_errors=True)
-        _write(backup, step, state, max_keep)
-        return step_path(backup, step)
+    err = _attempt(backup, step, state, max_keep, world)
+    if agree(err is not None, world):
+        if err is not None:
+            raise err
+        raise RuntimeError(f'save_checkpoint: rank 0 failed to write step '
+                           f'{step} into {root!r} and {backup!r}')
+    return step_path(backup, step)
 
 
 def restore_checkpoint(root: str, target=None, step: Optional[int] = None

@@ -491,3 +491,40 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
         for k, v in saved['opt_state'][moment].items():
             assert back['opt_state'][moment][k].device.type == 'cuda'
             assert torch.equal(back['opt_state'][moment][k], v), k
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_the_card_step_as_one(tmp_path):
+    """Two processes on card 0, a gloo group over CUDA tensors (NCCL takes
+    one rank a card), one sample and half the ZeRO-1 moments each: one
+    AdamW step equals one process's on both samples (loss within 1e-5,
+    parameters and EMA within 1e-4, both ranks alike); no kernel runs."""
+    import json
+    import torch_dp_worker as worker
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    dev = _cuda()
+    case = dict(name='card', model='deaott', steps=1, batch=2, zero1=True)
+    spec = str(tmp_path / 'spec.json')
+    with open(spec, 'w') as f:
+        json.dump(dict(device='cuda:0', backend='gloo', timeout=300,
+                       out=str(tmp_path), cases=[case]), f)
+    procs = worker.spawn(2, [worker.__file__, spec], local_ranks=[0, 0])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    launches = lambda: (memory_read_fused.launches,
+                        local_window_attention.launches)
+    before = launches()
+    try:
+        one = worker.run_case(case, World(device=dev))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        worker.wait(procs, 600)
+    assert launches() == before
+    two = torch.load(worker.digest_path(str(tmp_path), 'card', 2))
+    assert two['same_on_ranks']
+    assert abs(two['steps'][0]['loss'] - one['steps'][0]['loss']) <= 1e-5
+    torch.testing.assert_close(two['weights'], one['weights'], rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(two['ema'], one['ema'], rtol=0, atol=1e-4)
+    whole, held = two['largest_moment']
+    assert held * 2 == whole

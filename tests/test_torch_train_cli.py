@@ -144,7 +144,8 @@ def test_resume_continues_bitwise(trained, tree):
 
 
 @pytest.mark.parametrize('flags,error', [
-    (['--mesh', '2x1'], 'item 15'), (['--zero1'], 'item 15'),
+    (['--mesh', '2x1'], 'item 15'),
+    (['--zero1', '--mesh', '2'], 'item 15'),
     (['--multihost'], 'item 15'), (['--enc_chunk', '2'], 'XLA knob'),
     (['--remat', 'dots'], 'XLA rematerialisation')])
 def test_train_refuses_what_the_port_lacks(flags, error):

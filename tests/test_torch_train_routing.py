@@ -150,7 +150,7 @@ def test_kernel_wrappers_refuse_autograd():
 @pytest.mark.parametrize('knob,value', [
     ('train_remat_policy', 'dots'), ('train_remat_policy', 'dots_k1024'),
     ('train_scan_unroll', 2), ('train_encoder_chunk', 2),
-    ('train_spatial_sharding', True), ('train_zero1', True)])
+    ('train_spatial_sharding', True), ('mesh_axes', ('data', 'model'))])
 def test_xla_only_knobs_raise(knob, value):
     exp = replace(get_config('pre_vost', model='deaott'), **{knob: value})
     model = build_vos_model(exp.model, device='cpu', exp=exp)

@@ -226,7 +226,9 @@ def test_optimizer_steps_match_jax(opt):
         jparams = joptim.apply_updates(jparams, updates, jmasks, lr, exp)
         jema = joptim.ema_update(jema, jparams, step + 1, decay)
         if opt == 'sgd':
-            upd, state = optim.sgd_update(grads, state, params, masks, exp)
+            upd, state = optim.sgd_update(
+                optim.clip_by_global_norm(grads, exp.train_clip_grad_norm),
+                state, params, masks, exp)
         else:
             upd, state = optim.adam_update(
                 optim.clip_by_global_norm(grads, exp.train_clip_grad_norm),
