@@ -76,8 +76,23 @@ Phases, each fatal on failure:
    saves at 2 and 4), step_4 restored bitwise: the CLI's step beside phase
    10's, each all-reduce's bytes and CUDA-event time, the moment bytes a
    rank holds; (c) the eval CLI of that EMA in two processes on the card
-   (`--eval-worker`, RANK 0 and 1): their masks together equal one
+   (`--cli-worker eval`, RANK 0 and 1): their masks together equal one
    process's file for file, and their launches sum to its and phase 10's.
+12. tensor parallelism over a model group of two: (a) each kernel at the
+   shard shapes a rank reads (B1 one head with V and ID_V 512/M wide, B1
+   with 8/M AOT heads, B3 two heads of 512/M, B2 1024/M; M = 2 and 4; B=1
+   and 8 on 23x40) against its plain version, with its share of the bound
+   beside the whole shape's; (b) two ranks on the card in child processes
+   (`--tp-worker`, gloo over CUDA tensors) serving `r50_deaotl`,
+   `r50_aotl` and Path A: fp32 at write gap 1 against this process
+   (eviction ids at every update, masks, launches a rank), then bf16 at 1
+   and 8 streams (the bank bytes a rank holds, the all-reduces a frame
+   and their bytes, the frame time); (c) `tools.eval --mesh 2` of 11b's
+   EMA in two processes, its masks against 11c's one process; (d) the
+   trainer 1 x 2 against 11a's one process (losses, weights, the first
+   step's gradients, the ranks alike, 0 launches), then `tools.train
+   --multihost --mesh 1x2 --zero1` for 11b's 4 steps against 11b, with
+   its step_2 restored at world 1.
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -206,12 +221,13 @@ def b1_library(torch, args, kw):
                           torch.cat(vs, -1), valid, heads, scale)
 
 
-def b3_case(torch, batch: int, dtype, seed: int):
+def b3_case(torch, batch: int, dtype, seed: int, e_dim: int = 512):
     """B3 inputs as the two-head DeAOT read gives them: D=128 per head, V
-    and ID_V 512 wide each (head 0 is V, head 1 ID_V), T=10 with a dead
-    slot in the middle, HWq = HWk = 920, the PE already on the keys."""
+    and ID_V e_dim wide each (512; head 0 is V, head 1 ID_V), T=10 with a
+    dead slot in the middle, HWq = HWk = 920, the PE already on the
+    keys."""
     g = torch.Generator(device='cuda').manual_seed(seed)
-    hw, t_cap, heads, d, e_dim = GRID[0] * GRID[1], 10, 2, 128, 512
+    hw, t_cap, heads, d = GRID[0] * GRID[1], 10, 2, 128
     rnd = lambda *s: torch.randn(*s, generator=g, device='cuda').to(dtype)
     q, k = rnd(batch, hw, heads * d), rnd(batch, t_cap, hw, heads * d)
     v, id_v = rnd(batch, t_cap, hw, e_dim), rnd(batch, t_cap, hw, e_dim)
@@ -227,11 +243,12 @@ def b3_case(torch, batch: int, dtype, seed: int):
     return (q, k, (v, id_v), valid, heads, d ** -0.5), n_bytes, n_flops
 
 
-def b2_case(torch, batch: int, dtype, seed: int, grid=GRID):
-    """B2 inputs of the DeAOT path: D=128, E=1024 (V||ID_V), on `grid`
-    (23x40 on the main path)."""
+def b2_case(torch, batch: int, dtype, seed: int, grid=GRID,
+            e_dim: int = 1024):
+    """B2 inputs of the DeAOT path: D=128, E=e_dim (1024, V||ID_V), on
+    `grid` (23x40 on the main path)."""
     g = torch.Generator(device='cuda').manual_seed(seed)
-    (h, w), d, e_dim, md = grid, 128, 1024, 7
+    (h, w), d, md = grid, 128, 7
     hw, ws2 = h * w, (2 * md + 1) ** 2
     rnd = lambda *s: torch.randn(*s, generator=g, device='cuda')
     q = (rnd(batch, hw, d) * d ** -0.5).to(dtype)
@@ -326,13 +343,122 @@ def kernel_row(torch, name, run, plain, library, n_bytes, n_flops, operands,
     return row
 
 
-def phase_kernels(torch):
-    from rmem_ocu_tpu_torch.ops.kernels.local_attn import (
-        local_window_attention, local_window_attention_plain)
+def b1_row(torch, name, batch, dtype, precise, tol, shape):
+    """One row of B1 against its plain version (the check, a sensitivity
+    check and the times); `shape` holds b1_case's keywords."""
     from rmem_ocu_tpu_torch.ops.kernels.memory_read import (
         memory_read_fused, memory_read_fused_plain)
+    args, kw, n_bytes, n_flops = b1_case(torch, batch, dtype, precise, 1,
+                                         **shape)
+    outs, mass = memory_read_fused(*args, **kw)
+    wants, pmass = memory_read_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, rms, ok = compare(outs, wants, **tol)
+    err_mass = max_err(mass, pmass)
+    check(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+          f'{name}: not finite')
+    check(ok and err_mass <= 1e-4,
+          f'{name}: max abs err {err} (rms {rms}, tol {tol}), mass '
+          f'{err_mass}')
+    # sensitivity: the plain output with live slot 3 dropped must fail
+    q, k, vs, valid, heads, scale = args
+    dropped = valid.clone()
+    dropped[:, 3] = False
+    drops, _ = memory_read_fused_plain(q, k, vs, dropped, heads, scale,
+                                       **kw)
+    d_err, _, d_ok = compare(drops, wants, **tol)
+    check(not d_ok, f'{name}: tolerance accepts a dropped slot '
+                    f'(max abs err {d_err})')
+    print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
+          f'output rms {rms:.4e}, tol {tol}; one live slot dropped gives '
+          f'{d_err:.3e} and is rejected')
+    if not precise:
+        print_split(torch, name, batch, heads, q.shape[1],
+                    q.shape[2] // heads,
+                    sum(v.shape[3] for v in vs) // heads, k.shape[1])
+    return kernel_row(
+        torch, name, lambda: memory_read_fused(*args, **kw),
+        lambda: memory_read_fused_plain(*args, **kw),
+        b1_library(torch, args, kw), n_bytes, n_flops,
+        'float32' if precise else 'bfloat16', max(err, err_mass))
+
+
+def b3_row(torch, name, batch, dtype, e_dim=512):
+    """One row of B3 against its plain version. f32 storage still
+    multiplies bf16 operands (the path never asks for precise), so every
+    row has the bf16 bar."""
     from rmem_ocu_tpu_torch.ops.kernels.memory_read_mh import (
         memory_read_multihead, memory_read_multihead_plain)
+    args, n_bytes, n_flops = b3_case(torch, batch, dtype, 3, e_dim)
+    out, mass = memory_read_multihead(*args)
+    want, pmass = memory_read_multihead_plain(*args)
+    torch.cuda.synchronize()
+    err, rms, ok = compare((out,), (want,), **BF16_TOL)
+    err_mass = max_err(mass, pmass)
+    check(out.dtype == torch.float32
+          and bool(torch.isfinite(out).all()), f'{name}: not finite f32')
+    check(ok and err_mass <= 1e-4,
+          f'{name}: max abs err {err} (rms {rms}, tol {BF16_TOL}), mass '
+          f'{err_mass}')
+    q, k, vs, valid, heads, scale = args
+    dropped = valid.clone()
+    dropped[:, 3] = False
+    drop, _ = memory_read_multihead_plain(q, k, vs, dropped, heads, scale)
+    d_err, _, d_ok = compare((drop,), (want,), **BF16_TOL)
+    check(not d_ok, f'{name}: tolerance accepts a dropped slot '
+                    f'(max abs err {d_err})')
+    print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
+          f'output rms {rms:.4e}, tol {BF16_TOL}; one live slot dropped '
+          f'gives {d_err:.3e} and is rejected')
+    print_split(torch, name, batch, heads, q.shape[1],
+                q.shape[2] // heads, 2 * vs[0].shape[3] // heads,
+                k.shape[1])
+    row = kernel_row(
+        torch, name, lambda: memory_read_multihead(*args),
+        lambda: memory_read_multihead_plain(*args),
+        sdpa_over_bank(q, k, torch.cat(vs, -1), valid, heads, scale),
+        n_bytes, n_flops, 'bfloat16', max(err, err_mass))
+    if batch == 1 and dtype == torch.bfloat16 and e_dim == 512:
+        # what the kernel's two-bank form saves: the reference
+        # concatenates V||ID_V before the read
+        print(f'kernel {name}: concatenating V||ID_V '
+              f'{tuple(vs[0].shape)} x2 would take '
+              f'{time_ms(torch, lambda: torch.cat(vs, -1)):.4f} ms')
+    return row
+
+
+def b2_row(torch, name, batch, dtype, tol, grid, e_dim=1024):
+    """One row of B2 against its plain version."""
+    from rmem_ocu_tpu_torch.ops.kernels.local_attn import (
+        local_window_attention, local_window_attention_plain)
+    args, n_bytes, n_flops = b2_case(torch, batch, dtype, 2, grid, e_dim)
+    out = local_window_attention(*args)
+    want = local_window_attention_plain(*args)
+    torch.cuda.synchronize()
+    err, rms, ok = compare((out,), (want,), **tol)
+    check(bool(torch.isfinite(out.float()).all()), f'{name}: not finite')
+    check(ok, f'{name}: max abs err {err} (rms {rms}, tol {tol})')
+    # sensitivity: the plain output without the key at offset (0, +1)
+    # (bias -1e9, so its weight is 0) must fail
+    q, k, v, rel, size_2d, md, precise = args
+    rel_drop = rel.clone()
+    rel_drop[..., md * (2 * md + 1) + md + 1] = -1e9
+    d_err, _, d_ok = compare(
+        (local_window_attention_plain(q, k, v, rel_drop, size_2d, md,
+                                      precise),), (want,), **tol)
+    check(not d_ok, f'{name}: tolerance accepts a dropped key '
+                    f'(max abs err {d_err})')
+    print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
+          f'output rms {rms:.4e}, tol {tol}; one window key dropped '
+          f'gives {d_err:.3e} and is rejected')
+    return kernel_row(
+        torch, name, lambda: local_window_attention(*args),
+        lambda: local_window_attention_plain(*args),
+        b2_library(torch, args), n_bytes, n_flops,
+        'float32' if args[-1] else 'bfloat16', err)
+
+
+def phase_kernels(torch):
     rows = {}
     aot = dict(heads=8, d=32, cvs=(32,))
     eval_rows = tuple(
@@ -350,81 +476,11 @@ def phase_kernels(torch):
             ('b1mh_bf16_B1', 1, torch.bfloat16, False, BF16_TOL, aot),
             ('b1mh_bf16_B8', 8, torch.bfloat16, False, BF16_TOL, aot)
     ) + eval_rows + swin_rows:
-        args, kw, n_bytes, n_flops = b1_case(torch, batch, dtype, precise, 1,
-                                             **shape)
-        outs, mass = memory_read_fused(*args, **kw)
-        wants, pmass = memory_read_fused_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err, rms, ok = compare(outs, wants, **tol)
-        err_mass = max_err(mass, pmass)
-        check(all(bool(torch.isfinite(o.float()).all()) for o in outs),
-              f'{name}: not finite')
-        check(ok and err_mass <= 1e-4,
-              f'{name}: max abs err {err} (rms {rms}, tol {tol}), mass '
-              f'{err_mass}')
-        # sensitivity: the plain output with live slot 3 dropped must fail
-        q, k, vs, valid, heads, scale = args
-        dropped = valid.clone()
-        dropped[:, 3] = False
-        drops, _ = memory_read_fused_plain(q, k, vs, dropped, heads, scale,
-                                           **kw)
-        d_err, _, d_ok = compare(drops, wants, **tol)
-        check(not d_ok, f'{name}: tolerance accepts a dropped slot '
-                        f'(max abs err {d_err})')
-        print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
-              f'output rms {rms:.4e}, tol {tol}; one live slot dropped gives '
-              f'{d_err:.3e} and is rejected')
-        if not precise:
-            print_split(torch, name, batch, heads, q.shape[1],
-                        q.shape[2] // heads,
-                        sum(v.shape[3] for v in vs) // heads, k.shape[1])
-        rows[name] = kernel_row(
-            torch, name, lambda: memory_read_fused(*args, **kw),
-            lambda: memory_read_fused_plain(*args, **kw),
-            b1_library(torch, args, kw), n_bytes, n_flops,
-            'float32' if precise else 'bfloat16', max(err, err_mass))
-
-    # B3: f32 storage still multiplies bf16 operands (the path never asks
-    # for precise), so every row has the bf16 bar
+        rows[name] = b1_row(torch, name, batch, dtype, precise, tol, shape)
     for name, batch, dtype in (('b3_bf16_B1', 1, torch.bfloat16),
                                ('b3_f32_B1', 1, torch.float32),
                                ('b3_bf16_B8', 8, torch.bfloat16)):
-        args, n_bytes, n_flops = b3_case(torch, batch, dtype, 3)
-        out, mass = memory_read_multihead(*args)
-        want, pmass = memory_read_multihead_plain(*args)
-        torch.cuda.synchronize()
-        err, rms, ok = compare((out,), (want,), **BF16_TOL)
-        err_mass = max_err(mass, pmass)
-        check(out.dtype == torch.float32
-              and bool(torch.isfinite(out).all()), f'{name}: not finite f32')
-        check(ok and err_mass <= 1e-4,
-              f'{name}: max abs err {err} (rms {rms}, tol {BF16_TOL}), mass '
-              f'{err_mass}')
-        q, k, vs, valid, heads, scale = args
-        dropped = valid.clone()
-        dropped[:, 3] = False
-        drop, _ = memory_read_multihead_plain(q, k, vs, dropped, heads, scale)
-        d_err, _, d_ok = compare((drop,), (want,), **BF16_TOL)
-        check(not d_ok, f'{name}: tolerance accepts a dropped slot '
-                        f'(max abs err {d_err})')
-        print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
-              f'output rms {rms:.4e}, tol {BF16_TOL}; one live slot dropped '
-              f'gives {d_err:.3e} and is rejected')
-        print_split(torch, name, batch, heads, q.shape[1],
-                    q.shape[2] // heads, 2 * vs[0].shape[3] // heads,
-                    k.shape[1])
-        rows[name] = kernel_row(
-            torch, name, lambda: memory_read_multihead(*args),
-            lambda: memory_read_multihead_plain(*args),
-            sdpa_over_bank(q, k, torch.cat(vs, -1), valid, heads, scale),
-            n_bytes, n_flops, 'bfloat16', max(err, err_mass))
-        if batch == 1 and dtype == torch.bfloat16:
-            # what the kernel's two-bank form saves: the reference
-            # concatenates V||ID_V before the read
-            print(f'kernel {name}: concatenating V||ID_V '
-                  f'{tuple(vs[0].shape)} x2 would take '
-                  f'{time_ms(torch, lambda: torch.cat(vs, -1)):.4f} ms')
-
+        rows[name] = b3_row(torch, name, batch, dtype)
     for name, batch, dtype, tol, grid in (
             ('b2_bf16_B1', 1, torch.bfloat16, BF16_TOL, GRID),
             ('b2_f32_B1', 1, torch.float32, F32_TOL, GRID),
@@ -433,31 +489,7 @@ def phase_kernels(torch):
                  torch.bfloat16, BF16_TOL, grid)
                 for grid, batch in EVAL_GRIDS + ((SWIN_GRID, 1),
                                                  (SWIN_GRID, 8))):
-        args, n_bytes, n_flops = b2_case(torch, batch, dtype, 2, grid)
-        out = local_window_attention(*args)
-        want = local_window_attention_plain(*args)
-        torch.cuda.synchronize()
-        err, rms, ok = compare((out,), (want,), **tol)
-        check(bool(torch.isfinite(out.float()).all()), f'{name}: not finite')
-        check(ok, f'{name}: max abs err {err} (rms {rms}, tol {tol})')
-        # sensitivity: the plain output without the key at offset (0, +1)
-        # (bias -1e9, so its weight is 0) must fail
-        q, k, v, rel, size_2d, md, precise = args
-        rel_drop = rel.clone()
-        rel_drop[..., md * (2 * md + 1) + md + 1] = -1e9
-        d_err, _, d_ok = compare(
-            (local_window_attention_plain(q, k, v, rel_drop, size_2d, md,
-                                          precise),), (want,), **tol)
-        check(not d_ok, f'{name}: tolerance accepts a dropped key '
-                        f'(max abs err {d_err})')
-        print(f'kernel {name}: max abs err {err:.3e} = {err / rms:.4f} x '
-              f'output rms {rms:.4e}, tol {tol}; one window key dropped '
-              f'gives {d_err:.3e} and is rejected')
-        rows[name] = kernel_row(
-            torch, name, lambda: local_window_attention(*args),
-            lambda: local_window_attention_plain(*args),
-            b2_library(torch, args), n_bytes, n_flops,
-            'float32' if args[-1] else 'bfloat16', err)
+        rows[name] = b2_row(torch, name, batch, dtype, tol, grid)
     return rows
 
 
@@ -1823,16 +1855,39 @@ def wait_ranks(procs, timeout: float):
     return outs
 
 
-def dp_train(torch, setting, world) -> dict:
+def on_device(tree, device):
+    """A checkpoint's nested dicts, lists and tuples with every tensor
+    copied to `device` (a copy even where it is there already: a
+    state_dict's tensors are the live parameters)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: on_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(on_device(v, device) for v in tree)
+    return tree.to(device, copy=True) if torch.is_tensor(tree) else tree
+
+
+def dp_train(torch, setting, world, start=None) -> dict:
     """Two fp32 steps of r50_deaotl (129x129, T=5, gap 1, 3 objects) in
     one setting, on this rank's rows of a global batch of 2; returns the
-    world's metrics of each step, the weights before and after, the EMA,
-    whether every rank holds the same, and the kernel launches."""
+    world's metrics of each step, the weights before and after (and the
+    names and sizes of their leaves), the EMA, whether every rank holds
+    the same, and the kernel launches; whole tensors under tensor
+    parallelism. TP_SETTING also returns each step's averaged gradients
+    and the weights after the first step, and on rank 0 of a model group
+    the trainer's state after it (`state1`: its checkpoint and the
+    generator). `start`, such a state1, takes only the second step from
+    it."""
     from dataclasses import replace
     from rmem_ocu_tpu_torch import build_vos_model, get_config
     from rmem_ocu_tpu_torch.parallel.dist import same_on_all_ranks
     from rmem_ocu_tpu_torch.train.trainer import Trainer
+    from rmem_ocu_tpu_torch.parallel import tp
+    from rmem_ocu_tpu_torch.train import optim
     name, overrides, zero1 = setting
+    if world.tp > 1:
+        overrides = dict(overrides, mesh_shape=(world.data.size, world.tp),
+                         mesh_axes=('data', 'model'))
     exp = replace(get_config('pre_vost_2', model='r50_deaotl',
                              data_seq_len=DP_T, train_total_steps=100,
                              **overrides),
@@ -1840,25 +1895,55 @@ def dp_train(torch, setting, world) -> dict:
     model = build_vos_model(exp.model, device=world.device, seed=0, exp=exp)
     trainer = Trainer(model, exp, world)
     state = trainer.init_state()
+    generator = torch.Generator().manual_seed(1)
+    if start is not None:
+        state = trainer.load_state_dict(on_device(start['ckpt'],
+                                                  world.device))
+        generator.set_state(start['generator'])
     flat = lambda d: torch.cat([v.detach().float().reshape(-1)
                                 for v in d.values()])
-    weights = lambda: flat({k: v for k, v in model.state_dict().items()
+    # whole, gathered over a model group
+    weights = lambda: flat({k: v for k, v in
+                            tp.whole_state_dict(model).items()
                             if v.is_floating_point()})
-    out = {'weights0': weights(), 'steps': []}
-    n = 2 // world.size
-    rows = slice(world.rank * n, (world.rank + 1) * n)
-    generator = torch.Generator().manual_seed(1)
+    out = {'weights0': weights(), 'steps': [], 'grads': [],
+           'leaves': [(k, v.numel()) for k, v in
+                      tp.whole_state_dict(model).items()
+                      if v.is_floating_point()]}
+    # the ranks of a model group take the same rows
+    n = 2 // world.data.size
+    rows = slice(world.data.rank * n, (world.data.rank + 1) * n)
+    clip = optim.clip_by_global_norm
+    held = name == TP_SETTING[0]
+
+    def capture(grads, *args, **kw):
+        # this step's averaged gradients, whole
+        out['grads'].append({k: v.cpu() for k, v in
+                             trainer._whole(grads).items()})
+        return clip(grads, *args, **kw)
     reset_counts()
-    for i in range(2):
+    for i in range(0 if start is None else 1, 2):
         frames, masks = train_clip(2, DP_T, DP_SIZE, seed=20 + i)
         batch = {'frames': torch.from_numpy(frames[rows]).to(world.device),
                  'masks': torch.from_numpy(masks[rows]).to(world.device),
                  'obj_nums': torch.full((n,), N_OBJ, device=world.device)}
-        state, m = trainer.train_step(state, batch, generator)
+        # phase 12d holds each step's gradients of its setting
+        optim.clip_by_global_norm = capture if held else clip
+        try:
+            state, m = trainer.train_step(state, batch, generator)
+        finally:
+            optim.clip_by_global_norm = clip
         out['steps'].append({k: torch.as_tensor(m[k]).tolist()
                              for k in DP_METRICS})
+        if held and i == 0:
+            out['weights1'] = weights()
+            if world.tp > 1:
+                ckpt = on_device(trainer.state_dict(state), 'cpu')
+                if world.model.rank == 0:
+                    out['state1'] = {'ckpt': ckpt,
+                                     'generator': generator.get_state()}
     torch.cuda.synchronize(world.device)
-    out.update(weights=weights(), ema=flat(state.ema),
+    out.update(weights=weights(), ema=flat(trainer.ema_state_dict(state)),
                launches=read_counts())
     out['same'] = same_on_all_ranks([out['weights'], out['ema']], world)
     return {k: v.cpu() if torch.is_tensor(v) else v for k, v in out.items()}
@@ -1877,18 +1962,6 @@ def dp_worker(out_path: str) -> int:
             torch.save(results, out_path)
     finally:
         dist.destroy(world)
-    return 0
-
-
-def eval_worker(argv_json: str) -> int:
-    """A rank of 11c, in a child process: the eval CLI, then its kernel
-    launches on a line of their own."""
-    import torch
-    from rmem_ocu_tpu_torch.tools import eval as eval_tool
-    reset_counts()
-    eval_tool.main(json.loads(argv_json))
-    torch.cuda.synchronize()
-    print('COUNTS ' + json.dumps(read_counts()))
     return 0
 
 
@@ -1944,7 +2017,7 @@ def phase_dp_two_ranks(torch, root: str):
               f'{err:.3g}, weights {dw:.3g}, EMA {de:.3g}, change '
               f'{rel:.3g} of its norm; ranks alike; launches (0, 0, 0)')
     print(f'dp 11a ok in {time.time() - t0:.1f} s')
-    return launches
+    return launches, one
 
 
 def phase_dp_cli(torch, root: str, data: str, pipeline_ms: float):
@@ -2063,8 +2136,9 @@ def phase_dp_eval(torch, root: str, data: str, result: str, want):
             os.path.join(result, 'ema_ckpt'), '--ckpt_step', '4',
             '--output']
     two, one = os.path.join(root, 'eval_two'), os.path.join(root, 'eval_one')
-    procs = spawn_ranks(2, [os.path.abspath(__file__), '--eval-worker',
-                            json.dumps(argv + [two])], cwd=os.getcwd())
+    procs = spawn_ranks(2, [os.path.abspath(__file__), '--cli-worker',
+                            'eval', json.dumps(argv + [two])],
+                        cwd=os.getcwd())
     try:
         reset_counts()
         eval_tool.main(argv + [one])
@@ -2072,9 +2146,7 @@ def phase_dp_eval(torch, root: str, data: str, result: str, want):
         mine = read_counts()
     finally:
         outs = wait_ranks(procs, 900)
-    ranks = [tuple(json.loads(line[len('COUNTS '):]))
-             for out in outs for line in out.splitlines()
-             if line.startswith('COUNTS ')]
+    ranks = rank_counts(outs)
     total = tuple(sum(c) for c in zip(*ranks))
     check(len(ranks) == 2 and total == mine == tuple(want),
           f'11c: launches by rank {ranks}, one process {mine}, phase 10 '
@@ -2100,7 +2172,542 @@ def phase_dp_eval(torch, root: str, data: str, result: str, want):
           f'launches (B1, B2, B3) by rank {ranks}, sum {total} = one '
           f'process = phase 10; {n_masks} masks equal file for file; ok in '
           f'{time.time() - t0:.1f} s')
-    return total
+    return total, one, mine
+
+
+# ------------------------------------------------- 12: tensor parallelism
+TP = 2                          # the model group of phase 12
+TP_PATHS = ('deaot_1head', 'aot', 'deaot_2heads')
+TP_FRAMES, TP_WARM, TP_TIMED = 12, 3, 10
+TP_SETTING = DP_SETTINGS[1]     # AdamW, ZeRO-1, remat 'full'
+
+
+def phase_tp_kernels(torch, whole_rows):
+    """12a: each kernel at the shard shapes a rank of a model group of M
+    reads on the 23x40 grid, B=1 and B=8, against its plain version: B1
+    with one head and V, ID_V 512/M wide, B1 with 8/M AOT heads (M=4: 2
+    heads, the wide-head kernel), B3 with two heads of 512/M (M=2), B2 with
+    E=1024/M. Prints each row's share of its bound beside the whole
+    shape's (phase 3)."""
+    rows, bf16 = {}, torch.bfloat16
+    for batch in (1, 8):
+        for m in (2, 4):
+            name = f'b1_tp{m}_bf16_B{batch}'
+            rows[name] = b1_row(torch, name, batch, bf16, False, BF16_TOL,
+                                dict(cvs=(512 // m,) * 2))
+            name = f'b1mh_tp{m}_bf16_B{batch}'
+            rows[name] = b1_row(torch, name, batch, bf16, False, BF16_TOL,
+                                dict(heads=8 // m, d=32, cvs=(32,)))
+            name = f'b2_tp{m}_bf16_B{batch}'
+            rows[name] = b2_row(torch, name, batch, bf16, BF16_TOL, GRID,
+                                1024 // m)
+        name = f'b3_tp2_bf16_B{batch}'
+        rows[name] = b3_row(torch, name, batch, bf16, 256)
+    for name, row in rows.items():
+        kind, _, _, batch = name.split('_')
+        whole = whole_rows[f'{kind}_bf16_{batch}']
+        print(f'kernel {name}: {row["ms"]:.4f} ms, share of bound '
+              f'{row["bound_share"]:.3f}; the whole shape {whole["ms"]:.4f} '
+              f'ms, share {whole["bound_share"]:.3f}')
+    return rows
+
+
+def tp_serve_fp32(torch, path: str, world):
+    """The fp32 engine of `path` on this rank's shard of the model group
+    of `world` (the whole model at one process) on the card, 353x625, one
+    reference frame and TP_FRAMES frames at write gap 1: the bank's
+    ordered frame ids after each update, the masks, the logits of the
+    objects and the kernel launches."""
+    from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
+    from rmem_ocu_tpu_torch.parallel import tp
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exp = get_config('pre_vost_2', **spec_of(path)['overrides'])
+    model = build_vos_model(exp.model, device=world.device, seed=0)
+    tp.shard_model(model, world.model)
+    eng = InferEngine(model, exp, long_term_mem_gap=1)
+    img0, mask0, frames = make_inputs(1, TP_FRAMES, seed=3,
+                                      independent=exp.model.vos == 'aot')
+    state = eng.init_state(1, GRID)
+    reset_counts()
+    state = eng.add_reference_frame(state, torch.from_numpy(img0),
+                                    torch.from_numpy(mask0),
+                                    torch.tensor([N_OBJ]))
+    out = dict(ids=[], preds=[], logits=[])
+    for f in frames:
+        logits, state = eng.propagate(state, torch.from_numpy(f))
+        pred = eng.predict_mask(logits, (H, W))
+        state = eng.update_memory(state, pred)
+        out['ids'].append(state.bank.ordered_frame_ids.cpu())
+        out['preds'].append(pred.to(torch.uint8).cpu())
+        out['logits'].append(logits[..., :N_OBJ + 1].float().cpu())
+    torch.cuda.synchronize(world.device)
+    out['launches'] = read_counts()
+    return out
+
+
+def bank_bytes(state) -> int:
+    bank = state.bank
+    return sum(x.numel() * x.element_size()
+               for x in bank.k + bank.v + (bank.id_v or []))
+
+
+def tp_serve_bf16(torch, path: str, batch: int, world):
+    """The bf16 main path of `path` on this rank's shard, 353x625, 3
+    objects, `batch` streams at the path's gap: the bank bytes the rank
+    holds, the launches, the median frame time (CUDA events) and the
+    collectives a frame (count and bytes of the all-reduces, which also
+    carry the gathers) over the timed frames."""
+    import torch.distributed as tdist
+    from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
+    from rmem_ocu_tpu_torch.parallel import tp
+    spec = spec_of(path)
+    exp = get_config('pre_vost_2', compute_dtype='bfloat16',
+                     **spec['overrides'])
+    model = build_vos_model(exp.model, device=world.device, seed=0)
+    tp.shard_model(model, world.model)
+    model = model.to(torch.bfloat16)
+    eng = InferEngine(model, exp, long_term_mem_gap=spec['gap'])
+    img0, mask0, frames = make_inputs(batch, 8, seed=5)
+    frames = [torch.from_numpy(f).to(world.device) for f in frames]
+    state = eng.init_state(batch, GRID)
+    held = bank_bytes(state)
+    reset_counts()
+    state = eng.add_reference_frame(state, torch.from_numpy(img0),
+                                    torch.from_numpy(mask0),
+                                    torch.full((batch,), N_OBJ))
+    calls, real = [], tdist.all_reduce
+
+    def counted(t, *args, **kw):
+        calls.append(t.numel() * t.element_size())
+        return real(t, *args, **kw)
+    events = []
+    try:
+        for i in range(TP_WARM + TP_TIMED):
+            if i == TP_WARM:
+                tdist.all_reduce = counted
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, state = eng.propagate(state, frames[i % len(frames)])
+            pred = eng.predict_mask(logits, (H, W))
+            state = eng.update_memory(state, pred)
+            end.record()
+            if i >= TP_WARM:
+                events.append((start, end))
+    finally:
+        tdist.all_reduce = real
+    torch.cuda.synchronize(world.device)
+    counts = read_counts()
+    n = TP_WARM + TP_TIMED
+    check(counts == expected_counts(path, n),
+          f'12b {path} B={batch}: launches {counts} for {n} frames, '
+          f'expected {expected_counts(path, n)}')
+    check(bool(torch.isfinite(logits[..., :N_OBJ + 1].float()).all()),
+          f'12b {path} B={batch}: non-finite logits')
+    return dict(bank_bytes=held, launches=counts,
+                frame_ms=statistics.median(s.elapsed_time(e)
+                                           for s, e in events),
+                collectives=len(calls) / TP_TIMED,
+                collective_bytes=sum(calls) / TP_TIMED)
+
+
+GRAD_TOL = 2e-3   # 12d: a gradient's difference over its leaf's largest
+
+
+def by_leaf(torch, leaves, flat):
+    """A flat vector of dp_train's weights cut into its leaves."""
+    return dict(zip([k for k, _ in leaves],
+                    torch.split(flat, [n for _, n in leaves])))
+
+
+def step_gaps(torch, leaves, ga, gb, ua, ub):
+    """One training step of a 1 x M world (averaged gradients gb, weight
+    update ub) against one process's from the same state (ga, ua), leaf
+    by leaf: the gradient's largest difference over the leaf's largest
+    magnitude, and the update's gap over its norm on the elements whose
+    reference gradient exceeds twice the leaf's largest difference, so
+    that its sign is the same in both worlds. An element nearer 0 may
+    change sign between them, and AdamW then moves it by ~lr the other
+    way whatever its size. Returns ((gradient difference, leaf), (update
+    gap, leaf), elements with a gradient left out of the update's gap,
+    elements with a gradient)."""
+    ua, ub = by_leaf(torch, leaves, ua), by_leaf(torch, leaves, ub)
+    worst_g, worst_u, left, total = (0.0, ''), (0.0, ''), 0, 0
+    for k, g in ga.items():
+        g, h = g.float().reshape(-1), gb[k].float().reshape(-1)
+        top = max(float(g.abs().max()), 1e-30)
+        diff = float((h - g).abs().max())
+        worst_g = max(worst_g, (diff / top, k))
+        keep = g.abs() > 2 * diff
+        x, y = ua[k][keep], ub[k][keep]
+        worst_u = max(worst_u, (float((y - x).norm())
+                                / max(float(x.norm()), 1e-30), k))
+        live = g != 0
+        left += int((live & ~keep).sum())
+        total += int(live.sum())
+    return worst_g, worst_u, left, total
+
+
+def sign_flip_share(torch, a, b):
+    """What of the two-step change's gap between one process (a) and a
+    1 x M world (b) lies on the elements whose averaged gradient changes
+    sign between them at either step: (their count, their share of the
+    squared gap, the largest of their step-1 reference gradients over its
+    leaf's largest, the leaves that carry most of the gap with their
+    share)."""
+    gap = by_leaf(torch, a['leaves'], (b['weights'] - b['weights0'])
+                  - (a['weights'] - a['weights0']))
+    count, on, whole, top, share = 0, 0.0, 0.0, 0.0, []
+    for k, d in gap.items():
+        whole += float(d.square().sum())
+        if k not in a['grads'][0]:
+            continue
+        flips = torch.zeros(d.numel(), dtype=torch.bool)
+        for ga, gb in zip(a['grads'], b['grads']):
+            flips |= (ga[k].reshape(-1) > 0) != (gb[k].reshape(-1) > 0)
+        g1 = a['grads'][0][k].float().reshape(-1).abs()
+        step1 = ((a['grads'][0][k] > 0) != (b['grads'][0][k] > 0)).reshape(-1)
+        if step1.any():
+            top = max(top, float(g1[step1].max() / g1.max()))
+        count += int(flips.sum())
+        on += float(d[flips].square().sum())
+        share.append((float(d.square().sum()), k))
+    share = [(k, round(v / whole, 3)) for v, k in sorted(share)[::-1][:3]]
+    return count, on / whole, top, share
+
+
+def tp_worker(spec_path: str) -> int:
+    """A rank of 12b and 12d, in a child process, a model group of two on
+    card 0 over gloo (NCCL takes one rank a card): the fp32 serving of
+    each TP path, the training steps of TP_SETTING, then, once this
+    script's own runs are done (the spec's `go` file), the bf16 main
+    paths. Each rank writes its results."""
+    import torch
+    from rmem_ocu_tpu_torch.parallel import dist
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.init_from_env('cuda:0', backend='gloo', timeout_s=900,
+                               tp=TP)
+    try:
+        out = {'fp32': {p: tp_serve_fp32(torch, p, world)
+                        for p in TP_PATHS}}
+        out['train'] = dp_train(torch, TP_SETTING, world)
+        deadline = time.time() + 900
+        while not os.path.exists(spec['go']):
+            check(time.time() < deadline, '12: no go from the parent')
+            time.sleep(0.2)
+        out['bf16'] = {(p, b): tp_serve_bf16(torch, p, b, world)
+                       for p in TP_PATHS for b in (1, 8)}
+        torch.save(out, f'{spec["out"]}.rank{world.rank}')
+    finally:
+        dist.destroy(world)
+    return 0
+
+
+def phase_tp_serving(torch, root: str, dp_one: dict):
+    """12b and 12d's trainer: two ranks on the card in child processes
+    (`--tp-worker`), one model group of M=2 over gloo, against this
+    process. fp32 at write gap 1 (eviction fires), per TP path: eviction
+    ids identical at every update on both ranks, more than 99.9% of mask
+    pixels equal to this process's, both ranks' masks equal, each rank's
+    launches those of one process. bf16 at 1 and 8 streams: the bank
+    bytes a rank holds against this process's (AOT half, DeAOT its whole
+    keys and half its values), the collectives a frame, the frame time
+    (gloo through the host on one card: written down, not compared).
+    Training: TP_SETTING's two fp32 steps at 129x129 against 11a's one
+    process: losses within 1e-5, weights and EMA within 1e-4, the ranks
+    alike, no kernel launched; and each step against one process's from
+    the same state (the second from the world's state after the first):
+    each leaf's averaged gradient within GRAD_TOL of its largest
+    magnitude, and its update within 1e-2 of its norm on the elements
+    whose gradient keeps its sign (step_gaps). Returns the launches by
+    path."""
+    from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    t0 = time.time()
+    spec = dict(out=os.path.join(root, 'tp'), go=os.path.join(root, 'tp.go'))
+    spec_path = os.path.join(root, 'tp.json')
+    with open(spec_path, 'w') as f:
+        json.dump(spec, f)
+    procs = spawn_ranks(2, [os.path.abspath(__file__), '--tp-worker',
+                            spec_path])
+    one_world = World(device=torch.device('cuda'))
+    held = {}
+    try:
+        one = {p: tp_serve_fp32(torch, p, one_world) for p in TP_PATHS}
+        for p in TP_PATHS:
+            exp = get_config('pre_vost_2', compute_dtype='bfloat16',
+                             **spec_of(p)['overrides'])
+            eng = InferEngine(build_vos_model(exp.model, seed=0).to(
+                torch.bfloat16), exp)
+            for b in (1, 8):
+                held[p, b] = bank_bytes(eng.init_state(b, GRID))
+            del eng
+    finally:
+        open(spec['go'], 'w').close()
+        wait_ranks(procs, 1200)
+    ranks = [torch.load(f'{spec["out"]}.rank{r}') for r in range(TP)]
+    counts = {}
+    for p in TP_PATHS:
+        a = one[p]
+        want = expected_counts(p, TP_FRAMES)
+        worst_agree, worst_logit = 1.0, 0.0
+        for r, got in enumerate(x['fp32'][p] for x in ranks):
+            for t, (x, y) in enumerate(zip(a['ids'], got['ids'])):
+                check(torch.equal(x, y), f'12b {p} rank {r} update {t}: '
+                                         f'eviction ids {y} vs {x}')
+            for x, y in zip(a['preds'], got['preds']):
+                worst_agree = min(worst_agree,
+                                  float((x == y).float().mean()))
+            for x, y in zip(a['logits'], got['logits']):
+                worst_logit = max(worst_logit, max_err(x, y))
+            check(got['launches'] == a['launches'] == want,
+                  f'12b {p} rank {r}: launches {got["launches"]}, one '
+                  f'process {a["launches"]}, expected {want}')
+        check(worst_agree > 0.999, f'12b {p}: mask agreement {worst_agree}')
+        check(all(torch.equal(x, y) for x, y in zip(
+            ranks[0]['fp32'][p]['preds'], ranks[1]['fp32'][p]['preds'])),
+            f'12b {p}: the ranks\' masks differ')
+        final = set(a['ids'][-1][0].tolist())
+        evicted = sorted(set(range(1, TP_FRAMES + 1)) - final)
+        check(evicted, f'12b {p}: no eviction ({sorted(final)})')
+        print(f'tp 12b {p} fp32 353x625, M={TP} (gloo, CUDA tensors) vs '
+              f'one process, {TP_FRAMES} frames at gap 1: eviction ids '
+              f'identical at every update on both ranks (frames {evicted} '
+              f'evicted), worst mask agreement {worst_agree:.6f}, worst '
+              f'|logit diff| {worst_logit:.3e}, ranks\' masks equal, '
+              f'launches (B1, B2, B3) a rank {want}')
+        model_cfg = get_config('pre_vost_2', **spec_of(p)['overrides']).model
+        for b in (1, 8):
+            res = [x['bf16'][p, b] for x in ranks]
+            d = model_cfg.encoder_embedding_dim
+            deaot = model_cfg.vos == 'deaot'
+            ck = (d // 2 if model_cfg.att_heads == 1 else d) if deaot else d
+            cv, nv = (2 * d, 2) if deaot else (d, 1)
+            want_held = held[p, b] * (ck / (1 if deaot else TP)
+                                      + nv * cv / TP) / (ck + nv * cv)
+            check(all(x['bank_bytes'] == want_held for x in res),
+                  f'12b {p} B={b}: bank bytes a rank '
+                  f'{[x["bank_bytes"] for x in res]}, expected {want_held}')
+            print(f'tp 12b {p} bf16 353x625 {N_OBJ} objects streams={b}, '
+                  f'M={TP}: bank {res[0]["bank_bytes"] / 2 ** 20:.2f} MiB a '
+                  f'rank against {held[p, b] / 2 ** 20:.2f} MiB in one '
+                  f'process; {res[0]["collectives"]:.1f} all-reduces a frame '
+                  f'a rank, {res[0]["collective_bytes"] / 2 ** 20:.3f} MiB; '
+                  f'frame time (gloo through the host) '
+                  f'{[round(x["frame_ms"], 3) for x in res]} ms by rank; '
+                  f'launches {res[0]["launches"]}')
+        counts[f'tp_{p}'] = ranks[0]['bf16'][p, 1]['launches']
+
+    counts['tp_train'] = tp_training(torch, dp_one, ranks, one_world)
+    print(f'tp 12b/12d ok in {time.time() - t0:.1f} s')
+    return counts
+
+
+def tp_training(torch, dp_one: dict, ranks: list, one_world):
+    """12d's gates on TP_SETTING's trainer of a 1 x M world (`ranks`'
+    results) against 11a's one process (`dp_one`); see phase_tp_serving.
+    Returns rank 0's kernel launches."""
+    # 12d: the trainer of a 1 x 2 world against 11a's one process, and
+    # its second step against one process's from the world's first
+    name = TP_SETTING[0]
+    a, b = dp_one[name], ranks[0]['train']
+    a2 = dp_train(torch, TP_SETTING, one_world, start=b.pop('state1'))
+    err = 0.0
+    for i, (sa, sb) in enumerate(zip(a['steps'], b['steps'])):
+        for k in DP_METRICS:
+            e = float(np.abs(np.subtract(sb[k], sa[k])).max())
+            check(e <= (1e-3 if i and 'iou' in k else 1e-5),
+                  f'12d {name}: {k} of step {i + 1} off by {e}')
+            if 'iou' not in k:
+                err = max(err, e)
+    moved_a = a['weights'] - a['weights0']
+    dw = float((b['weights'] - a['weights']).abs().max())
+    de = float((b['ema'] - a['ema']).abs().max())
+    rel = float((b['weights'] - b['weights0'] - moved_a).norm()
+                / moved_a.norm())
+    check(torch.equal(a['weights0'], b['weights0'])
+          and torch.equal(a2['weights0'], b['weights1']) and dw <= 1e-4
+          and de <= 1e-4 and b['same'] and ranks[1]['train']['same'],
+          f'12d {name}: weights {dw}, EMA {de}, ranks alike {b["same"]}')
+    # each step from the same state: step 1 from the common start, step 2
+    # from the world's state after step 1; a gradient part summed wrongly
+    # over the group would be off by ~1 of its leaf's largest, an update
+    # made wrongly from a right gradient by ~1 of its norm
+    steps = (step_gaps(torch, a['leaves'], a['grads'][0], b['grads'][0],
+                       a['weights1'] - a['weights0'],
+                       b['weights1'] - b['weights0']),
+             step_gaps(torch, a['leaves'], a2['grads'][0], b['grads'][1],
+                       a2['weights'] - a2['weights0'],
+                       b['weights'] - b['weights1']))
+    for i, ((dg, gleaf), (du, uleaf), left, total) in enumerate(steps):
+        check(dg <= GRAD_TOL and du <= 1e-2,
+              f'12d {name} step {i + 1} from one state: gradient {dg} of '
+              f'its leaf\'s largest ({gleaf}), update {du} of its norm '
+              f'({uleaf})')
+    e2 = max(float(np.abs(np.subtract(a2['steps'][0][k],
+                                      b['steps'][1][k])).max())
+             for k in ('loss', 'frame_losses'))
+    check(e2 <= 1e-5, f'12d {name}: step 2 from one state, losses off by '
+                      f'{e2}')
+    check(all(x['train']['launches'] == (0, 0, 0) for x in ranks),
+          f'12d: training launched {[x["train"]["launches"] for x in ranks]}')
+    flips, flip_share, flip_g, leaves = sign_flip_share(torch, a, b)
+    print(f'tp 12d trainer 1 x {TP} (gloo, CUDA tensors) {name} vs 11a\'s '
+          f'one process, fp32 129x129, T={DP_T}, 2 steps: losses '
+          f'{[s["loss"] for s in b["steps"]]} vs '
+          f'{[s["loss"] for s in a["steps"]]}, max loss/metric diff '
+          f'{err:.3g}, weights {dw:.3g}, EMA {de:.3g}; ranks alike; '
+          f'launches (0, 0, 0)')
+    for i, ((dg, gleaf), (du, uleaf), left, total) in enumerate(steps):
+        print(f'tp 12d step {i + 1} from one state (step 2: one process '
+              f'from the world\'s state after step 1, its frame losses '
+              f'within {e2:.3g}): gradient {dg:.3g} of its leaf\'s largest '
+              f'({gleaf}); update {du:.3g} of its norm ({uleaf}) on the '
+              f'elements whose gradient exceeds twice its leaf\'s largest '
+              f'difference ({left} of the {total} with a gradient left '
+              f'out)')
+    print(f'tp 12d the two steps\' change {rel:.3g} of its norm (not '
+          f'gated): {flips} elements whose gradient changes sign between '
+          f'the worlds at step 1 or 2 carry {flip_share:.3f} of its square '
+          f'(at step 1 each within {flip_g:.3g} of its leaf\'s largest); '
+          f'largest shares by leaf {leaves}')
+    return b['launches']
+
+
+def cli_worker(tool: str, argv_json: str) -> int:
+    """A rank of a CLI run in a child process (11c, 12c, 12d): the eval or
+    train CLI, then its kernel launches on a line of their own."""
+    import importlib
+    import torch
+    reset_counts()
+    importlib.import_module(f'rmem_ocu_tpu_torch.tools.{tool}').main(
+        json.loads(argv_json))
+    torch.cuda.synchronize()
+    print('COUNTS ' + json.dumps(read_counts()))
+    return 0
+
+
+def rank_counts(outs):
+    return [tuple(json.loads(line[len('COUNTS '):]))
+            for out in outs for line in out.splitlines()
+            if line.startswith('COUNTS ')]
+
+
+TP_TRAIN_ARGS = ['--multihost', '--mesh', f'1x{TP}', '--zero1', '--backend',
+                 'gloo', '--stage', 'pre_vost_2', '--model', 'r50_deaotl',
+                 '--exp_name', 'tp', '--datasets', 'vost', '--batch_size',
+                 '2', '--total_steps', '4', '--save_step', '2',
+                 '--log_step', '1']
+
+
+def phase_tp_cli(torch, root: str, data: str, result: str, one_dir: str,
+                 one_counts):
+    """12c and 12d's CLI, at once, each in two processes on the card over
+    gloo. 12c: `tools.eval --mesh 2` of 11b's step_4 EMA over phase 10's
+    val split, one model group serving both sequences; its masks agree
+    with 11c's one process (the same checkpoint) on more than 99.9% of
+    pixels, each rank launches what that process launched, print.log is
+    rank 0's. 12d: `tools.train --multihost --mesh 1x2 --zero1` on phase
+    10's tree at the recipe shape (465x465, T=17, B=2, fp32), 11b's 4
+    steps (the schedule and the loss's ramps follow the total): the
+    first two losses within 1e-4 (relative) of 11b's (one process, the
+    same samples), no kernel launched, and ckpt/step_2 restored bitwise
+    by a trainer of one process. Returns the launches by run."""
+    from PIL import Image
+    from rmem_ocu_tpu_torch.config import get_config
+    from rmem_ocu_tpu_torch.models import build_vos_model
+    from rmem_ocu_tpu_torch.train.trainer import Trainer
+    from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
+    t0 = time.time()
+    two = os.path.join(root, 'eval_tp')
+    argv = ['--stage', 'pre_vost_2', '--model', 'r50_deaotl', '--exp_name',
+            'dp', '--dataset', 'vost', '--data_root', data, '--ckpt_path',
+            os.path.join(result, 'ema_ckpt'), '--ckpt_step', '4', '--mesh',
+            str(TP), '--backend', 'gloo', '--output', two]
+    me = os.path.abspath(__file__)
+    evals = spawn_ranks(TP, [me, '--cli-worker', 'eval', json.dumps(argv)],
+                        cwd=os.getcwd())
+    trains = spawn_ranks(TP, [me, '--cli-worker', 'train', json.dumps(
+        TP_TRAIN_ARGS + ['--data_root', data])], cwd=os.getcwd())
+    try:
+        eval_outs = wait_ranks(evals, 900)
+    finally:
+        train_outs = wait_ranks(trains, 900)
+    t_cli = time.time() - t0
+
+    ranks = rank_counts(eval_outs)
+    check(len(ranks) == TP and all(r == tuple(one_counts) for r in ranks),
+          f'12c: launches by rank {ranks}, one process {one_counts}')
+    n = same = n_masks = 0
+    for seq in sorted(os.listdir(one_dir)):
+        if not os.path.isdir(os.path.join(one_dir, seq)):
+            continue
+        names = sorted(os.listdir(os.path.join(one_dir, seq)))
+        check(names == sorted(os.listdir(os.path.join(two, seq))),
+              f'12c: masks of {seq}')
+        for f in names:
+            a = np.asarray(Image.open(os.path.join(one_dir, seq, f)))
+            b = np.asarray(Image.open(os.path.join(two, seq, f)))
+            n, same, n_masks = n + a.size, same + int((a == b).sum()), \
+                n_masks + 1
+    check(n_masks > 0 and same > 0.999 * n,
+          f'12c: {same} of {n} pixels agree')
+    with open(os.path.join(two, 'print.log')) as f:
+        log = f.read()
+    check('[rank 0]' in log, '12c: print.log has no rank 0 lines')
+    print(f'tp 12c eval CLI --mesh {TP} in {TP} processes on the card '
+          f'(gloo): launches (B1, B2, B3) by rank {ranks} = 11c\'s one '
+          f'process {tuple(one_counts)}; {n_masks} masks, {same} of {n} '
+          f'pixels ({same / n:.6f}) equal to 11c\'s one process')
+
+    check(all(r == (0, 0, 0) for r in rank_counts(train_outs))
+          and len(rank_counts(train_outs)) == TP,
+          f'12d: the train CLI launched {rank_counts(train_outs)}')
+    tp_result = get_config('pre_vost_2', 'tp', 'r50_deaotl').dir_result()
+    rows = []
+    for r in (result, tp_result):
+        with open(os.path.join(r, 'metrics.jsonl')) as f:
+            rows.append([json.loads(line) for line in f])
+    check([r['step'] for r in rows[1]] == [1, 2, 3, 4],
+          f'12d: metrics rows {rows[1]}')
+    # steps 1 and 2 gate; later steps drift further (two runs of one
+    # process through the CLI, TF32 convolutions on, agree to 3-4
+    # decimals: 11b against phase 10)
+    rel = [abs(y['loss'] - x['loss']) / abs(x['loss'])
+           for x, y in zip(*rows)]
+    check(max(rel[:2]) <= 1e-4,
+          f'12d: CLI losses {[r["loss"] for r in rows[1]]} vs 11b\'s '
+          f'{[r["loss"] for r in rows[0]]}')
+    exp = get_config('pre_vost_2', 'tp', 'r50_deaotl')
+    trainer = Trainer(build_vos_model(exp.model, device='cuda', seed=3),
+                      exp)
+    state0 = trainer.init_state()
+    restored, step = ckpt.restore_checkpoint(
+        os.path.join(tp_result, 'ckpt'), trainer.state_dict(state0), step=2)
+    back = trainer.state_dict(trainer.load_state_dict(restored))
+    check(step == 2 and back['step'] == 2 and all(
+        torch.equal(back[part][k], v) for part in ('state_dict', 'ema')
+        for k, v in restored[part].items()) and all(
+        torch.equal(back['opt_state'][m][k], v) for m in ('mu', 'nu')
+        for k, v in restored['opt_state'][m].items()),
+        '12d: ckpt/step_2 of the 1 x 2 world does not restore bitwise at '
+        'world 1')
+    step_ms = [1e3 / r['it_per_s'] for r in rows[1][1:]]
+    print(f'tp 12d train CLI --multihost --mesh 1x{TP} --zero1 (gloo, CUDA '
+          f'tensors), r50_deaotl 465x465, T={exp.data_seq_len}, B=2, fp32: '
+          f'losses {[round(r["loss"], 6) for r in rows[1]]} vs 11b\'s '
+          f'{[round(r["loss"], 6) for r in rows[0]]} (relative '
+          f'{[float(f"{x:.3g}") for x in rel]}; steps 1-2 gated at 1e-4); '
+          f'CLI step '
+          f'{statistics.median(step_ms):.1f} ms median of steps 2-4 '
+          f'({[round(x, 1) for x in step_ms]}); launches (0, 0, 0) a rank; '
+          f'step_2 restored '
+          f'bitwise at world 1; 12c and 12d ok in {time.time() - t0:.1f} s '
+          f'({t_cli:.1f} s for the two CLIs at once)')
+    return {'tp_eval_cli': ranks[0], 'tp_train_cli': (0, 0, 0)}
 
 
 def print_resources(logs) -> None:
@@ -2198,27 +2805,37 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         counts['pipeline_eval'], pipeline_ms = phase_pipeline(torch, tmp)
         print(f'phase 10 done at {time.time() - t_start:.1f} s')
-        counts['dp_two_ranks'] = phase_dp_two_ranks(torch, tmp)
+        counts['dp_two_ranks'], dp_one = phase_dp_two_ranks(torch, tmp)
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
-            counts['dp_cli'], result = phase_dp_cli(
-                torch, tmp, os.path.join(tmp, 'data'), pipeline_ms)
-            counts['dp_eval'] = phase_dp_eval(
-                torch, tmp, os.path.join(tmp, 'data'), result,
-                counts['pipeline_eval'])
+            data = os.path.join(tmp, 'data')
+            counts['dp_cli'], result = phase_dp_cli(torch, tmp, data,
+                                                    pipeline_ms)
+            counts['dp_eval'], eval_one, one_counts = phase_dp_eval(
+                torch, tmp, data, result, counts['pipeline_eval'])
+            print(f'phase 11 done at {time.time() - t_start:.1f} s')
+            tp_rows = phase_tp_kernels(torch, rows)
+            counts.update(phase_tp_serving(torch, tmp, dp_one))
+            counts.update(phase_tp_cli(torch, tmp, data, result, eval_one,
+                                       one_counts))
         finally:
             os.chdir(cwd)
-    print(f'phase 11 done at {time.time() - t_start:.1f} s')
+    print(f'phase 12 done at {time.time() - t_start:.1f} s')
 
     kernels = []
     for name, src, replaces, row_name, idx, path in KERNELS:
         # every check above raised on failure, so reaching here is 'ok'
+        kind = row_name.split('_')[0]
         kernels.append(dict(
             name=name, route='cuda', source=src, replaces=replaces,
             launches=counts[path][idx],
             launches_by_path={p: c[idx] for p, c in counts.items()},
-            **rows[row_name], verdict='ok'))
+            **rows[row_name], verdict='ok',
+            tp_shard_rows={k: {f: v[f] for f in ('ms', 'bound_ms',
+                                                 'bound_share')}
+                           for k, v in tp_rows.items()
+                           if k.split('_')[0] in (kind, kind + 'mh')}))
     print(f'total: {time.time() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(smi)
@@ -2231,6 +2848,8 @@ def main() -> int:
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--dp-worker']:
         sys.exit(dp_worker(sys.argv[2]))
-    if sys.argv[1:2] == ['--eval-worker']:
-        sys.exit(eval_worker(sys.argv[2]))
+    if sys.argv[1:2] == ['--cli-worker']:
+        sys.exit(cli_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ['--tp-worker']:
+        sys.exit(tp_worker(sys.argv[2]))
     sys.exit(main())

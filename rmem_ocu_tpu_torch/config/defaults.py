@@ -6,12 +6,13 @@ registry, every stage with its training recipe and the model overrides it
 makes, and the reload of a `config_to_dict` snapshot. Values are the
 reference's (aot_plus/configs), so the two packages agree field by field;
 the CPU tests hold them to that. The data, checkpoint and logging fields
-are read by the training data and the train CLI. The mesh is read as a
-data-only mesh: `mesh_shape` (N,) over `mesh_axes` ('data',), N the
-number of processes (one per card, 1 meaning all of them), and
-`train_zero1` shards the optimizer's moments over them (parallel/tp.py).
-A `model` axis (tensor parallelism, ROADMAP item 15b) and
-`train_spatial_sharding` (item 15c) raise until ported;
+are read by the training data and the train CLI. The mesh is
+`mesh_shape` (N,) over `mesh_axes` ('data',), N the number of processes
+(one per card, 1 meaning all of them), or (D, M) over ('data', 'model'):
+D data ranks of M model ranks, each model group holding the shards of one
+model (tensor parallelism, parallel/tp.py). `train_zero1` shards the
+optimizer's moments over the data ranks. `train_spatial_sharding`
+(ROADMAP item 15c) raises until ported;
 `train_encoder_chunk`, `train_scan_unroll` and the `dots` remat policies
 exist for XLA, and the port's training raises on any value but their
 default.
@@ -214,8 +215,8 @@ class ExpConfig:
     dir_root: str = './results'
 
     compute_dtype: str = 'float32'        # 'float32' | 'bfloat16'
-    # the device mesh: data-only in the port (a `model` axis waits for
-    # ROADMAP item 15b, spatial sharding for 15c)
+    # the device mesh: ('data',) or ('data', 'model') in the port, one
+    # process per card (spatial sharding waits for ROADMAP item 15c)
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ('data',)
     train_spatial_sharding: bool = False

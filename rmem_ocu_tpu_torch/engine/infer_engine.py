@@ -14,6 +14,12 @@ owns its weights):
 
 Each call updates `state` IN PLACE (bank slot writes, new per-frame
 tensors) and returns it.
+
+A model cut into a rank's shard of a model group (parallel/tp.py
+`shard_model`) runs unchanged, every rank of the group calling the same
+methods on the same inputs: the bank holds the rank's shard, and where
+the heads split (AOT) the engine averages the eviction mass over the
+group, so that every rank scores and evicts alike.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from rmem_ocu_tpu_torch.models.vos_model import VOSModel
 from rmem_ocu_tpu_torch.ops.idmask import label_to_one_hot
 from rmem_ocu_tpu_torch.ops.position import interpolated_memory_pe
 from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
+from rmem_ocu_tpu_torch.parallel import dist
 from rmem_ocu_tpu_torch.utils.precision import compute_dtype_of
 
 UNUSED_ID_LOGIT = -1e10
@@ -85,15 +92,6 @@ class InferEngine:
         self.is_deaot = self.cfg.vos == 'deaot'
         self._self_pos = {}
 
-    def _dims(self):
-        """(key width, value width, the bank holds ID_V)."""
-        cfg = self.cfg
-        d = cfg.encoder_embedding_dim
-        if not self.is_deaot:
-            return d, d, False
-        d_att = d // 2 if cfg.att_heads == 1 else d // cfg.att_heads
-        return d_att * cfg.att_heads, 2 * d, True
-
     def _self_pos_emb(self, size_2d, dtype):
         """The LSTT's sine position embedding on the device, made once per
         grid size (AOT only; the GPM uses none)."""
@@ -112,7 +110,8 @@ class InferEngine:
         gap by default; the evaluator sets it per sequence)."""
         cfg = self.cfg
         hw = size_2d[0] * size_2d[1]
-        ck, cv, with_id = self._dims()
+        ck, cv, with_id = self.model.memory_dims()
+        d = cfg.encoder_embedding_dim
         n_layers, cap = cfg.lstt_num, cfg.mem_bank_capacity
         gru = cfg.gru_memory and not self.is_deaot
         dev, dt = self.device, self.dtype
@@ -129,8 +128,7 @@ class InferEngine:
                                           cv, dt, dev, with_id=with_id),
             pending_long_k=zeros(ck), pending_long_v=zeros(cv),
             pending_short_k=zeros(ck), pending_short_v=zeros(cv),
-            pending_id_v=(zeros(cfg.encoder_embedding_dim) if with_id
-                          else None),
+            pending_id_v=zeros(d) if with_id else None,
             pending_mass=torch.zeros((batch, hw, cap), dtype=torch.float32,
                                      device=dev),
             pred_logits_4x=torch.zeros((batch, h4, w4, cfg.max_obj_num + 1),
@@ -138,8 +136,9 @@ class InferEngine:
             frame_step=0, last_mem_step=-1,
             mem_gap=self.gap if mem_gap is None else mem_gap,
             obj_nums=torch.ones(batch, dtype=torch.long, device=dev),
-            gru_hidden_k=zeros(ck) if gru else None,
-            gru_hidden_v=zeros(cv) if gru else None)
+            # whole on every rank of a model group: the GRU mixes channels
+            gru_hidden_k=zeros(d) if gru else None,
+            gru_hidden_v=zeros(d) if gru else None)
 
     def _id_emb_from_label(self, label: torch.Tensor, dtype: torch.dtype):
         return self.model.get_id_emb(label_to_one_hot(
@@ -241,6 +240,12 @@ class InferEngine:
             need_mass=True)
         logits = _mask_unused_ids(self.model.decode_id_logits(inters, xs),
                                   state.obj_nums)
+        tp = self.model.tp
+        if tp.size > 1 and not self.is_deaot and mass is not None:
+            # the LSTT splits its heads: each rank's mass is the mean over
+            # its own, the same number of heads on every rank
+            dist.all_reduce_([mass], tp)
+            mass /= tp.size
         state.pending_long_k = [m['curr_k'] for m in mems]
         state.pending_long_v = [m['curr_v'] for m in mems]
         if self.is_deaot:

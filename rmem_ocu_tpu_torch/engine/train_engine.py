@@ -30,7 +30,9 @@ rows of the world's episode: its masks (ops/layers.py `noise_from`) and
 its id shuffle are its rows of what one process draws for the world's
 batch, and the trainable BatchNorm normalises by the world's moments. The
 loss and metrics stay this rank's; the trainer averages them and the
-gradients.
+gradients. On a D x M world these are the data group's: the M ranks of a
+model group hold identical encoder activations and run one episode, and
+a sum of the moments over the whole world would count them M times.
 """
 from __future__ import annotations
 
@@ -73,13 +75,14 @@ def check_port_knobs(exp: ExpConfig) -> None:
             raise NotImplementedError(
                 f'{name}={getattr(exp, name)!r}: an XLA knob of the JAX '
                 f'package, not ported; leave it at {default!r}')
-    # the port's mesh is data-parallel only: one process per card
-    if tuple(exp.mesh_axes) != ('data',) or len(exp.mesh_shape) != 1:
+    # one process per card: a data mesh, or data x model (tensor
+    # parallelism, parallel/tp.py)
+    if tuple(exp.mesh_axes) not in (('data',), ('data', 'model')) or len(
+            exp.mesh_shape) != len(exp.mesh_axes):
         raise NotImplementedError(
             f'mesh_axes={tuple(exp.mesh_axes)!r}, mesh_shape='
-            f'{tuple(exp.mesh_shape)!r}: tensor parallelism over a model '
-            f'axis waits for ROADMAP item 15b; the port takes a data-only '
-            f"mesh, mesh_axes=('data',)")
+            f"{tuple(exp.mesh_shape)!r}: the port takes mesh_axes=('data',) "
+            f"with mesh_shape (D,), or ('data', 'model') with (D, M)")
     if exp.train_spatial_sharding:
         raise NotImplementedError(
             'train_spatial_sharding=True: spatial sharding (H-sharded '
@@ -100,7 +103,9 @@ class TrainEngine:
                  world: World = World()):
         check_port_knobs(exp)
         self.model = model
-        self.world = world
+        # the ranks of a model group run the same episode: rows, masks and
+        # batch moments are the data group's
+        self.world = world.data
         self.cfg = model.cfg
         self.exp = exp
         self.gap = exp.train_long_term_mem_gap
@@ -110,7 +115,7 @@ class TrainEngine:
                     if isinstance(m, BatchNorm2d)}
         for m in self.bns.values():
             m.defer_stats = True
-            m.world = world
+            m.world = self.world
 
     @property
     def device(self) -> torch.device:
@@ -131,15 +136,6 @@ class TrainEngine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return noise_from(gen, self.world.rank, self.world.size)
-
-    def _dims(self):
-        """(key width, value width, the bank holds ID_V)."""
-        cfg = self.cfg
-        d = cfg.encoder_embedding_dim
-        if cfg.vos != 'deaot':
-            return d, d, False
-        d_att = d // 2 if cfg.att_heads == 1 else d // cfg.att_heads
-        return d_att * cfg.att_heads, 2 * d, True
 
     def _episode_capacity(self, t_total: int) -> int:
         """The tight bank capacity of a T-frame episode: the write schedule
@@ -256,7 +252,7 @@ class TrainEngine:
                    if enable_id_shuffle else None)
         self_pos = (None if cfg.vos == 'deaot' else
                     self.model.get_pos_emb(size_2d).to(dev, frames.dtype))
-        ck, cv, with_id = self._dims()
+        ck, cv, with_id = self.model.memory_dims()
         n_layers = cfg.lstt_num
         cap = self._episode_capacity(t_total)
         budget = cfg.former_mem_len + cfg.latter_mem_len

@@ -122,13 +122,16 @@ class Evaluator:
 
     def __init__(self, model: VOSModel, exp: ExpConfig, result_root: str,
                  rank: int = 0, world: int = 1, frame_log: bool = False,
-                 probe: bool = False):
+                 probe: bool = False, write: bool = True):
         self.model = model
         self.exp = exp
         self.cfg = model.cfg
         self.result_root = result_root
         self.rank = rank
         self.world = world
+        # the masks are written (False on the ranks of a model group but
+        # its first, which serve the same sequences)
+        self.write = write
         # per-frame timing prints (reference TEST_FRAME_LOG,
         # evaluator.py:530-536)
         self.frame_log = frame_log
@@ -317,6 +320,8 @@ class Evaluator:
                       f'{base.name.split(".")[0]} - Obj Num: '
                       f'{base.obj_num}, Time: {int(frame_time * 1e3)}ms')
 
+            if not self.write:
+                continue
             out_path = os.path.join(
                 self.result_root, seq_name,
                 os.path.splitext(base.name)[0] + '.png')

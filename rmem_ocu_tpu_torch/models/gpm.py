@@ -13,6 +13,18 @@ package reads when not `deterministic`), and the train-time dropouts and
 drop-path of the JAX package apply: the long+short residual's dropout (or
 drop-path with `droppath_lst`), the attention-probability dropouts, the
 gated attentions' channel dropout and the self-attention's drop-path.
+
+Under tensor parallelism (`set_tp`, parallel/tp.py) the query and keys
+stay whole on every rank, and the values split by channel inside each
+head: a rank projects its rows of the query segment of `linear_QV` and
+gathers the whole query (the only activation that crosses the model
+group on the way in), keeps its columns of V, ID_V and the gates, reads
+its value shard of the bank through B1 (one head) or B3 (two), and its
+shard of the short-term values through B2. Every rank computes the same
+probabilities, so the eviction mass is the same on every rank with no
+collective. The long- and short-term outputs are row-split partial sums:
+they are added first and summed over the group once; the self-attention
+takes one more sum.
 """
 from __future__ import annotations
 
@@ -27,6 +39,11 @@ from rmem_ocu_tpu_torch.ops.attention import (GatedPropagation,
                                               LocalGatedPropagation)
 from rmem_ocu_tpu_torch.ops.layers import (EPS, DropPath, GroupNorm1D,
                                            dropout)
+from rmem_ocu_tpu_torch.parallel.dist import World
+from rmem_ocu_tpu_torch.parallel.layers import (copy_to_model,
+                                                gather_from_model,
+                                                reduce_from_model)
+from rmem_ocu_tpu_torch.parallel.tp import Layout, ranges_of
 
 
 class GPMBlock(nn.Module):
@@ -70,6 +87,55 @@ class GPMBlock(nn.Module):
             d_qk=d * 2, d_vu=d * 2, num_heads=self_heads, d_att=self.d_att,
             expand_ratio=expand_ratio)
         self.drop_path = DropPath(droppath)
+        self.tp = World()
+
+    def tp_layout(self) -> Layout:
+        """The column- and row-split tensors of the block (parameter name
+        -> (dimension, segments)): the query and value segments of
+        linear_QV apart, the value channels of each gated attention as
+        its two segments."""
+        q, e = self.d_att * self.att_heads, self.expand_d_model
+        out = {}
+
+        def col(name, segments):
+            out[f'{name}.weight'] = out[f'{name}.bias'] = (0, segments)
+
+        col('linear_QV', (q, e))
+        for name in ('linear_U', 'linear_ID_V', 'linear_ID_U'):
+            if hasattr(self, name):
+                col(name, (e,))
+        sa = self.self_attn
+        col('self_attn.linear_QK', (sa.att_dim * sa.num_heads,))
+        for name in ('linear_V1', 'linear_V2', 'linear_U1', 'linear_U2'):
+            col(f'self_attn.{name}', (sa.expand_d_vu // 2,))
+        for attn in ('long_term_attn', 'short_term_attn', 'self_attn'):
+            out[f'{attn}.projection.weight'] = (1, (e, e))
+        return out
+
+    def set_tp(self, world: World) -> None:
+        """Run as this rank's shard of the model group `world` (the
+        parameters already cut by parallel/tp.py `shard_model`)."""
+        if self.att_heads not in (1, 2):
+            # V || ID_V splits inside each head only while a head is
+            # V, ID_V or both
+            raise NotImplementedError(
+                f'{self.att_heads} attention heads under tensor '
+                f'parallelism: the GPM splits 1 or 2')
+        self.tp = world
+        self.long_term_attn.set_tp(world)
+        self.short_term_attn.set_tp(world)
+        self.self_attn.set_tp(world)
+
+    def _rows(self, partial, *linears):
+        """The whole output of row-split projections from this rank's
+        partial sum of theirs: one sum over the group, then the biases
+        (which project_rows already added at one process)."""
+        if self.tp.size == 1:
+            return partial
+        out = reduce_from_model(partial, self.tp)
+        for linear in linears:
+            out = out + linear.bias
+        return out
 
     def forward(self, tgt, tgt_id, long_mem, short_kv, curr_id_emb,
                 size_2d: Tuple[int, int], temporal_pe,
@@ -81,9 +147,13 @@ class GPMBlock(nn.Module):
         temporal_pe: (cur_pe [H*Datt], mem_pe [B|1, T, H*Datt]) or None.
         Returns (tgt, tgt_id, memories dict, mass or None)."""
         b = tgt.shape[0]
-        _tgt = self.norm1(tgt)
+        tp = self.tp
+        _tgt = copy_to_model(self.norm1(tgt), tp)
+        q_width = self.d_att * self.att_heads
         curr_q, curr_v = self.linear_QV(_tgt).split(
-            [self.d_att * self.att_heads, self.expand_d_model], dim=-1)
+            [q_width // tp.size, self.expand_d_model // tp.size], dim=-1)
+        curr_q = gather_from_model(
+            curr_q, tp, ranges_of((q_width,), tp.rank, tp.size), q_width)
         curr_k = curr_q
         curr_v = F.silu(curr_v)
         curr_u = self.linear_U(_tgt)
@@ -94,7 +164,7 @@ class GPMBlock(nn.Module):
             curr_id_v = None
         else:
             curr_id_v = self.id_norm1(tgt_id)
-            curr_id_u = self.linear_ID_U(curr_id_v)
+            curr_id_u = self.linear_ID_U(copy_to_model(curr_id_v, tp))
             cat_curr_u = F.silu(torch.cat([curr_u, curr_id_u], dim=-1))
 
         mems = {'curr_k': curr_k, 'curr_v': curr_v, 'curr_id_v': curr_id_v}
@@ -111,7 +181,7 @@ class GPMBlock(nn.Module):
 
         capacity, hw = mem_k.shape[1], mem_k.shape[2]
         if temporal_pe is not None:
-            cur_pe, mem_pe = temporal_pe
+            cur_pe, mem_pe = (copy_to_model(x, tp) for x in temporal_pe)
             mem_pe = mem_pe[..., :capacity, :]
             if mem_pe.dim() == 2:
                 mem_pe = mem_pe[None]
@@ -150,11 +220,11 @@ class GPMBlock(nn.Module):
         cat_tgt3 = self.short_term_attn(curr_q, local_k, cat_local_v,
                                         cat_curr_u, size_2d)
 
-        tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)
-        tgt3, tgt_id3 = cat_tgt3.chunk(2, dim=-1)
+        lst, lst_id = self._rows(
+            cat_tgt2 + cat_tgt3, self.long_term_attn.projection,
+            self.short_term_attn.projection).chunk(2, dim=-1)
         # the long+short residual (reference :1215-1220): drop-path with
         # droppath_lst, else dropout at max(lt, st)
-        lst, lst_id = tgt2 + tgt3, tgt_id2 + tgt_id3
         if self.droppath_lst:
             lst, lst_id = self.drop_path(lst), self.drop_path(lst_id)
         else:
@@ -163,17 +233,19 @@ class GPMBlock(nn.Module):
         tgt = tgt + lst
         tgt_id = lst_id if tgt_id is None else tgt_id + lst_id
 
-        cat_q = torch.cat([self.norm2(tgt), self.id_norm2(tgt_id)], dim=-1)
+        cat_q = copy_to_model(torch.cat([self.norm2(tgt),
+                                         self.id_norm2(tgt_id)], dim=-1), tp)
         cat_tgt2, _ = self.self_attn(cat_q, cat_q, cat_q, cat_q, size_2d)
-        tgt2, tgt_id2 = cat_tgt2.chunk(2, dim=-1)
+        tgt2, tgt_id2 = self._rows(cat_tgt2,
+                                   self.self_attn.projection).chunk(2, dim=-1)
         return (tgt + self.drop_path(tgt2), tgt_id + self.drop_path(tgt_id2),
                 mems, mass)
 
     def fuse_value_id(self, value, id_emb):
-        """ID-value fusion (reference transformer.py:1238-1244)."""
-        if value is None:
-            return F.silu(self.linear_ID_V(id_emb))
-        return F.silu(self.linear_ID_V(torch.cat([value, id_emb], dim=-1)))
+        """ID-value fusion (reference transformer.py:1238-1244); this
+        rank's ID_V channels under tensor parallelism."""
+        x = id_emb if value is None else torch.cat([value, id_emb], dim=-1)
+        return F.silu(self.linear_ID_V(copy_to_model(x, self.tp)))
 
 
 class GPMStack(nn.Module):

@@ -13,6 +13,10 @@ that its state_dict keys load unchanged (see utils/convert.py).
 The train-time rates (drop-path, the embedding, id, long- and short-term
 dropouts) come from the experiment config (`build_vos_model(..., exp=)`)
 and act only in training mode.
+
+`parallel.tp.shard_model(model, world.model)` cuts the model into a
+rank's shard of a model group (`model.tp`, `model.tp_layout`): the
+transformer's projections split, everything else whole on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from rmem_ocu_tpu_torch.models.lstt import LSTTStack
 from rmem_ocu_tpu_torch.ops.layers import (EPS, DropPath, dropout,
                                            tokens_from_2d)
 from rmem_ocu_tpu_torch.ops.position import sine_position_embedding
+from rmem_ocu_tpu_torch.parallel.dist import World
 from rmem_ocu_tpu_torch.utils.device import resolve_device
 
 
@@ -47,6 +52,9 @@ class VOSModel(nn.Module):
         self.cfg = cfg
         self.is_deaot = cfg.vos == 'deaot'
         self.id_dropout = id_dropout
+        # the model group this model is a shard of (parallel/tp.py)
+        self.tp = World()
+        self.tp_layout = {}
         d = cfg.encoder_embedding_dim
         self.encoder = build_encoder(cfg.encoder, use_mask=cfg.use_mask,
                                      frozen_bn=cfg.freeze_bn)
@@ -86,6 +94,17 @@ class VOSModel(nn.Module):
             slots = 4 if cfg.temporal_pe_slot_4 else 2
             self.cur_pos_emb = nn.Parameter(torch.zeros(1, pe_dim))
             self.mem_pos_emb = nn.Parameter(torch.zeros(slots, pe_dim))
+
+    def memory_dims(self) -> Tuple[int, int, bool]:
+        """(key width, value width, the bank holds ID_V) of this rank's
+        memory: AOT's keys and values split by heads over the model group,
+        DeAOT's keys whole and its values by channel."""
+        cfg = self.cfg
+        d, m = cfg.encoder_embedding_dim, self.tp.size
+        if not self.is_deaot:
+            return d // m, d // m, False
+        d_att = d // 2 if cfg.att_heads == 1 else d // cfg.att_heads
+        return d_att * cfg.att_heads, 2 * d // m, True
 
     def forward(self, method: str, *args, **kwargs):
         """Call the method named `method` (one of the engine's entry points

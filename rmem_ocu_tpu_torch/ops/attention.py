@@ -18,6 +18,18 @@ training mode stay plain matmul + softmax, which autograd differentiates
 `deterministic`). In training mode the probabilities are dropped at the
 module's `dropout` rate (reference attention.py:61, 348).
 
+Under tensor parallelism (parallel/tp.py, `set_tp`) a module holds its
+shards of the column-split input projections and of the row-split output
+`projection`, and returns the rank's partial sum of the projected output,
+without the projection's bias: the caller (the LSTT or GPM block) sums
+the partials over the model group and adds the bias once. The LSTT's
+attention splits by heads (`heads_here` of them on a rank). The gated
+attentions keep their query and keys whole on every rank and split their
+values by channel inside each of the value's two halves (V and ID_V, or
+the halves of `_cat_half`; their depthwise conv and projection follow the
+same channels), so that every rank computes the same probabilities, and
+the same eviction mass, with no collective but the gather of the query.
+
 bf16 storage policy (the JAX package's `_qk_out_dtype` /
 `_maybe_compact_logits` at their default): on bf16 inputs the QK logits are
 emitted in bf16 and the probabilities are stored in bf16; the softmax
@@ -41,6 +53,10 @@ from rmem_ocu_tpu_torch.ops.kernels.memory_read_mh import \
 from rmem_ocu_tpu_torch.ops.layers import (DWConv2d, dropout,
                                            scale_in_dtype, tokens_from_2d,
                                            tokens_to_2d)
+from rmem_ocu_tpu_torch.parallel.dist import World
+from rmem_ocu_tpu_torch.parallel.layers import (copy_to_model,
+                                                gather_from_model)
+from rmem_ocu_tpu_torch.parallel.tp import ranges_of
 
 
 @functools.lru_cache(maxsize=2)
@@ -103,9 +119,29 @@ def scaled_dot_attention(q, k, v, num_heads: int,
     return out, mass.mean(1)
 
 
+def _split_values(module, world: World) -> None:
+    """A gated attention's values split over the model group `world`:
+    the rank's part of each half of the value channels."""
+    half = module.projection.in_features // 2
+    module.tp = world
+    module.dw_conv.set_channels(world, ranges_of((half, half), world.rank,
+                                                 world.size))
+
+
+def project_rows(linear: nn.Linear, x: torch.Tensor,
+                 tp: World) -> torch.Tensor:
+    """linear(x), or, with x the rank's input columns of a row-split
+    linear, the rank's partial sum without the bias."""
+    if tp.size == 1:
+        return linear(x)
+    return F.linear(x, linear.weight)
+
+
 class MultiheadAttention(nn.Module):
     """Reference attention.py:8-86. use_linear controls the Q/K/V
-    projections; the output projection always exists."""
+    projections; the output projection always exists. Under tensor
+    parallelism a rank holds `heads_here` of the heads (the mass it
+    returns is the mean over them) and returns its partial output."""
 
     def __init__(self, d_model: int, num_heads: int = 8,
                  use_linear: bool = True, dropout: float = 0.0):
@@ -114,11 +150,19 @@ class MultiheadAttention(nn.Module):
         self.num_heads = num_heads
         self.use_linear = use_linear
         self.dropout = dropout
+        self.tp = World()
+        self.heads_here = num_heads
         if use_linear:
             self.linear_Q = nn.Linear(d_model, d_model)
             self.linear_K = nn.Linear(d_model, d_model)
             self.linear_V = nn.Linear(d_model, d_model)
         self.projection = nn.Linear(d_model, d_model)
+
+    def set_tp(self, world: World) -> None:
+        if self.num_heads % world.size:
+            raise ValueError(f'{self.num_heads} heads do not split over a '
+                             f'model group of {world.size}')
+        self.tp, self.heads_here = world, self.num_heads // world.size
 
     def forward(self, q, k, v, key_bias=None,
                 mass_capacity: Optional[int] = None):
@@ -126,12 +170,12 @@ class MultiheadAttention(nn.Module):
         scaled_dot_attention."""
         if self.use_linear:
             q, k, v = self.linear_Q(q), self.linear_K(k), self.linear_V(v)
-        out, mass = scaled_dot_attention(q, k, v, self.num_heads,
+        out, mass = scaled_dot_attention(q, k, v, self.heads_here,
                                          key_bias=key_bias,
                                          mass_capacity=mass_capacity,
                                          dropout_rate=self.dropout,
                                          training=self.training)
-        return self.projection(out), mass
+        return project_rows(self.projection, out, self.tp), mass
 
     def bank_read(self, q, k_bank, v_bank, valid, mem_pe=None):
         """Long-term read over the bank through kernel B1 in its
@@ -141,9 +185,9 @@ class MultiheadAttention(nn.Module):
         mass [B, HWq, T])."""
         scale = (self.d_model // self.num_heads) ** -0.5
         (raw,), mass = memory_read_fused(q, k_bank, (v_bank,), valid,
-                                         self.num_heads, scale,
+                                         self.heads_here, scale,
                                          mem_pe=mem_pe)
-        return self.projection(raw.to(q.dtype)), mass
+        return project_rows(self.projection, raw.to(q.dtype), self.tp), mass
 
 
 class GatedPropagation(nn.Module):
@@ -161,6 +205,7 @@ class GatedPropagation(nn.Module):
         self.expand_d_vu = int(d_vu * expand_ratio)
         self.hidden = self.expand_d_vu // num_heads
         self.att_dim = d_qk // num_heads if d_att is None else d_att
+        self.tp = World()
         if use_linear:
             half = self.hidden * num_heads // 2
             self.linear_QK = nn.Linear(d_qk, self.att_dim * num_heads)
@@ -170,6 +215,15 @@ class GatedPropagation(nn.Module):
             self.linear_U2 = nn.Linear(d_vu // 2, half)
         self.dw_conv = DWConv2d(self.expand_d_vu)
         self.projection = nn.Linear(self.expand_d_vu, d_vu)
+
+    def set_tp(self, world: World) -> None:
+        """Query and keys whole on every rank (the projected query is
+        gathered), the values split inside each half."""
+        if self.use_linear and self.num_heads != 1:
+            raise NotImplementedError(
+                f'a gated self-attention of {self.num_heads} heads under '
+                f'tensor parallelism (its _cat_half interleaves the heads)')
+        _split_values(self, world)
 
     def _cat_half(self, x1, x2):
         """Interleave the two halves per head (reference
@@ -184,6 +238,9 @@ class GatedPropagation(nn.Module):
 
     def _project_inputs(self, q, v, u):
         q = self.linear_QK(q)
+        width = self.att_dim * self.num_heads
+        q = gather_from_model(q, self.tp, ranges_of(
+            (width,), self.tp.rank, self.tp.size), width)
         v1, v2 = v.chunk(2, dim=-1)
         v = F.silu(self._cat_half(self.linear_V1(v1), self.linear_V2(v2)))
         u1, u2 = u.chunk(2, dim=-1)
@@ -191,7 +248,8 @@ class GatedPropagation(nn.Module):
         return q, v, u
 
     def _gate_and_project(self, out, u, size_2d):
-        return self.projection(self.dw_conv(out * u, size_2d))
+        return project_rows(self.projection, self.dw_conv(out * u, size_2d),
+                            self.tp)
 
     def forward(self, q, k, v, u, size_2d: Tuple[int, int], key_bias=None,
                 mass_capacity: Optional[int] = None):
@@ -278,6 +336,7 @@ class LocalGatedPropagation(nn.Module):
         self.dropout = dropout
         ws = 2 * max_dis + 1
         self.d_att = d_qk // num_heads if d_att is None else d_att
+        self.tp = World()
         expand_d_vu = int(d_vu * expand_ratio)
         self.relative_emb_k = nn.Conv2d(self.d_att * num_heads,
                                         num_heads * ws * ws, kernel_size=1,
@@ -285,12 +344,20 @@ class LocalGatedPropagation(nn.Module):
         self.dw_conv = DWConv2d(expand_d_vu)
         self.projection = nn.Linear(expand_d_vu, d_vu)
 
+    def set_tp(self, world: World) -> None:
+        """Query, keys and the relative bias whole on every rank, the
+        values split inside each half (V and ID_V)."""
+        _split_values(self, world)
+
     def forward(self, q, k, v, u, size_2d: Tuple[int, int]) -> torch.Tensor:
-        """q, k: [B, HW, H*Datt]; v, u: [B, HW, E]."""
-        w = self.relative_emb_k.weight
+        """q, k: [B, HW, H*Datt]; v, u: [B, HW, E] (the rank's channels
+        under tensor parallelism)."""
+        # the whole bias weights meet each rank's value shard
+        w = copy_to_model(self.relative_emb_k.weight, self.tp)
+        bias = copy_to_model(self.relative_emb_k.bias, self.tp)
         if self.num_heads == 1 and not self.training:
             rel = F.linear(q, w.reshape(w.shape[0], w.shape[1]),
-                           self.relative_emb_k.bias)      # [B, HW, ws*ws]
+                           bias)                          # [B, HW, ws*ws]
             out = local_window_attention(
                 scale_in_dtype(q, self.d_att ** -0.5), k.contiguous(), v,
                 rel.float().contiguous(), size_2d, self.max_dis,
@@ -301,9 +368,10 @@ class LocalGatedPropagation(nn.Module):
             rel = torch.einsum(
                 'blhd,hjd->bhlj', q.reshape(b, hw, h, self.d_att),
                 w.reshape(h, -1, self.d_att))
-            rel = rel + self.relative_emb_k.bias.reshape(h, 1, -1)
+            rel = rel + bias.reshape(h, 1, -1)
             out = self._dense_core(q, k, v, rel, size_2d)
-        return self.projection(self.dw_conv(out * u, size_2d))
+        return project_rows(self.projection, self.dw_conv(out * u, size_2d),
+                            self.tp)
 
     def _dense_core(self, q, k, v, rel, size_2d):
         """One attention over the zero-padded key grid, [HW, Hp*Wp] logits

@@ -12,7 +12,10 @@ checkpointed function, so that a recompute draws the same masks. Under
 data parallelism it also installs the rank's block of the batch: each rank
 draws the masks of the whole world's batch, as one process would, and
 keeps its own rows, so that W ranks of B samples draw what one process of
-W*B samples draws.
+W*B samples draws. Under tensor parallelism a draw on a tensor whose
+channels are split over the model group draws the whole tensor's mask and
+keeps the rank's channels (`cols`), and a draw on a whole tensor is the
+same on every rank of the group: the ranks of a model group draw alike.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rmem_ocu_tpu_torch.parallel.dist import World, all_reduce_sum
+from rmem_ocu_tpu_torch.parallel.dist import (Ranges, World, all_reduce_sum,
+                                              take)
+from rmem_ocu_tpu_torch.parallel.layers import scatter_to_model
 
 EPS = 1e-5
 
@@ -53,25 +58,34 @@ def noise_from(generator: Optional[torch.Generator], rank: int = 0,
         _NOISE.generator, _NOISE.rank, _NOISE.world = prev
 
 
-def keep_mask(shape, keep: float, like: torch.Tensor) -> torch.Tensor:
+def keep_mask(shape, keep: float, like: torch.Tensor,
+              cols: Optional[Tuple[Ranges, int]] = None) -> torch.Tensor:
     """A {0, 1} mask in like's dtype and device, 1 with probability
-    `keep`: this rank's rows of the world's draw."""
+    `keep`: this rank's rows of the world's draw. cols = (ranges, whole)
+    draws a last axis `whole` wide and keeps this model rank's ranges of
+    it."""
     shape = tuple(shape)
     n, rank = shape[0], _NOISE.rank
-    u = torch.rand((n * _NOISE.world,) + shape[1:],
+    last = shape[1:] if cols is None else shape[1:-1] + (cols[1],)
+    u = torch.rand((n * _NOISE.world,) + last,
                    generator=_NOISE.generator, device=like.device)
-    return (u[rank * n:(rank + 1) * n] < keep).to(like.dtype)
+    u = u[rank * n:(rank + 1) * n]
+    if cols is not None:
+        u = take(u, cols[0], -1)
+    return (u < keep).to(like.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            shape=None) -> torch.Tensor:
+            shape=None, cols: Optional[Tuple[Ranges, int]] = None
+            ) -> torch.Tensor:
     """x * mask / keep with mask ~ Bernoulli(1 - rate) of `shape` (x's by
     default, broadcast over x), as the JAX package drops; the identity out
-    of training or at rate 0."""
+    of training or at rate 0. `cols`: see keep_mask."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    return x * keep_mask(x.shape if shape is None else shape, keep, x) / keep
+    return x * keep_mask(x.shape if shape is None else shape, keep, x,
+                         cols) / keep
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
@@ -135,40 +149,72 @@ class ConvGN(nn.Module):
         return self.gn(self.conv(x))
 
 
-class GNActDWConv2d(nn.Module):
+class _ChannelShard:
+    """A module over `dim` channels that a model group may split:
+    `channels` are this rank's (start, length) ranges of them, all of them
+    at one process. Its weights stay whole on every rank; a rank takes its
+    channels' at use (`scatter_to_model`, so that their gradients sum over
+    the group)."""
+
+    def _all_channels(self, dim: int) -> None:
+        self.set_channels(World(), ((0, dim),))
+
+    def set_channels(self, world: World, channels: Ranges) -> None:
+        self.tp, self.channels = world, tuple(channels)
+
+    def _mine(self, w: torch.Tensor) -> torch.Tensor:
+        return scatter_to_model(w, self.tp, self.channels, 0)
+
+
+def _depthwise(x2d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return F.conv2d(x2d, w, None, padding=w.shape[-1] // 2,
+                    groups=w.shape[0])
+
+
+class GNActDWConv2d(_ChannelShard, nn.Module):
     """GroupNorm(32) -> GELU -> depthwise 5x5 conv without bias, on tokens
     (reference basic.py:15-35): the FFN activation of the LSTT blocks. The
     GELU is the exact erf form on f32 and the tanh form on bf16, as in the
-    JAX package."""
+    JAX package. On a rank's contiguous channels (between the column-split
+    linear1 and the row-split linear2) each group stays local: the rank
+    holds whole groups."""
 
     def __init__(self, dim: int, gn_groups: int = 32):
         super().__init__()
         self.gn = nn.GroupNorm(gn_groups, dim, eps=EPS)
         self.conv = nn.Conv2d(dim, dim, 5, padding=2, groups=dim, bias=False)
+        self._all_channels(dim)
 
     def forward(self, x: torch.Tensor, size_2d: Tuple[int, int]
                 ) -> torch.Tensor:
-        x2d = self.gn(tokens_to_2d(x, size_2d))
+        x2d = F.group_norm(tokens_to_2d(x, size_2d),
+                           self.gn.num_groups // self.tp.size,
+                           self._mine(self.gn.weight),
+                           self._mine(self.gn.bias), self.gn.eps)
         x2d = F.gelu(x2d, approximate='tanh' if x2d.dtype == torch.bfloat16
                      else 'none')
-        return tokens_from_2d(self.conv(x2d))
+        return tokens_from_2d(_depthwise(x2d, self._mine(self.conv.weight)))
 
 
-class DWConv2d(nn.Module):
+class DWConv2d(_ChannelShard, nn.Module):
     """Depthwise 5x5 conv without bias on tokens, then, in training, the
     reference's Dropout2d: whole channels of a sample dropped at `dropout`
-    (reference basic.py:38-57, 0.1 in every gated attention)."""
+    (reference basic.py:38-57, 0.1 in every gated attention). On a rank's
+    channels the conv takes their weights and the dropout their draws."""
 
     def __init__(self, dim: int, dropout: float = 0.1):
         super().__init__()
         self.dropout = dropout
         self.conv = nn.Conv2d(dim, dim, 5, padding=2, groups=dim, bias=False)
+        self._all_channels(dim)
 
     def forward(self, x: torch.Tensor, size_2d: Tuple[int, int]
                 ) -> torch.Tensor:
-        x = tokens_from_2d(self.conv(tokens_to_2d(x, size_2d)))
+        x = tokens_from_2d(_depthwise(tokens_to_2d(x, size_2d),
+                                      self._mine(self.conv.weight)))
         return dropout(x, self.dropout, self.training,
-                       (x.shape[0], 1, x.shape[2]))
+                       (x.shape[0], 1, x.shape[2]),
+                       (self.channels, self.conv.weight.shape[0]))
 
 
 def frozen_bn_scale_bias(weight, bias, running_mean, running_var,

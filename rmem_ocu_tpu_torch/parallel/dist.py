@@ -13,14 +13,23 @@ process with no group, and its collectives do nothing. A world with a
 group runs them even at size 1, so that one card exercises the path that N
 cards run. The collectives are `all_reduce` and `broadcast` only, which
 gloo supports on CUDA tensors too: one code path serves NCCL, gloo on the
-CPU and gloo on CUDA tensors.
+CPU and gloo on CUDA tensors. An all-gather is an all-reduce of a
+zero-filled buffer into which each rank writes its part (x + 0 is exact,
+so every rank ends with the same bits), and a reduce-scatter an
+all-reduce followed by the rank's part.
+
+A world of D x M ranks (tensor parallelism, the JAX package's
+('data', 'model') mesh) also holds a data group and a model group: rank r
+is (data index r // M, model index r % M), so that the M ranks of one
+model group are adjacent and share a host's cards. `World.data` and
+`World.model` are the two subgroups as worlds of their own.
 """
 from __future__ import annotations
 
 import datetime
 import os
 from dataclasses import dataclass
-from typing import Iterable, List, Optional
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,22 +41,45 @@ TORCHRUN_ENV = ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
 @dataclass(frozen=True)
 class World:
     """rank of size processes; `device` is this process's device; `group`
-    is None for one process without a process group."""
+    is None for one process without a process group. `tp` is the size M of
+    the model groups (1: data parallelism only), `data_group` and
+    `model_group` this rank's subgroups when tp > 1."""
     rank: int = 0
     size: int = 1
     device: torch.device = torch.device('cpu')
     group: Optional[dist.ProcessGroup] = None
+    tp: int = 1
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def data(self) -> 'World':
+        """The data-parallel group of this rank: the ranks of the same
+        model index (the world itself without tensor parallelism)."""
+        if self.tp == 1:
+            return self
+        return World(rank=self.rank // self.tp, size=self.size // self.tp,
+                     device=self.device, group=self.data_group)
 
-def torchrun_line(n: int, module: str) -> str:
-    """The launch line of `module` data-parallel over n cards of one
-    host."""
+    @property
+    def model(self) -> 'World':
+        """The model group of this rank: the M ranks that hold the shards
+        of one model (one process without a group when tp is 1)."""
+        if self.tp == 1:
+            return World(device=self.device)
+        return World(rank=self.rank % self.tp, size=self.tp,
+                     device=self.device, group=self.model_group)
+
+
+def torchrun_line(n: int, module: str, mesh: Optional[str] = None) -> str:
+    """The launch line of `module` over n cards of one host, data-parallel
+    (`--mesh n`) unless another `mesh` is given."""
     return (f'torchrun --nproc_per_node {n} -m {module} --multihost '
-            f'--mesh {n} ...')
+            f'--mesh {mesh or n} ...')
 
 
 def env_rank_and_size():
@@ -59,12 +91,14 @@ def env_rank_and_size():
 
 def init_from_env(device: Optional[str] = None,
                   backend: Optional[str] = None,
-                  timeout_s: float = 600.0) -> World:
+                  timeout_s: float = 600.0, tp: int = 1) -> World:
     """Form the process group from torchrun's environment and return this
     process's World. `device=None` takes `cuda:LOCAL_RANK` (and raises
     without a card); 'cpu' trains on the CPU. The backend is NCCL on the
-    card and gloo on the CPU unless given. Raises when the environment
-    lacks a variable or the group does not form within `timeout_s`."""
+    card and gloo on the CPU unless given. With tp > 1 the world is
+    WORLD_SIZE / tp data ranks of tp model ranks, with its subgroups.
+    Raises when the environment lacks a variable, tp does not divide the
+    world, or the group does not form within `timeout_s`."""
     missing = [k for k in TORCHRUN_ENV if k not in os.environ]
     if missing:
         raise RuntimeError(
@@ -72,6 +106,9 @@ def init_from_env(device: Optional[str] = None,
             f'torchrun (or set RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR '
             f'and MASTER_PORT)')
     rank, size, local = env_rank_and_size()
+    if tp < 1 or size % tp:
+        raise ValueError(f'a model group of {tp} does not divide the world '
+                         f'of {size} processes')
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -86,7 +123,20 @@ def init_from_env(device: Optional[str] = None,
     dist.init_process_group(
         backend, init_method='env://', rank=rank, world_size=size,
         timeout=datetime.timedelta(seconds=timeout_s))
-    return World(rank=rank, size=size, device=dev, group=dist.group.WORLD)
+    if tp == 1:
+        return World(rank=rank, size=size, device=dev,
+                     group=dist.group.WORLD)
+    # every rank creates every subgroup, in the same order
+    groups = {}
+    for d in range(size // tp):
+        ranks = [d * tp + m for m in range(tp)]
+        groups['model', d] = dist.new_group(ranks)
+    for m in range(tp):
+        ranks = [d * tp + m for d in range(size // tp)]
+        groups['data', m] = dist.new_group(ranks)
+    return World(rank=rank, size=size, device=dev, group=dist.group.WORLD,
+                 tp=tp, data_group=groups['data', rank % tp],
+                 model_group=groups['model', rank // tp])
 
 
 def destroy(world: World) -> None:
@@ -131,8 +181,50 @@ def broadcast_(tensors: Iterable[torch.Tensor], world: World,
     buffer per dtype."""
     if world.group is None:
         return
+    # src is a rank of the world, which may be a subgroup
+    src = dist.get_global_rank(world.group, src)
     _coalesced(tensors, lambda flat: dist.broadcast(flat, src,
                                                     group=world.group))
+
+
+Ranges = Sequence[Tuple[int, int]]
+
+
+def take(x: torch.Tensor, ranges: Ranges, dim: int = -1) -> torch.Tensor:
+    """The (start, length) ranges of x along `dim`, concatenated in order
+    (a view for one range)."""
+    if len(ranges) == 1:
+        return x.narrow(dim, *ranges[0])
+    return torch.cat([x.narrow(dim, s, n) for s, n in ranges], dim)
+
+
+def all_gather(x: torch.Tensor, world: World, ranges: Ranges, whole: int,
+               dim: int = -1) -> torch.Tensor:
+    """The whole tensor of which x holds this rank's `ranges` along `dim`
+    (`whole` wide there), each rank holding its own: one all-reduce of a
+    zero-filled buffer into which each rank writes its part."""
+    if world.group is None:
+        return x
+    shape = list(x.shape)
+    shape[dim] = whole
+    out = x.new_zeros(shape)
+    at = 0
+    for s, n in ranges:
+        out.narrow(dim, s, n).copy_(x.narrow(dim, at, n))
+        at += n
+    dist.all_reduce(out, group=world.group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, world: World, ranges: Ranges,
+                   dim: int = -1) -> torch.Tensor:
+    """The sum of x over the ranks, of which this rank keeps its `ranges`
+    along `dim`: an all-reduce, then the rank's part."""
+    if world.group is None:
+        return x
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=world.group)
+    return take(out, ranges, dim)
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -8,8 +8,15 @@ Under torchrun (its `RANK`, `WORLD_SIZE` and `LOCAL_RANK`) each process
 evaluates every WORLD_SIZE-th sequence from its RANK-th on
 `cuda:LOCAL_RANK`, as the JAX CLI splits them by `jax.process_index()`
 (its tools/eval.py:215, 255-257); the ranks need no process group. Rank 0
-writes print.log. Model-parallel serving (`--mesh M`) waits for ROADMAP
-item 15b.
+writes print.log.
+
+Model-parallel serving, `--mesh M` under torchrun with WORLD_SIZE a
+multiple of M: each group of M adjacent ranks serves the same sequences,
+each rank holding its shard of the transformer (parallel/tp.py; the
+whole checkpoint is loaded, then cut), and the sequences split over the
+WORLD_SIZE / M groups as they split over processes without a mesh. Rank
+0 of each group writes the masks. `--backend gloo` runs the groups over
+gloo on CUDA tensors (two ranks on one card, which NCCL refuses).
 
 Examples:
     python -m rmem_ocu_tpu_torch.tools.eval --stage pre_vost_2 \
@@ -17,6 +24,9 @@ Examples:
         --ckpt_path model.pth
     torchrun --nproc_per_node 8 -m rmem_ocu_tpu_torch.tools.eval \
         --stage pre_vost_2 --model r50_deaotl --dataset vost \
+        --data_root ./datasets/VOST --ckpt_path model.pth
+    torchrun --nproc_per_node 8 -m rmem_ocu_tpu_torch.tools.eval \
+        --mesh 2 --stage pre_vost_2 --model r50_deaotl --dataset vost \
         --data_root ./datasets/VOST --ckpt_path model.pth
 
 Checkpoints: a reference `.pth`, or the `step_<N>` directories that the
@@ -96,9 +106,14 @@ def parse_args(argv=None):
                    help='ignore the training config.json snapshot '
                         '(reference eval.py:97-102 prefers the snapshot)')
     p.add_argument('--mesh', type=int, default=0,
-                   help='model-parallel serving over N devices; waits for '
-                        'ROADMAP item 15b (0/1). Sequences split over '
-                        'torchrun\'s processes without it')
+                   help='model-parallel serving over groups of N ranks '
+                        "(torchrun's WORLD_SIZE a multiple of N); the "
+                        'sequences split over the groups. Without it they '
+                        "split over torchrun's processes")
+    p.add_argument('--backend', type=str, default=None,
+                   choices=['nccl', 'gloo'],
+                   help='the model groups\' backend with --mesh; NCCL on '
+                        'the card and gloo on the CPU by default')
     p.add_argument('--device', type=str, default=None,
                    help="torch device; the card by default, 'cpu' only "
                         'when asked')
@@ -110,16 +125,18 @@ def main(argv=None):
     import torch
     from rmem_ocu_tpu_torch.config import get_config
     from rmem_ocu_tpu_torch.models import build_vos_model
+    from rmem_ocu_tpu_torch.parallel import dist, tp
     from rmem_ocu_tpu_torch.parallel.dist import env_rank_and_size
 
-    if args.mesh and args.mesh > 1:
-        raise SystemExit(f'--mesh {args.mesh}: model-parallel serving '
-                         f'waits for ROADMAP item 15b; to split the '
-                         f'sequences over N cards run torchrun '
-                         f'--nproc_per_node N -m rmem_ocu_tpu_torch.tools.'
-                         f'eval ... without --mesh')
     rank, world, local_rank = env_rank_and_size()
-    if args.device is None and world > 1:
+    if args.mesh > 1 and world % args.mesh:
+        raise SystemExit(
+            f'--mesh {args.mesh}: torchrun\'s world size is {world}, not a '
+            f'multiple of {args.mesh}; model-parallel serving runs one '
+            f'process per card, e.g. torchrun --nproc_per_node '
+            f'{args.mesh} -m rmem_ocu_tpu_torch.tools.eval --mesh '
+            f'{args.mesh} ...')
+    if args.device is None and world > 1 and args.mesh <= 1:
         args.device = f'cuda:{local_rank}'
     exp = get_config(args.stage, args.exp_name, args.model)
     # prefer the training run's saved config snapshot, like the reference
@@ -158,11 +175,30 @@ def main(argv=None):
         args.split = exp.test_dataset_split
 
     cfg = exp.model
-    model = build_vos_model(cfg, device=args.device)
-    load_checkpoint(args, exp, model)
-    if args.bf16:
-        model = model.to(torch.bfloat16)
+    group = (dist.init_from_env(args.device, backend=args.backend,
+                                tp=args.mesh) if args.mesh > 1 else None)
+    try:
+        model = build_vos_model(cfg, device=group.device if group
+                                else args.device)
+        load_checkpoint(args, exp, model)
+        write, log = True, rank == 0
+        if group is not None:
+            # each group serves its share of the sequences, its rank 0
+            # writes the masks, rank 0 of the world the log
+            tp.shard_model(model, group.model)
+            rank, world = group.data.rank, group.data.size
+            write, log = group.model.is_main, group.is_main
+        if args.bf16:
+            model = model.to(torch.bfloat16)
+        _serve(args, exp, model, rank, world, write, log)
+    finally:
+        if group is not None:
+            dist.destroy(group)
 
+
+def _serve(args, exp, model, rank, world, write, log):
+    """Evaluate sequences rank, rank + world, ... into the output
+    directory; `write` the masks, `log` to its print.log."""
     output = args.output or os.path.join(exp.dir_result(), 'eval',
                                          args.dataset)
     if args.output is None and args.dataset in ('davis2016', 'davis2017'):
@@ -174,9 +210,9 @@ def main(argv=None):
             else '480p')
     os.makedirs(output, exist_ok=True)
     from rmem_ocu_tpu_torch.utils.run_utils import Tee
-    tee = Tee(os.path.join(output, 'print.log')) if rank == 0 else None
+    tee = Tee(os.path.join(output, 'print.log')) if log else None
     try:
-        _evaluate(args, exp, model, output, rank, world)
+        _evaluate(args, exp, model, output, rank, world, write)
     finally:
         if tee is not None:
             tee.close()
@@ -231,7 +267,7 @@ def load_checkpoint(args, exp, model) -> None:
     print(f'loaded {which} from step {step} ({ckpt_path})')
 
 
-def _evaluate(args, exp, model, output, rank=0, world=1):
+def _evaluate(args, exp, model, output, rank=0, world=1, write=True):
     from rmem_ocu_tpu_torch.data import eval_datasets as ds
     from rmem_ocu_tpu_torch.eval.evaluator import Evaluator
     cfg = exp.model
@@ -273,7 +309,7 @@ def _evaluate(args, exp, model, output, rank=0, world=1):
         dataset = ds.build_synthetic_dataset(num_seqs=2)
 
     ev = Evaluator(model, exp, output, rank=rank, world=world,
-                   frame_log=args.frame_log, probe=args.probe)
+                   frame_log=args.frame_log, probe=args.probe, write=write)
     stats = ev.evaluate(dataset)
     print(f'done: {stats.total_frames} frames, '
           f'p50 {stats.p50_latency_ms:.1f}ms, '

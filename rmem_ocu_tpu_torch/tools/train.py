@@ -15,13 +15,26 @@ sees. The JAX CLI's `--mesh D` in one process over D local chips has no
 exact counterpart here, because torch runs one process per card. Rank 0
 writes print.log, config.json, metrics.jsonl, the code snapshot, the
 TensorBoard logs and the checkpoints; every rank logs the world's loss.
-Tensor parallelism (`--mesh DxM`) waits for ROADMAP item 15b.
+
+Tensor parallelism runs `--multihost --mesh DxM` under torchrun with
+WORLD_SIZE = D*M: D data ranks of M model ranks each (the JAX package's
+('data', 'model') mesh), rank r being data rank r // M and model rank
+r % M. The M ranks of a model group load the same batch (the loader's
+rank and world are the data rank and D, `--batch_size` is per data rank)
+and each holds its shard of the transformer's projections
+(parallel/tp.py); `--zero1` splits the moments over the D data ranks on
+top. Checkpoints hold the whole model whatever the mesh, and restore at
+any mesh. `--backend gloo` runs the group over gloo on CUDA tensors (two
+ranks on one card, which NCCL refuses).
 
 Examples:
     python -m rmem_ocu_tpu_torch.tools.train --stage pre_vost \
         --model r50_deaotl --exp_name rmem --batch_size 8
     torchrun --nproc_per_node 8 -m rmem_ocu_tpu_torch.tools.train \
         --multihost --mesh 8 --zero1 --stage pre_vost --model r50_deaotl \
+        --exp_name rmem --batch_size 1
+    torchrun --nproc_per_node 8 -m rmem_ocu_tpu_torch.tools.train \
+        --multihost --mesh 4x2 --zero1 --stage pre_vost --model r50_deaotl \
         --exp_name rmem --batch_size 1
 """
 from __future__ import annotations
@@ -95,8 +108,13 @@ def parse_args(argv=None):
     p.add_argument('--mesh', type=str, default=None,
                    help='data-parallel processes N, one per card, launched '
                         'by torchrun with --multihost; it must equal '
-                        "torchrun's world size. DATAxMODEL (tensor "
-                        'parallelism) waits for ROADMAP item 15b')
+                        "torchrun's world size. DATAxMODEL: tensor "
+                        'parallelism over model groups of MODEL ranks, '
+                        "DATA*MODEL = torchrun's world size")
+    p.add_argument('--backend', type=str, default=None,
+                   choices=['nccl', 'gloo'],
+                   help='the process group\'s backend with --multihost; '
+                        'NCCL on the card and gloo on the CPU by default')
     p.add_argument('--zero1', action='store_true',
                    help="ZeRO stage 1: the optimizer's moments sharded over "
                         'the data-parallel processes')
@@ -212,17 +230,23 @@ def metrics_row(step: int, metrics: dict, it_per_s: float) -> dict:
     return row
 
 
-def _data_parallel_size(args) -> int:
-    """The number of processes --mesh and --multihost ask for, checked
-    against torchrun's world before any group forms: exits with the
-    torchrun line to use."""
+def _mesh_of(args):
+    """(data ranks, model ranks) that --mesh and --multihost ask for,
+    checked against torchrun's world before any group forms: exits with
+    the torchrun line to use."""
     module = 'rmem_ocu_tpu_torch.tools.train'
     world = dist.env_rank_and_size()[1]
     if args.mesh and 'x' in args.mesh.lower():
-        raise SystemExit(
-            f'--mesh {args.mesh}: the port\'s mesh is data-parallel only '
-            f'(--mesh N, one process per card); tensor parallelism over a '
-            f'model axis waits for ROADMAP item 15b')
+        d, m = (int(x) for x in args.mesh.lower().split('x'))
+        if (not args.multihost or 'WORLD_SIZE' not in os.environ
+                or d * m != world):
+            raise SystemExit(
+                f'--mesh {args.mesh}: torchrun\'s world size is '
+                f'{os.environ.get("WORLD_SIZE", "unset")}; tensor-parallel '
+                f'training (ROADMAP item 15b) runs one process per card, '
+                f'{d * m} of them: '
+                f'{dist.torchrun_line(d * m, module, args.mesh)}')
+        return d, m
     n = int(args.mesh) if args.mesh else (world if args.multihost else 1)
     if not args.multihost:
         if n > 1 or world > 1:
@@ -231,30 +255,35 @@ def _data_parallel_size(args) -> int:
                 f'data-parallel training (ROADMAP item 15a) runs one '
                 f'process per card, e.g. '
                 f'{dist.torchrun_line(max(n, world), module)}')
-        return 1
+        return 1, 1
     if 'WORLD_SIZE' not in os.environ or n != world:
         raise SystemExit(
             f'--multihost --mesh {n}: torchrun\'s world size is '
             f'{os.environ.get("WORLD_SIZE", "unset")}; data-parallel '
             f'training (ROADMAP item 15a) runs one process per card: '
             f'{dist.torchrun_line(n, module)}')
-    return n
+    return n, 1
 
 
 def main(argv=None):
     args = parse_args(argv)
-    n_proc = _data_parallel_size(args)
+    n_data, n_model = _mesh_of(args)
     exp = _exp_from_args(args)
-    if args.mesh:
-        exp = replace(exp, mesh_shape=(n_proc,), mesh_axes=('data',))
+    if n_model > 1:
+        exp = replace(exp, mesh_shape=(n_data, n_model),
+                      mesh_axes=('data', 'model'))
+    elif args.mesh:
+        exp = replace(exp, mesh_shape=(n_data,), mesh_axes=('data',))
     if args.zero1:
         exp = replace(exp, train_zero1=True)
     check_port_knobs(exp)
-    world = (dist.init_from_env(args.device) if args.multihost
+    world = (dist.init_from_env(args.device, backend=args.backend,
+                                tp=n_model) if args.multihost
              else World(device=resolve_device(args.device)))
     try:
         if args.fix_random:
-            args.seed = _fix_random(world.rank)
+            # the ranks of a model group seed alike
+            args.seed = _fix_random(world.data.rank)
         result_dir = exp.dir_result()
         for sub in ('ckpt', 'ema_ckpt'):
             os.makedirs(os.path.join(result_dir, sub), exist_ok=True)
@@ -281,16 +310,19 @@ def _train(args, exp, world, result_dir):
     device = world.device
     ckpt_dir = os.path.join(result_dir, 'ckpt')
     ema_dir = os.path.join(result_dir, 'ema_ckpt')
+    # the ranks of a model group load the same batch
     loader = TrainDataLoader(build_train_dataset(exp), exp.train_batch_size,
-                             seed=args.seed, rank=world.rank,
-                             world=world.size, num_workers=exp.data_workers)
+                             seed=args.seed, rank=world.data.rank,
+                             world=world.data.size,
+                             num_workers=exp.data_workers)
     data_iter = iter(loader)
     batch = next(data_iter)
 
     # the model's init draws from --seed, the episodes' randomness from
     # --seed + 1 (the JAX CLI's PRNGKey(seed) and PRNGKey(seed + 1)), the
     # same on every rank; init_state broadcasts rank 0's weights all the
-    # same
+    # same. Under tensor parallelism the trainer cuts the model into the
+    # rank's shard
     model = build_vos_model(exp.model, device=device, seed=args.seed,
                             exp=exp)
     trainer = Trainer(model, exp, world)
@@ -357,7 +389,8 @@ def _train(args, exp, world, result_dir):
             ckpt.save_checkpoint(ckpt_dir, step, trainer.state_dict(state),
                                  exp.train_max_keep_ckpt, world=world)
             # EMA weights in a parallel dir (reference trainer.py:659-676)
-            ckpt.save_checkpoint(ema_dir, step, {'state_dict': state.ema},
+            ckpt.save_checkpoint(ema_dir, step,
+                                 {'state_dict': trainer.ema_state_dict(state)},
                                  exp.train_max_keep_ckpt, world=world)
             if world.is_main:
                 print(f'saved step {step}')

@@ -14,13 +14,15 @@ The optimizer's arithmetic is elementwise, so `init_opt_state`,
 `adam_update` and `sgd_update` work on a ZeRO-1 slice of each tensor
 (parallel/tp.py) as on the whole; the clip comes before them, on the whole
 gradients, which under data parallelism are already averaged over the
-ranks.
+ranks. Under tensor parallelism the tensors are a rank's shards, the
+arithmetic is the same, and the trainer hands the clip the global norm
+over every rank's shards.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -157,14 +159,24 @@ def make_masks(params: Tensors, exp, extra_frozen: Sequence[str] = ()
     return ParamMasks(wd, is_enc, frozen)
 
 
+def sum_of_squares(tensors: Tensors) -> torch.Tensor:
+    """The f32 sum of squares of every element (a 0 tensor for none)."""
+    return sum((x.float().square().sum() for x in tensors.values()),
+               torch.zeros(()))
+
+
 def global_norm(tensors: Tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax global_norm)."""
     return torch.sqrt(sum(x.float().square().sum() for x in tensors.values()))
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
-    """optax's clip: unchanged below max_norm, else g / norm * max_norm."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> Tensors:
+    """optax's clip: unchanged below max_norm, else g / norm * max_norm.
+    `norm` is the gradients' global norm when the caller has it (under
+    tensor parallelism, the norm over every rank's shards)."""
+    if norm is None:
+        norm = global_norm(grads)
     under = norm < max_norm
     return {k: torch.where(under, g, g / norm * max_norm)
             for k, g in grads.items()}

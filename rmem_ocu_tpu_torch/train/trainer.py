@@ -21,6 +21,21 @@ ZeRO-1 slice of the optimizer's moments (parallel/tp.py) and the slices
 of the update are gathered. Every rank then holds the same parameters.
 The loss is a mean over samples, so with equal batches on every rank the
 mean over the ranks is the world's mean.
+
+On a D x M world (tensor parallelism, the JAX package's ('data', 'model')
+mesh, its :52-60, :219-233) the trainer cuts the model into this rank's
+shard of its model group (parallel/tp.py `shard_model`). The M ranks of a
+model group take the same rows of the batch and draw the same masks; the
+gradients and metrics are averaged over the data group only. A split
+parameter's gradient is whole on its rank; a parameter kept whole is
+used alike by every rank, its gradient alike on every rank of the group
+(the modules sum the parts of it that the ranks' shards produce); it is
+averaged over the whole world, so that every rank of a model group keeps
+the same copy even where the card's backward is not deterministic. The clip takes the norm
+over every rank's shards. ZeRO-1 splits each moment over the data group,
+along a dimension the model group does not split. `state_dict` gathers
+both, so a checkpoint has the layout of one process whatever the mesh,
+and `load_state_dict` cuts it again: checkpoints restore at any mesh.
 """
 from __future__ import annotations
 
@@ -34,6 +49,7 @@ from rmem_ocu_tpu_torch.engine.train_engine import TrainEngine
 from rmem_ocu_tpu_torch.models.vos_model import VOSModel
 from rmem_ocu_tpu_torch.parallel import dist
 from rmem_ocu_tpu_torch.parallel.dist import World
+from rmem_ocu_tpu_torch.parallel import tp
 from rmem_ocu_tpu_torch.parallel.tp import OPT_MOMENTS, Zero1
 from rmem_ocu_tpu_torch.train import optim
 
@@ -57,19 +73,25 @@ class Trainer:
         self.model = model
         self.exp = exp
         self.world = world
+        mesh = tuple(exp.mesh_shape)
+        want = ((1,), (world.size,)) if world.tp == 1 else (
+            (world.data.size, world.tp),)
+        if mesh not in want:
+            raise ValueError(f'mesh_shape={mesh} but the world has '
+                             f'{world.data.size} x {world.tp} processes')
+        if world.tp > 1 and model.tp.size == 1:
+            tp.shard_model(model, world.model)
+        self.layout = model.tp_layout
         self.engine = TrainEngine(model, exp, world)
         self.ema_decay = 1.0 - 1.0 / (exp.train_total_steps
                                       * exp.train_ema_ratio)
         self._masks = {}
-        mesh = exp.mesh_shape[0]
-        if mesh not in (1, world.size):
-            raise ValueError(f'mesh_shape={tuple(exp.mesh_shape)} but the '
-                             f'world has {world.size} processes')
         # ZeRO-1 at one process keeps the moments whole (the JAX package's
         # `zero1 and dp > 1`), but a process group of one still gathers
         self.zero1 = (Zero1({k: p.shape for k, p in
-                             self._params().items()}, world)
-                      if exp.train_zero1 and world.group is not None
+                             self._params().items()}, world.data,
+                            {k: (d,) for k, (d, _) in self.layout.items()})
+                      if exp.train_zero1 and world.data.group is not None
                       else None)
 
     def _params(self) -> Dict[str, torch.Tensor]:
@@ -88,21 +110,44 @@ class Trainer:
     def _shard(self, tensors: Dict[str, torch.Tensor]):
         return tensors if self.zero1 is None else self.zero1.shard(tensors)
 
+    def _whole(self, tensors: Dict[str, torch.Tensor]):
+        """The tensors with their model-split ones gathered whole."""
+        return tp.gather_tensors(tensors, self.layout, self.world.model)
+
+    def _cut(self, tensors: Dict[str, torch.Tensor]):
+        """This rank's model shards of whole tensors."""
+        return tp.shard_tensors(tensors, self.layout, self.world.model)
+
+    def _grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients of every rank's shards."""
+        if not self.layout:
+            return optim.global_norm(grads)
+        split = {k: g for k, g in grads.items() if k in self.layout}
+        sq = optim.sum_of_squares(split).to(self.world.device).reshape(1)
+        dist.all_reduce_([sq], self.world.model)
+        whole = {k: g for k, g in grads.items() if k not in self.layout}
+        return torch.sqrt(sq[0] + optim.sum_of_squares(whole))
+
     def _map_moments(self, opt_state: dict, fn) -> dict:
         return {k: fn(v) if k in OPT_MOMENTS else v
                 for k, v in opt_state.items()}
 
-    def _broadcast_model(self, state: TrainState) -> None:
+    def _broadcast_model(self, ema: Dict[str, torch.Tensor]) -> None:
         """Rank 0's weights, floating buffers and EMA on every rank (the
-        reference's DDP broadcast of the module, trainer.py:107-113)."""
-        dist.broadcast_([*self._floating_state().values(),
-                         *state.ema.values()], self.world)
+        reference's DDP broadcast of the module, trainer.py:107-113): the
+        shards over the data group, the whole tensors over the model group
+        too."""
+        parts = [self._floating_state(), ema]
+        dist.broadcast_([v for p in parts for v in p.values()],
+                        self.world.data)
+        dist.broadcast_([v for p in parts for k, v in p.items()
+                         if k not in self.layout], self.world.model)
 
     def init_state(self) -> TrainState:
         """Zero optimizer state (this rank's slices under ZeRO-1) and the
         EMA at the model's weights, after rank 0's model is broadcast."""
         with torch.no_grad():
-            dist.broadcast_(self._floating_state().values(), self.world)
+            self._broadcast_model({})
             params = {k: p.detach() for k, p in self._params().items()}
             return TrainState(
                 opt_state=optim.init_opt_state(self._shard(params),
@@ -124,32 +169,37 @@ class Trainer:
         opt_state = state.opt_state
         if self.zero1 is not None:
             opt_state = self._map_moments(opt_state, self.zero1.gather)
-        return {'state_dict': self.model.state_dict(),
-                'opt_state': opt_state, 'ema': state.ema,
+        return {'state_dict': self._whole(self.model.state_dict()),
+                'opt_state': self._map_moments(opt_state, self._whole),
+                'ema': self._whole(state.ema),
                 'step': state.step, 'ema_updates': state.ema_updates}
+
+    def ema_state_dict(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The EMA, whole (collective under tensor parallelism)."""
+        return self._whole(state.ema)
 
     def load_state_dict(self, ckpt: dict) -> TrainState:
         """Load a `state_dict` checkpoint, of any world, into the model
         (strictly) and return its TrainState with this rank's slices of
         the moments. Restore the checkpoint onto the model's device first
         (`restore_checkpoint(root, target=...)`); every rank calls it."""
-        self.model.load_state_dict(ckpt['state_dict'], strict=True)
-        opt_state = ckpt['opt_state']
+        tp.load_whole_state_dict(self.model, ckpt['state_dict'])
+        opt_state = self._map_moments(ckpt['opt_state'], self._cut)
         if self.zero1 is not None:
             opt_state = self._map_moments(opt_state, lambda m: {
                 k: v.clone() for k, v in self.zero1.shard(m).items()})
-        state = TrainState(opt_state=opt_state, ema=ckpt['ema'],
+        state = TrainState(opt_state=opt_state, ema=self._cut(ckpt['ema']),
                            step=int(ckpt['step']),
                            ema_updates=int(ckpt['ema_updates']))
         with torch.no_grad():
-            self._broadcast_model(state)
+            self._broadcast_model(state.ema)
         return state
 
     def _reduce_metrics(self, metrics: dict, obj_nums: torch.Tensor
                         ) -> None:
         """The world's means in place of this rank's: one all-reduce.
         The ious weigh each rank by its samples that hold an object."""
-        world = self.world
+        world = self.world.data
         if world.group is None:
             return
         has = (obj_nums > 0).sum().to(torch.float32)
@@ -199,14 +249,22 @@ class Trainer:
             grads = {k: (torch.zeros_like(p) if masks.frozen[k]
                          or p.grad is None else p.grad)
                      for k, p in params.items()}
-            dist.all_reduce_([g for k, g in grads.items()
-                              if not masks.frozen[k]], self.world,
+            # the split gradients average over the data group; the whole
+            # parameters' over the world, so that their copies in a model
+            # group stay bitwise alike even where the backward is not
+            # deterministic on the card (cuDNN's weight gradients)
+            trainable = [k for k in grads if not masks.frozen[k]]
+            dist.all_reduce_([grads[k] for k in trainable
+                              if k in self.layout], self.world.data,
                              mean=True)
-            grad_norm = optim.global_norm(grads)
+            dist.all_reduce_([grads[k] for k in trainable
+                              if k not in self.layout], self.world,
+                             mean=True)
+            grad_norm = self._grad_norm(grads)
             now_lr = optim.schedule_lr(state.step, exp)
             current = {k: p.detach() for k, p in params.items()}
-            clipped = optim.clip_by_global_norm(grads,
-                                                exp.train_clip_grad_norm)
+            clipped = optim.clip_by_global_norm(
+                grads, exp.train_clip_grad_norm, norm=grad_norm)
             if exp.train_opt == 'sgd':
                 updates, opt_state = optim.sgd_update(
                     self._shard(clipped), state.opt_state,

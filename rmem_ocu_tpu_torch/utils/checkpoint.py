@@ -17,6 +17,11 @@ vote on whether the write failed and fall back to the backup root
 together, and they leave together. Every rank restores from the shared
 file system.
 
+A model cut into a rank's shard of a model group (parallel/tp.py) loads
+a `.pth` as a whole model does: the loader reads the model's whole
+state (a collective over the group) and each rank keeps its shard of what
+it loads.
+
 The train CLI writes two kinds: `ckpt/` holds the whole train state
 (`Trainer.state_dict`), `ema_ckpt/` a bare `{'state_dict': ema}` that
 `load_torch_pretrained` reads as it reads a published `.pth`.
@@ -31,6 +36,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from rmem_ocu_tpu_torch.parallel import tp
 from rmem_ocu_tpu_torch.parallel.dist import World, agree
 
 CKPT_FILE = 'state.pth'
@@ -177,7 +183,8 @@ def load_state_dict(sd: dict, model: nn.Module) -> List[str]:
     values."""
     sd = {k[len('module.'):] if k.startswith('module.') else k: v
           for k, v in sd.items()}
-    own = model.state_dict()
+    own = tp.whole_state_dict(model) if hasattr(model, 'tp') \
+        else model.state_dict()
 
     key = 'patch_wise_id_bank.weight'
     if key in sd and key in own:
@@ -188,7 +195,10 @@ def load_state_dict(sd: dict, model: nn.Module) -> List[str]:
 
     loadable = {k: v for k, v in sd.items()
                 if k in own and tuple(v.shape) == tuple(own[k].shape)}
-    model.load_state_dict(loadable, strict=False)
+    if hasattr(model, 'tp'):
+        tp.load_whole_state_dict(model, loadable, strict=False)
+    else:
+        model.load_state_dict(loadable, strict=False)
     kept = sorted(set(own) - set(loadable))
     if kept:
         print(f'load_torch_pretrained: {len(kept)} params kept at init '

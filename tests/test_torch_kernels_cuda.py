@@ -528,3 +528,130 @@ def test_two_ranks_on_the_card_step_as_one(tmp_path):
     torch.testing.assert_close(two['ema'], one['ema'], rtol=0, atol=1e-4)
     whole, held = two['largest_moment']
     assert held * 2 == whole
+
+
+# tensor parallelism over a model group of M (parallel/tp.py): each rank
+# reads its shard of the bank on the main path's 23x40 grid
+TP_GRID = (23, 40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 8])
+@pytest.mark.parametrize('heads,d,dvs', [
+    (1, 128, (256, 256)), (1, 128, (128, 128)), (4, 32, (128,)),
+    (2, 32, (64,))], ids=['deaot_m2', 'deaot_m4', 'aot_m2', 'aot_m4'])
+def test_memory_read_kernel_at_tp_shards(heads, d, dvs, b):
+    """B1 on a rank's shard: one head with V and ID_V of 512/M each, and
+    8/M AOT heads of 32 (2 heads a rank takes memory_read_wide)."""
+    dev = _cuda()
+    rng = np.random.RandomState(heads + b + dvs[0])
+    hw, t_cap = TP_GRID[0] * TP_GRID[1], 10
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    q = t(rng.randn(b, hw, heads * d))
+    k = t(rng.randn(b, t_cap, hw, heads * d))
+    vs = tuple(t(rng.randn(b, t_cap, hw, dv)) for dv in dvs)
+    valid = torch.from_numpy(np.stack([_dead_slots(t_cap, 'middle')] * b))
+    pe = t(rng.randn(1, t_cap, heads * d) * 0.05)
+    args = (q, k, vs, valid.to(dev), heads, d ** -0.5)
+    got, got_mass = memory_read_fused(*args, mem_pe=pe)
+    want, want_mass = memory_read_fused_plain(*args, mem_pe=pe)
+    for g, w in zip(got, want):
+        _assert_close(g, w, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 8])
+@pytest.mark.parametrize('e', [256, 128], ids=['m2', 'm4'])
+def test_memory_read_attention_kernel_at_tp_shards(e, b):
+    """B3 on a rank's shard of the two-head read: two heads of 128, head 0
+    the rank's e channels of V, head 1 its e of ID_V."""
+    dev = _cuda()
+    rng = np.random.RandomState(e + b)
+    hw, t_cap, heads, d = TP_GRID[0] * TP_GRID[1], 10, 2, 128
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    q = t(rng.randn(b, hw, heads * d))
+    k = t(rng.randn(b, t_cap, hw, heads * d))
+    banks = (t(rng.randn(b, t_cap, hw, e)), t(rng.randn(b, t_cap, hw, e)))
+    valid = torch.from_numpy(np.stack([_dead_slots(t_cap, 'middle')] * b))
+    args = (q, k, banks, valid.to(dev), heads, d ** -0.5)
+    got, got_mass = memory_read_multihead(*args)
+    want, want_mass = memory_read_multihead_plain(*args)
+    _assert_close(got, want, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 8])
+@pytest.mark.parametrize('e', [512, 256], ids=['m2', 'm4'])
+def test_local_attention_kernel_at_tp_shards(e, b):
+    """B2 on a rank's value shard, 1024/M wide."""
+    dev = _cuda()
+    rng = np.random.RandomState(e + b + 1)
+    (h, w), d, md = TP_GRID, 128, 7
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    args = (t(rng.randn(b, h * w, d) * d ** -0.5), t(rng.randn(b, h * w, d)),
+            t(rng.randn(b, h * w, e)),
+            torch.from_numpy(rng.randn(b, h * w, (2 * md + 1) ** 2)
+                             .astype(np.float32)).to(dev), (h, w), md, False)
+    got = local_window_attention(*args)
+    _assert_close(got, local_window_attention_plain(*args), None)
+
+
+@pytest.mark.cuda
+def test_tp_serving_on_the_card_matches_one_process(tmp_path):
+    """A model group of two processes on card 0 (gloo over CUDA tensors)
+    serves a clip at write gap 1 as one process on the card does: eviction
+    ids identical at every update, both ranks alike, f32 logits within
+    1e-4 of one process's (the CPU serving test's bar; both sides run f32
+    convolutions, not TF32), and a mask pixel may differ only where one
+    process's two best upsampled logits are within twice that largest
+    logit difference (49x49 has 2401 pixels, so a share bar would count
+    ties); the kernels run on each rank's shard."""
+    import json
+    import torch_dp_worker as worker
+    from rmem_ocu_tpu_torch import build_vos_model
+    from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    dev = _cuda()
+    cases = []
+    for name, over in (('deaot', {}), ('aot', {})):
+        model = 'deaott' if name == 'deaot' else 'aott'
+        case = dict(kind='serve', name=name, model=model,
+                    overrides=dict(over, latter_mem_len=2), seed=5,
+                    weights=str(tmp_path / f'{name}.pt'))
+        exp = worker.serving_exp(case)
+        torch.save(build_vos_model(exp.model, device='cpu').state_dict(),
+                   case['weights'])
+        cases.append(case)
+    spec = str(tmp_path / 'spec.json')
+    with open(spec, 'w') as f:
+        json.dump(dict(device='cuda:0', backend='gloo', timeout=300,
+                       out=str(tmp_path), cases=cases, tp=2), f)
+    procs = worker.spawn(2, [worker.__file__, spec], local_ranks=[0, 0])
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        one = {c['name']: worker.run_serving(c, World(device=dev))
+               for c in cases}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        worker.wait(procs, 600)
+    for c in cases:
+        two = torch.load(worker.digest_path(str(tmp_path), c['name'], 2))
+        a = one[c['name']]
+        assert two['same_on_ranks']
+        for x, y in zip(a['ids'], two['ids']):
+            assert torch.equal(x, y)
+        size = (worker.SERVE_SIZE,) * 2
+        for la, lb, x, y in zip(a['logits'], two['logits'], a['preds'],
+                                two['preds']):
+            diff = float((la - lb).abs().max())
+            assert diff <= 1e-4, diff
+            top2 = interpolate_bilinear(la.permute(0, 3, 1, 2), size,
+                                        True).topk(2, dim=1).values
+            gaps = (top2[:, 0] - top2[:, 1])[x != y]
+            assert not gaps.numel() or float(gaps.max()) <= 2 * diff + 1e-6

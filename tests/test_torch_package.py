@@ -38,7 +38,7 @@ def test_import_loads_no_jax():
         'data.train_datasets', 'data.video_transforms', 'utils.checkpoint',
         'utils.run_utils', 'tools.train', 'tools.pipeline', 'tools.accept',
         'tools.prepare_extracted', 'tools.eval', 'parallel.dist',
-        'parallel.tp')} <= set(_port_modules())
+        'parallel.tp', 'parallel.layers')} <= set(_port_modules())
     code = (
         'import importlib, sys\n'
         f'for name in {_port_modules()!r}:\n'

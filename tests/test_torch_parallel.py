@@ -419,8 +419,10 @@ def test_eval_cli_world_of_two(cli_runs):
 @pytest.mark.parametrize('call,error', [
     (lambda: train_cli.main(CLI_ARGS + ['--mesh', '2']),
      'torchrun --nproc_per_node 2'),
-    (lambda: train_cli.main(CLI_ARGS + ['--mesh', '2x2']), 'item 15b'),
-    (lambda: eval_cli.main(['--mesh', '2', '--device', 'cpu']), 'item 15b'),
+    (lambda: train_cli.main(CLI_ARGS + ['--mesh', '2x2']),
+     'torchrun --nproc_per_node 4 .* --mesh 2x2'),
+    (lambda: eval_cli.main(['--mesh', '3', '--device', 'cpu']),
+     'torchrun --nproc_per_node 3 .* --mesh 3'),
     (lambda: TrainEngine(build_vos_model(
         worker.exp_of(_cases('')[0]).model, device='cpu'),
         replace(worker.exp_of(_cases('')[0]),

@@ -18,7 +18,15 @@ rank. Keys: name, model, steps, batch, zero1, remat, overrides (config
 fields), seed (of the model's weights), save (a checkpoint root written
 after the steps), flaky_save (rank 0's first write of that save fails),
 restore (a checkpoint root restored before them), capture (keep the
-first step's averaged gradients and parameters).
+first step's averaged gradients and parameters). A spec's `tp` makes the
+world D x tp (tensor parallelism): a case then runs on a ('data',
+'model') mesh, takes the rows of its data rank, and its digest holds the
+whole tensors, gathered over the model group.
+
+A case of kind 'serve' (`run_serving`) streams a clip through the
+inference engine instead, the model's weights loaded from the case's
+`weights` file and cut over the model group; one of kind 'gather'
+(`run_gather`) differentiates through `gather_from_model`.
 """
 import json
 import os
@@ -123,11 +131,16 @@ def run_case(case, world):
     from rmem_ocu_tpu_torch.train import optim
     from rmem_ocu_tpu_torch.train.trainer import Trainer
     from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
+    from rmem_ocu_tpu_torch.parallel import tp
     exp = exp_of(case)
+    if world.tp > 1:
+        exp = replace(exp, mesh_shape=(world.data.size, world.tp),
+                      mesh_axes=('data', 'model'))
     model = build_vos_model(exp.model, device=world.device,
                             seed=case.get('seed', 0), exp=exp)
     trainer = Trainer(model, exp, world)
     state = trainer.init_state()
+    names = [k for k, _ in model.named_parameters()]
     digest = {'steps': []}
     if case.get('restore'):
         restored, _ = ckpt.restore_checkpoint(case['restore'],
@@ -143,33 +156,43 @@ def run_case(case, world):
             restored['opt_state'][m].items()) and (
             back['step'], back['opt_state']['count']) == (
             restored['step'], restored['opt_state']['count'])
-    digest['weights0'] = flat({k: v for k, v in model.state_dict().items()
-                               if v.is_floating_point()})
+    digest['weights0'] = flat({
+        k: v for k, v in tp.whole_state_dict(model).items()
+        if v.is_floating_point()})
     generator = torch.Generator().manual_seed(1)
-    norm = optim.global_norm
+    clip = optim.clip_by_global_norm
+
+    def capture(grads, *args, **kw):
+        # the averaged gradients, whole; whether the whole parameters'
+        # are alike on the ranks of each model group
+        seen.append({k: v.clone() for k, v in
+                     trainer._whole(grads).items()})
+        digest['whole_grads_alike'] = same_on_all_ranks(
+            [g for k, g in grads.items() if k not in trainer.layout],
+            world.model)
+        return clip(grads, *args, **kw)
     for i in range(case['steps']):
-        batch = rank_rows(global_batch(case['batch'], 3 + i), world.rank,
-                          world.size, world.device)
+        batch = rank_rows(global_batch(case['batch'], 3 + i),
+                          world.data.rank, world.data.size, world.device)
         seen = []
         if case.get('capture') and i == 0:
-            optim.global_norm = lambda g: seen.append(
-                {k: v.clone() for k, v in g.items()}) or norm(g)
+            optim.clip_by_global_norm = capture
         try:
             state, m = trainer.train_step(state, batch, generator)
         finally:
-            optim.global_norm = norm
+            optim.clip_by_global_norm = clip
         digest['steps'].append({
             k: (m[k].tolist() if torch.is_tensor(m[k]) else m[k])
             for k in ('loss', 'aux_loss', 'pred_loss', 'iou', 'lr',
                       'grad_norm', 'frame_losses', 'frame_ious')})
         if seen:
             digest['grads'] = {k: v.cpu() for k, v in seen[0].items()}
-            digest['params_1'] = {k: p.detach().cpu().clone() for k, p in
-                                  model.named_parameters()}
-    weights = {k: v for k, v in model.state_dict().items()
-               if v.is_floating_point()}
-    digest['weights'] = flat(weights)
-    digest['ema'] = flat(state.ema)
+            whole = tp.whole_state_dict(model)
+            digest['params_1'] = {k: whole[k].cpu().clone() for k in names}
+    saved = trainer.state_dict(state)
+    digest['weights'] = flat({k: v for k, v in saved['state_dict'].items()
+                              if v.is_floating_point()})
+    digest['ema'] = flat(saved['ema'])
     digest['same_on_ranks'] = same_on_all_ranks(
         [digest['weights'], digest['ema']], world)
     moments = state.opt_state.get('mu', state.opt_state.get('trace'))
@@ -177,7 +200,6 @@ def run_case(case, world):
     digest['largest_moment'] = (model.get_parameter(big).numel(),
                                 moments[big].numel())
     if case.get('save'):
-        saved = trainer.state_dict(state)
         save = torch.save
         if case.get('flaky_save') and world.is_main:
             def flaky(obj, path):
@@ -195,6 +217,88 @@ def run_case(case, world):
     return digest
 
 
+SERVE_SIZE, SERVE_FRAMES = 49, 6
+
+
+def serving_clip(seed: int):
+    """(first frame [1, S, S, 3], its mask of 2 objects [1, S, S], the
+    next frames), float32 / int64 numpy, near the first frame."""
+    rs = np.random.RandomState(seed)
+    s = SERVE_SIZE
+    img0 = rs.randn(1, s, s, 3).astype(np.float32)
+    mask0 = (rs.rand(1, s, s) * 3).astype(np.int64)
+    frames = [(rs.randn(1, s, s, 3) * 0.5 + img0).astype(np.float32)
+              for _ in range(SERVE_FRAMES)]
+    return img0, mask0, frames
+
+
+def serving_exp(case):
+    from rmem_ocu_tpu_torch import get_config
+    return get_config('pre_vost', model=case['model'],
+                      **case.get('overrides', {}))
+
+
+def run_serving(case, world):
+    """Stream the clip of case['seed'] at write gap 1 through the engine
+    on this rank's shard; returns each frame's logits and prediction, the
+    bank's frame ids after each update, and whether every rank holds the
+    same logits."""
+    from rmem_ocu_tpu_torch import InferEngine, build_vos_model
+    from rmem_ocu_tpu_torch.parallel import tp
+    from rmem_ocu_tpu_torch.parallel.dist import same_on_all_ranks
+    exp = serving_exp(case)
+    model = build_vos_model(exp.model, device=world.device)
+    model.load_state_dict(torch.load(case['weights']), strict=True)
+    tp.shard_model(model, world.model)
+    eng = InferEngine(model, exp, long_term_mem_gap=1)
+    img0, mask0, frames = serving_clip(case['seed'])
+    grid = ((SERVE_SIZE - 1) // 16 + 1,) * 2
+    st = eng.init_state(1, grid)
+    st = eng.add_reference_frame(st, torch.from_numpy(img0),
+                                 torch.from_numpy(mask0), torch.tensor([2]))
+    digest = {'logits': [], 'preds': [], 'ids': []}
+    for f in frames:
+        logits, st = eng.propagate(st, torch.from_numpy(f))
+        pred = eng.predict_mask(logits, (SERVE_SIZE, SERVE_SIZE))
+        st = eng.update_memory(st, pred)
+        digest['logits'].append(logits.cpu().clone())
+        digest['preds'].append(pred.cpu().clone())
+        digest['ids'].append(st.bank.ordered_frame_ids.cpu().clone())
+    digest['same_on_ranks'] = same_on_all_ranks(
+        [torch.stack(digest['logits'])], world)
+    digest['bank_bytes'] = sum(
+        x.numel() * x.element_size()
+        for x in st.bank.k + st.bank.v + (st.bank.id_v or []))
+    return digest
+
+
+def run_gather(case, world):
+    """x, this model rank's two-segment shard of a whole [3, 8] tensor,
+    gathered whole and multiplied by a rank's own weights: returns the
+    gathered tensor and every rank's gradient of its shard, put together
+    in the whole's layout."""
+    from rmem_ocu_tpu_torch.parallel import dist
+    from rmem_ocu_tpu_torch.parallel.layers import gather_from_model
+    from rmem_ocu_tpu_torch.parallel.tp import ranges_of
+    mw = world.model
+    whole, weights = gather_operands(mw.size)
+    mine = ranges_of((4, 4), mw.rank, mw.size)
+    x = dist.take(whole, mine).clone().requires_grad_()
+    y = gather_from_model(x, mw, mine, 8)
+    (y * weights[mw.rank]).sum().backward()
+    return {'y': y.detach(),
+            'grad': dist.all_gather(x.grad, mw, mine, 8)}
+
+
+def gather_operands(n: int):
+    rs = np.random.RandomState(0)
+    return (torch.from_numpy(rs.randn(3, 8)),
+            [torch.from_numpy(rs.randn(3, 8)) for _ in range(n)])
+
+
+RUNS = {'train': run_case, 'serve': run_serving, 'gather': run_gather}
+
+
 def main(spec_path: str) -> None:
     torch.set_num_threads(1)
     # f32 convolutions on the card, as the parent's one process runs them
@@ -203,10 +307,11 @@ def main(spec_path: str) -> None:
     with open(spec_path) as f:
         spec = json.load(f)
     world = dist.init_from_env(spec['device'], backend=spec['backend'],
-                               timeout_s=spec['timeout'])
+                               timeout_s=spec['timeout'],
+                               tp=spec.get('tp', 1))
     try:
         for case in spec['cases']:
-            digest = run_case(case, world)
+            digest = RUNS[case.get('kind', 'train')](case, world)
             if world.is_main:
                 torch.save(digest, digest_path(spec['out'], case['name'],
                                                world.size))
