@@ -93,6 +93,15 @@ Phases, each fatal on failure:
    step's gradients, the ranks alike, 0 launches), then `tools.train
    --multihost --mesh 1x2 --zero1` for 11b's 4 steps against 11b, with
    its step_2 restored at world 1.
+13. spatial sharding (`train_spatial_sharding`) over a model group of two
+   on the card (`--sp-worker`, gloo over CUDA tensors), each rank
+   training on its band of the image's rows: (a) 12d's fp32 steps with
+   the knob against 11a's one process (12d's gates) and against 12d's
+   world without it; (b) bf16 AMP at the recipe shape (465x465, T=17,
+   B=2, remat 'full'), 4 steps with the knob, without it (tensor
+   parallelism alone) and in one process: the peak memory a rank, the
+   halo exchanges and gathers a step and their MB, the step time, no
+   kernel launched.
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -1914,7 +1923,7 @@ def dp_train(torch, setting, world, start=None) -> dict:
     n = 2 // world.data.size
     rows = slice(world.data.rank * n, (world.data.rank + 1) * n)
     clip = optim.clip_by_global_norm
-    held = name == TP_SETTING[0]
+    held = name in (TP_SETTING[0], SP_SETTING[0])
 
     def capture(grads, *args, **kw):
         # this step's averaged gradients, whole
@@ -2180,6 +2189,9 @@ TP = 2                          # the model group of phase 12
 TP_PATHS = ('deaot_1head', 'aot', 'deaot_2heads')
 TP_FRAMES, TP_WARM, TP_TIMED = 12, 3, 10
 TP_SETTING = DP_SETTINGS[1]     # AdamW, ZeRO-1, remat 'full'
+# 13: TP_SETTING with the model group splitting the image's rows
+SP_SETTING = ('adamw_zero1_spatial', dict(TP_SETTING[1],
+                                          train_spatial_sharding=True), True)
 
 
 def phase_tp_kernels(torch, whole_rows):
@@ -2503,24 +2515,27 @@ def phase_tp_serving(torch, root: str, dp_one: dict):
 
     counts['tp_train'] = tp_training(torch, dp_one, ranks, one_world)
     print(f'tp 12b/12d ok in {time.time() - t0:.1f} s')
-    return counts
+    return counts, ranks[0]['train']
 
 
-def tp_training(torch, dp_one: dict, ranks: list, one_world):
-    """12d's gates on TP_SETTING's trainer of a 1 x M world (`ranks`'
-    results) against 11a's one process (`dp_one`); see phase_tp_serving.
-    Returns rank 0's kernel launches."""
-    # 12d: the trainer of a 1 x 2 world against 11a's one process, and
-    # its second step against one process's from the world's first
-    name = TP_SETTING[0]
-    a, b = dp_one[name], ranks[0]['train']
-    a2 = dp_train(torch, TP_SETTING, one_world, start=b.pop('state1'))
+def tp_training(torch, dp_one: dict, ranks: list, one_world,
+                setting=TP_SETTING, tag: str = 'tp 12d'):
+    """12d's gates on a trainer of a 1 x M world in `setting` (`ranks`'
+    results, TP_SETTING's by default) against 11a's one process in
+    TP_SETTING (`dp_one`; spatial sharding is a no-op at one process);
+    see phase_tp_serving. Returns rank 0's kernel launches."""
+    # the trainer of a 1 x 2 world against 11a's one process, and its
+    # second step against one process's from the world's first
+    name = setting[0]
+    key = 'train' if setting is TP_SETTING else 'spatial'
+    a, b = dp_one[TP_SETTING[0]], ranks[0][key]
+    a2 = dp_train(torch, setting, one_world, start=b.pop('state1'))
     err = 0.0
     for i, (sa, sb) in enumerate(zip(a['steps'], b['steps'])):
         for k in DP_METRICS:
             e = float(np.abs(np.subtract(sb[k], sa[k])).max())
             check(e <= (1e-3 if i and 'iou' in k else 1e-5),
-                  f'12d {name}: {k} of step {i + 1} off by {e}')
+                  f'{tag} {name}: {k} of step {i + 1} off by {e}')
             if 'iou' not in k:
                 err = max(err, e)
     moved_a = a['weights'] - a['weights0']
@@ -2530,8 +2545,8 @@ def tp_training(torch, dp_one: dict, ranks: list, one_world):
                 / moved_a.norm())
     check(torch.equal(a['weights0'], b['weights0'])
           and torch.equal(a2['weights0'], b['weights1']) and dw <= 1e-4
-          and de <= 1e-4 and b['same'] and ranks[1]['train']['same'],
-          f'12d {name}: weights {dw}, EMA {de}, ranks alike {b["same"]}')
+          and de <= 1e-4 and b['same'] and ranks[1][key]['same'],
+          f'{tag} {name}: weights {dw}, EMA {de}, ranks alike {b["same"]}')
     # each step from the same state: step 1 from the common start, step 2
     # from the world's state after step 1; a gradient part summed wrongly
     # over the group would be off by ~1 of its leaf's largest, an update
@@ -2544,37 +2559,230 @@ def tp_training(torch, dp_one: dict, ranks: list, one_world):
                        b['weights'] - b['weights1']))
     for i, ((dg, gleaf), (du, uleaf), left, total) in enumerate(steps):
         check(dg <= GRAD_TOL and du <= 1e-2,
-              f'12d {name} step {i + 1} from one state: gradient {dg} of '
+              f'{tag} {name} step {i + 1} from one state: gradient {dg} of '
               f'its leaf\'s largest ({gleaf}), update {du} of its norm '
               f'({uleaf})')
     e2 = max(float(np.abs(np.subtract(a2['steps'][0][k],
                                       b['steps'][1][k])).max())
              for k in ('loss', 'frame_losses'))
-    check(e2 <= 1e-5, f'12d {name}: step 2 from one state, losses off by '
+    check(e2 <= 1e-5, f'{tag} {name}: step 2 from one state, losses off by '
                       f'{e2}')
-    check(all(x['train']['launches'] == (0, 0, 0) for x in ranks),
-          f'12d: training launched {[x["train"]["launches"] for x in ranks]}')
+    check(all(x[key]['launches'] == (0, 0, 0) for x in ranks),
+          f'{tag}: training launched {[x[key]["launches"] for x in ranks]}')
     flips, flip_share, flip_g, leaves = sign_flip_share(torch, a, b)
-    print(f'tp 12d trainer 1 x {TP} (gloo, CUDA tensors) {name} vs 11a\'s '
+    print(f'{tag} trainer 1 x {TP} (gloo, CUDA tensors) {name} vs 11a\'s '
           f'one process, fp32 129x129, T={DP_T}, 2 steps: losses '
           f'{[s["loss"] for s in b["steps"]]} vs '
           f'{[s["loss"] for s in a["steps"]]}, max loss/metric diff '
           f'{err:.3g}, weights {dw:.3g}, EMA {de:.3g}; ranks alike; '
           f'launches (0, 0, 0)')
     for i, ((dg, gleaf), (du, uleaf), left, total) in enumerate(steps):
-        print(f'tp 12d step {i + 1} from one state (step 2: one process '
+        print(f'{tag} step {i + 1} from one state (step 2: one process '
               f'from the world\'s state after step 1, its frame losses '
               f'within {e2:.3g}): gradient {dg:.3g} of its leaf\'s largest '
               f'({gleaf}); update {du:.3g} of its norm ({uleaf}) on the '
               f'elements whose gradient exceeds twice its leaf\'s largest '
               f'difference ({left} of the {total} with a gradient left '
               f'out)')
-    print(f'tp 12d the two steps\' change {rel:.3g} of its norm (not '
+    print(f'{tag} the two steps\' change {rel:.3g} of its norm (not '
           f'gated): {flips} elements whose gradient changes sign between '
           f'the worlds at step 1 or 2 carry {flip_share:.3f} of its square '
           f'(at step 1 each within {flip_g:.3g} of its leaf\'s largest); '
           f'largest shares by leaf {leaves}')
     return b['launches']
+
+
+# ------------------------------------------------- 13: spatial sharding
+SP_STEPS = 4                    # 13b: steps at the recipe shape, 1 warm-up
+
+
+def sp_bf16(torch, world, spatial_on: bool) -> dict:
+    """13b on this rank: bf16 AMP steps of r50_deaotl at the recipe shape
+    (465x465, T=17, gap 4, B=2, remat 'full') on a 1 x M world with the
+    knob on or off (TP alone), or in one process (`world` without a
+    group). Returns the peak memory above the memory held before the
+    model was built, of the first step (its cuDNN calls choose their
+    algorithms) and of the others; where the second step's peak lies (the
+    memory held before it, after its episode's forward and the forward's
+    peak, against the step's); each step's CUDA-event ms, the halo
+    exchanges and gathers of each step with their bytes, the launches and
+    the losses."""
+    from dataclasses import replace
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.parallel import spatial
+    from rmem_ocu_tpu_torch.train.trainer import Trainer
+    mesh = {} if world.tp == 1 else dict(mesh_shape=(1, world.tp),
+                                         mesh_axes=('data', 'model'))
+    exp = replace(get_config('pre_vost_2', model='r50_deaotl',
+                             train_amp=True, **mesh),
+                  train_spatial_sharding=spatial_on)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(world.device)
+    base = torch.cuda.memory_allocated(world.device)
+    torch.cuda.reset_peak_memory_stats(world.device)
+    model = build_vos_model(exp.model, device=world.device, seed=0, exp=exp)
+    trainer = Trainer(model, exp, world)
+    state = trainer.init_state()
+    frames, masks = train_clip(2, exp.data_seq_len, exp.data_randomcrop,
+                               seed=2)
+    batch = {'frames': torch.from_numpy(frames).to(world.device),
+             'masks': torch.from_numpy(masks).to(world.device),
+             'obj_nums': torch.full((2,), N_OBJ, device=world.device)}
+    gen = torch.Generator().manual_seed(7)
+    reset_counts()
+    out = {'step_ms': [], 'stats': [], 'losses': [], 'marks': {}}
+    above = lambda f: (f(world.device) - base) / 2 ** 30
+    episode = trainer.engine.episode_loss
+
+    def marked(*args, **kw):
+        result = episode(*args, **kw)
+        torch.cuda.synchronize(world.device)
+        out['marks'].update(
+            after_forward=above(torch.cuda.memory_allocated),
+            forward_peak=above(torch.cuda.max_memory_allocated))
+        return result
+    for i in range(SP_STEPS):
+        trainer.engine.episode_loss = marked if i == 1 else episode
+        if i == 1:
+            out['peak_first'] = (torch.cuda.max_memory_allocated(
+                world.device) - base)
+            torch.cuda.reset_peak_memory_stats(world.device)
+            out['marks']['held'] = above(torch.cuda.memory_allocated)
+        spatial.reset_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = trainer.train_step(state, batch, gen)
+        end.record()
+        end.synchronize()
+        out['step_ms'].append(start.elapsed_time(end))
+        out['stats'].append(dict(spatial.STATS))
+        out['losses'].append(float(m['loss']))
+        if i == 1:
+            out['marks']['step_peak'] = above(
+                torch.cuda.max_memory_allocated)
+    out['peak'] = torch.cuda.max_memory_allocated(world.device) - base
+    out['launches'] = read_counts()
+    del model, trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_worker(spec_path: str) -> int:
+    """A rank of 13, in a child process, a model group of two on card 0
+    over gloo: 13a's fp32 training of SP_SETTING, then 13b's bf16 steps
+    with the knob off and on; then rank 0 takes 13b's steps in one
+    process while rank 1 waits. Each rank writes its results."""
+    import torch
+    from rmem_ocu_tpu_torch.parallel import dist
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.init_from_env('cuda:0', backend='gloo', timeout_s=900,
+                               tp=TP)
+    try:
+        out = {'spatial': dp_train(torch, SP_SETTING, world)}
+        for on in (False, True):
+            out['bf16', on] = sp_bf16(torch, world, on)
+        if world.is_main:
+            out['bf16_one'] = sp_bf16(torch, World(device=world.device),
+                                      True)
+        dist.agree(False, world)
+        torch.save(out, f'{spec["out"]}.rank{world.rank}')
+    finally:
+        dist.destroy(world)
+    return 0
+
+
+def phase_spatial(torch, root: str, dp_one: dict, tp_train: dict):
+    """13: `train_spatial_sharding` on a 1 x 2 world, two ranks on the
+    card in child processes (`--sp-worker`, gloo over CUDA tensors; each
+    rank trains on its band of the image's rows). 13a: SP_SETTING's two
+    fp32 steps at 129x129, T=5, gap 1, against 11a's one process with
+    12d's gates (tp_training: losses 1e-5, weights and EMA 1e-4, each
+    step from one state with each leaf's gradient within GRAD_TOL of its
+    largest and its update within 1e-2, the ranks alike, 0 launches), and
+    against 12d's 1 x 2 world without the knob (losses 1e-5, weights and
+    EMA 1e-4, step 1's gradients within GRAD_TOL of each leaf's largest).
+    13b: bf16 AMP at the recipe shape, SP_STEPS steps each with the knob
+    off (tensor parallelism alone), on, and in one process: the peak
+    memory a rank, the halo exchanges and gathers a step with their MB,
+    the step time (gloo through the host on one card: written down, not
+    compared), finite losses and 0 launches. Gate: the peak a rank of
+    steps 2 on lower with the knob than without. Returns the launches."""
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    t0 = time.time()
+    spec = dict(out=os.path.join(root, 'sp'))
+    spec_path = os.path.join(root, 'sp.json')
+    with open(spec_path, 'w') as f:
+        json.dump(spec, f)
+    wait_ranks(spawn_ranks(TP, [os.path.abspath(__file__), '--sp-worker',
+                                spec_path]), 1200)
+    ranks = [torch.load(f'{spec["out"]}.rank{r}') for r in range(TP)]
+    one_world = World(device=torch.device('cuda'))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        launches = tp_training(torch, dp_one, ranks, one_world, SP_SETTING,
+                               'sp 13a')
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # 13a against 12d's world without the knob
+    b = ranks[0]['spatial']
+    err = max(float(np.abs(np.subtract(x[k], y[k])).max())
+              for x, y in zip(b['steps'], tp_train['steps'])
+              for k in ('loss', 'aux_loss', 'pred_loss', 'frame_losses'))
+    dw = float((b['weights'] - tp_train['weights']).abs().max())
+    de = float((b['ema'] - tp_train['ema']).abs().max())
+    dg, leaf = max((float((b['grads'][0][k] - g).abs().max())
+                    / max(float(g.abs().max()), 1e-6), k)
+                   for k, g in tp_train['grads'][0].items())
+    check(err <= 1e-5 and dw <= 1e-4 and de <= 1e-4 and dg <= GRAD_TOL,
+          f'13a against 12d without the knob: losses {err}, weights {dw}, '
+          f'EMA {de}, step 1 gradient {dg} of its leaf\'s largest ({leaf})')
+    print(f'sp 13a against 12d\'s 1 x {TP} without the knob: losses within '
+          f'{err:.3g}, weights {dw:.3g}, EMA {de:.3g}, step 1 gradients '
+          f'{dg:.3g} of their leaf\'s largest ({leaf})')
+    runs = {'one process': ranks[0]['bf16_one']}
+    for on, label in ((False, 'TP alone'), (True, 'spatial')):
+        for r, x in enumerate(ranks):
+            runs[f'{label} rank {r}'] = x['bf16', on]
+    for label, x in runs.items():
+        check(x['launches'] == (0, 0, 0), f'13b {label}: launches '
+                                          f'{x["launches"]}')
+        check(all(np.isfinite(x['losses'])), f'13b {label}: losses '
+                                              f'{x["losses"]}')
+    peak = {k: v['peak'] / 2 ** 30 for k, v in runs.items()}
+    first = {k: v['peak_first'] / 2 ** 30 for k, v in runs.items()}
+    sp_peak = max(peak[f'spatial rank {r}'] for r in range(TP))
+    tp_peak = max(peak[f'TP alone rank {r}'] for r in range(TP))
+    check(sp_peak < tp_peak, f'13b: peak a rank {sp_peak:.3f} GiB with the '
+                             f'knob, {tp_peak:.3f} without')
+    for label, x in runs.items():
+        st = x['stats'][-1]
+        print(f'sp 13b {label}: r50_deaotl bf16 AMP 465x465 T=17 B=2 remat '
+              f'full, {SP_STEPS} steps: peak memory {peak[label]:.3f} GiB '
+              f'above the start in steps 2-{SP_STEPS} '
+              f'({first[label]:.3f} in step 1); step '
+              f'{statistics.median(x["step_ms"][1:]):.1f} ms median of '
+              f'steps 2-{SP_STEPS} '
+              f'({[round(t, 1) for t in x["step_ms"]]}); '
+              f'a step: {st["halo"]} halo exchanges, '
+              f'{st["halo_bytes"] / 2 ** 20:.2f} MiB sent, {st["gather"]} '
+              f'gathers, {st["gather_bytes"] / 2 ** 20:.2f} MiB; losses '
+              f'{[round(v, 4) for v in x["losses"]]}; launches '
+              f'{x["launches"]}; step 2 in GiB above the start: '
+              f'{ {k: round(v, 3) for k, v in x["marks"].items()} }')
+    print(f'sp 13b peak a rank in steps 2-{SP_STEPS} {sp_peak:.3f} GiB '
+          f'with the knob against {tp_peak:.3f} GiB with TP alone '
+          f'({sp_peak / tp_peak:.3f}x) and {peak["one process"]:.3f} GiB '
+          f'in one process')
+    print(f'sp 13 ok in {time.time() - t0:.1f} s')
+    return {'sp_train': launches,
+            'sp_bf16': ranks[0]['bf16', True]['launches']}
 
 
 def cli_worker(tool: str, argv_json: str) -> int:
@@ -2816,12 +3024,15 @@ def main() -> int:
                 torch, tmp, data, result, counts['pipeline_eval'])
             print(f'phase 11 done at {time.time() - t_start:.1f} s')
             tp_rows = phase_tp_kernels(torch, rows)
-            counts.update(phase_tp_serving(torch, tmp, dp_one))
+            tp_counts, tp_train = phase_tp_serving(torch, tmp, dp_one)
+            counts.update(tp_counts)
             counts.update(phase_tp_cli(torch, tmp, data, result, eval_one,
                                        one_counts))
+            print(f'phase 12 done at {time.time() - t_start:.1f} s')
+            counts.update(phase_spatial(torch, tmp, dp_one, tp_train))
         finally:
             os.chdir(cwd)
-    print(f'phase 12 done at {time.time() - t_start:.1f} s')
+    print(f'phase 13 done at {time.time() - t_start:.1f} s')
 
     kernels = []
     for name, src, replaces, row_name, idx, path in KERNELS:
@@ -2852,4 +3063,6 @@ if __name__ == '__main__':
         sys.exit(cli_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ['--tp-worker']:
         sys.exit(tp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ['--sp-worker']:
+        sys.exit(sp_worker(sys.argv[2]))
     sys.exit(main())

@@ -11,8 +11,8 @@ are read by the training data and the train CLI. The mesh is
 (one per card, 1 meaning all of them), or (D, M) over ('data', 'model'):
 D data ranks of M model ranks, each model group holding the shards of one
 model (tensor parallelism, parallel/tp.py). `train_zero1` shards the
-optimizer's moments over the data ranks. `train_spatial_sharding`
-(ROADMAP item 15c) raises until ported;
+optimizer's moments over the data ranks. `train_spatial_sharding` also
+splits the image's rows over each model group (parallel/spatial.py);
 `train_encoder_chunk`, `train_scan_unroll` and the `dots` remat policies
 exist for XLA, and the port's training raises on any value but their
 default.
@@ -216,9 +216,13 @@ class ExpConfig:
 
     compute_dtype: str = 'float32'        # 'float32' | 'bfloat16'
     # the device mesh: ('data',) or ('data', 'model') in the port, one
-    # process per card (spatial sharding waits for ROADMAP item 15c)
+    # process per card
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ('data',)
+    # the M ranks of a model group each train on a band of the image's
+    # rows: encoder and decoder banded with halo exchanges, the LSTT
+    # tensor-parallel (parallel/spatial.py); a no-op without a model
+    # group (M = 1), as in the JAX package
     train_spatial_sharding: bool = False
     train_zero1: bool = False
 

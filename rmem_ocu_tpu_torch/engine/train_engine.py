@@ -33,6 +33,17 @@ loss and metrics stay this rank's; the trainer averages them and the
 gradients. On a D x M world these are the data group's: the M ranks of a
 model group hold identical encoder activations and run one episode, and
 a sum of the moments over the whole world would count them M times.
+
+With `train_spatial_sharding` on a D x M world (M > 1; a no-op at M = 1,
+as in the JAX package) the M ranks also split the image's rows
+(parallel/spatial.py): each takes its band of the frames and masks, and
+every call of the model runs banded, inside the checkpointed functions
+too. The encoder's, id bank's and decoder's maps, the upsampled logits and
+the per-pixel losses are the band's; the transformer runs on whole tokens.
+The losses and the IoU are the whole image's, alike on every rank; the
+trainable BatchNorm takes its moments over the whole world; the
+prediction fed back under `use_prev_pred` is the band's, and
+`final_pred_mask` is gathered whole.
 """
 from __future__ import annotations
 
@@ -53,6 +64,7 @@ from rmem_ocu_tpu_torch.ops.masks import (generate_permute_matrix,
                                           unshuffle_logits)
 from rmem_ocu_tpu_torch.ops.position import interpolated_memory_pe
 from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
+from rmem_ocu_tpu_torch.parallel import spatial
 from rmem_ocu_tpu_torch.parallel.dist import World
 from rmem_ocu_tpu_torch.utils.metric import batched_iou
 from rmem_ocu_tpu_torch.utils.precision import cast_floating
@@ -83,10 +95,6 @@ def check_port_knobs(exp: ExpConfig) -> None:
             f'mesh_axes={tuple(exp.mesh_axes)!r}, mesh_shape='
             f"{tuple(exp.mesh_shape)!r}: the port takes mesh_axes=('data',) "
             f"with mesh_shape (D,), or ('data', 'model') with (D, M)")
-    if exp.train_spatial_sharding:
-        raise NotImplementedError(
-            'train_spatial_sharding=True: spatial sharding (H-sharded '
-            'convolutions with halo exchange) waits for ROADMAP item 15c')
 
 
 def _new_seed(generator: Optional[torch.Generator]) -> int:
@@ -102,10 +110,17 @@ class TrainEngine:
     def __init__(self, model: VOSModel, exp: ExpConfig,
                  world: World = World()):
         check_port_knobs(exp)
+        # bands of rows over the model group (none at M = 1)
+        self.spatial = exp.train_spatial_sharding and world.tp > 1
+        if self.spatial:
+            spatial.check_model(model.cfg)
         self.model = model
         # the ranks of a model group run the same episode: rows, masks and
-        # batch moments are the data group's
+        # batch moments are the data group's (the moments the whole
+        # world's when the model group splits the rows)
         self.world = world.data
+        self.model_world = world.model
+        self.bands = None
         self.cfg = model.cfg
         self.exp = exp
         self.gap = exp.train_long_term_mem_gap
@@ -115,7 +130,7 @@ class TrainEngine:
                     if isinstance(m, BatchNorm2d)}
         for m in self.bns.values():
             m.defer_stats = True
-            m.world = self.world
+            m.world = world if self.spatial else self.world
 
     @property
     def device(self) -> torch.device:
@@ -123,10 +138,13 @@ class TrainEngine:
 
     # -------------------------------------------------------------- #
     def _call(self, params, method: str, *args, **kwargs):
-        """model.<method>(...), on `params` (name -> tensor) when given."""
-        if params is None:
-            return getattr(self.model, method)(*args, **kwargs)
-        return functional_call(self.model, params, (method,) + args, kwargs)
+        """model.<method>(...), on `params` (name -> tensor) when given,
+        on the episode's bands of rows under spatial sharding."""
+        with spatial.banded(self.bands):
+            if params is None:
+                return getattr(self.model, method)(*args, **kwargs)
+            return functional_call(self.model, params, (method,) + args,
+                                   kwargs)
 
     def _noise(self, seed: Optional[int]):
         """The train-time masks of a call, from a generator made from
@@ -180,18 +198,21 @@ class TrainEngine:
         keep = torch.arange(c, device=logits.device)[None] <= obj_nums[:, None]
         return torch.where(keep[:, None, None, :], logits, UNUSED_ID_LOGIT)
 
-    def _upsample(self, logits_4x, input_size):
-        return interpolate_bilinear(logits_4x.permute(0, 3, 1, 2), input_size,
-                                    self.cfg.align_corners).permute(0, 2, 3, 1)
+    def _upsample(self, logits_4x, size):
+        """The logits at input resolution (`size`: the frames', a band's
+        under spatial sharding)."""
+        return interpolate_bilinear(logits_4x.permute(0, 3, 1, 2), size,
+                                    self.cfg.align_corners,
+                                    self.bands).permute(0, 2, 3, 1)
 
-    def _frame_loss(self, logits_4x, gt, obj_nums, step, input_size):
-        """Per-sample loss of a frame at input resolution (reference
-        aot_engine.py:485-508)."""
+    def _frame_loss(self, logits, gt, obj_nums, step):
+        """Per-sample loss of a frame from its logits at input resolution
+        (reference aot_engine.py:485-508)."""
         exp = self.exp
         return segmentation_loss(
-            self._upsample(logits_4x, input_size), gt, step,
-            exp.train_total_steps, exp.train_hard_mining_ratio,
-            exp.train_top_k_percent_pixels, obj_nums)
+            logits, gt, step, exp.train_total_steps,
+            exp.train_hard_mining_ratio, exp.train_top_k_percent_pixels,
+            obj_nums, self.bands)
 
     # -------------------------------------------------------------- #
     def episode_loss(self, frames: torch.Tensor, masks: torch.Tensor,
@@ -205,13 +226,21 @@ class TrainEngine:
         generator; torch's global one when None). Returns (scalar loss,
         aux dict: aux_loss, pred_loss, frame_losses [T-1], frame_ious [T],
         iou, final_pred_mask [B, H, W], var_loss (TopDown), batch_stats
-        (trainable BN: module name -> (running_mean, running_var)))."""
+        (trainable BN: module name -> (running_mean, running_var))).
+        Under spatial sharding frames and masks are whole and the episode
+        takes its band of their rows."""
         cfg, exp = self.cfg, self.exp
         dev = self.device
         frames, masks = frames.to(dev), masks.to(dev)
         obj_nums = obj_nums.to(dev)
+        self.bands = bands = (spatial.make_bands(frames.shape[2:4],
+                                                 self.model_world)
+                              if self.spatial else None)
+        if bands is not None:
+            first, end = bands.rows(1)
+            frames, masks = frames[:, :, first:end], masks[:, :, first:end]
+        # this rank's rows (all of them without bands)
         b, t_total, h, w, _ = frames.shape
-        input_size = (h, w)
         params = None
         if exp.train_amp:
             model = self.model
@@ -235,7 +264,8 @@ class TrainEngine:
                if self.remat else encode(params, flat, enc_mask))
         xs, var_loss = out if var_loss_on else (out, None)
         xs = [x.reshape(b, t_total, *x.shape[1:]) for x in xs]  # NCHW
-        size_2d = tuple(xs[-1].shape[-2:])
+        size_2d = (xs[-1].shape[-2] if bands is None else
+                   bands.whole_rows(spatial.GRID_STRIDE), xs[-1].shape[-1])
         hw = size_2d[0] * size_2d[1]
 
         one_hot_all, ignore_all = one_hot_mask(
@@ -277,8 +307,10 @@ class TrainEngine:
                         (k, v, id_v))
             return (bank.k, bank.v, bank.slot_valid), (k, v)
 
-        def predict(logits):
-            return self._upsample(logits.detach(), input_size).argmax(dim=-1)
+        def iou_of(pred, gt):
+            return batched_iou(pred, gt, obj_nums, cfg.max_obj_num,
+                               world=World() if bands is None
+                               else bands.world)
 
         # --- the reference frame (t = 0)
         with self._noise(seed()):
@@ -292,10 +324,10 @@ class TrainEngine:
             inters0, mems0, _ = lstt(params, xs[-1][:, 0], None, None,
                                      id_emb0, tpe_ref)
             logits0 = decode(params, inters0, frame_xs(0))
-        aux_loss = self._frame_loss(logits0, masks[:, 0], obj_nums, step,
-                                    input_size)
-        pred0 = predict(logits0)
-        iou0 = batched_iou(pred0, masks[:, 0], obj_nums, cfg.max_obj_num)
+        up0 = self._upsample(logits0, (h, w))
+        aux_loss = self._frame_loss(up0, masks[:, 0], obj_nums, step)
+        pred0 = up0.detach().argmax(dim=-1)
+        iou0 = iou_of(pred0, masks[:, 0])
 
         stack = lambda ms, key: [m[key] for m in ms]
         long_k0 = stack(mems0, 'curr_k')
@@ -324,10 +356,10 @@ class TrainEngine:
                 inters, mems, _ = lstt(p, emb16, long_mem, short_mem, None,
                                        tpe)
                 logits = decode(p, inters, shortcuts)
-                loss = self._frame_loss(logits, gt, obj_nums, step,
-                                        input_size)
-                pred_mask = predict(logits)
-                iou = batched_iou(pred_mask, gt, obj_nums, cfg.max_obj_num)
+                up = self._upsample(logits, (h, w))
+                loss = self._frame_loss(up, gt, obj_nums, step)
+                pred_mask = up.detach().argmax(dim=-1)
+                iou = iou_of(pred_mask, gt)
                 # the memory takes the GT identities, or the prediction
                 # with use_prev_pred (reference aot_engine.py:91-99)
                 if use_prev_pred:
@@ -379,8 +411,8 @@ class TrainEngine:
                                           (bank.k, bank.v, outer_valid),
                                           (k0, v0), None, tpe_r)
                     rev_loss = cfg.reverse_loss * self._frame_loss(
-                        decode(p, inters_r, frame_xs(0)), masks[:, 0],
-                        obj_nums, step, input_size)
+                        self._upsample(decode(p, inters_r, frame_xs(0)),
+                                       (h, w)), masks[:, 0], obj_nums, step)
             return bank, short, first_short, loss, rev_loss, iou, pred_mask
 
         frame_losses, rev_losses, frame_ious = [], [], []
@@ -430,7 +462,8 @@ class TrainEngine:
             'frame_losses': losses.mean(dim=-1),
             'frame_ious': all_ious,
             'iou': all_ious.mean(),
-            'final_pred_mask': pred_mask,
+            'final_pred_mask': (pred_mask if bands is None else
+                                spatial.gather_rows(pred_mask, bands)),
         }
         if var_loss is not None:
             total = total + cfg.var_loss_weight * var_loss

@@ -2,7 +2,10 @@
 
 NCHW. With decode_intermediate_input (the AOT family) the head takes the
 16x encoder map and every LSTT layer's output, concatenated; without it
-(DeAOT) only the last map.
+(DeAOT) only the last map. Under spatial sharding (parallel/spatial.py)
+its inputs and shortcuts are bands of rows: the 3x3 convolutions take
+halos, the GroupNorms the whole map's moments and the upsamples their
+band's rows.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from torch import nn
 
 from rmem_ocu_tpu_torch.ops.layers import ConvGN
 from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
+from rmem_ocu_tpu_torch.parallel import spatial
 
 
 class FPNSegmentationHead(nn.Module):
@@ -39,14 +43,15 @@ class FPNSegmentationHead(nn.Module):
         and the per-layer LSTT outputs), in_dim channels together or in the
         last one; shortcuts: encoder maps [4x, 8x, 16x, 16x]. Returns
         logits [B, out_dim, H4, W4]."""
+        bands = spatial.current()
         x = (torch.cat(list(inputs), dim=1) if self.decode_intermediate_input
              else inputs[-1])
         x = F.relu(self.conv_in(x))
         x = F.relu(self.conv_16x(self.adapter_16x(shortcuts[-2]) + x))
         x = interpolate_bilinear(x, shortcuts[-3].shape[-2:],
-                                 self.align_corners)
+                                 self.align_corners, bands)
         x = F.relu(self.conv_8x(self.adapter_8x(shortcuts[-3]) + x))
         x = interpolate_bilinear(x, shortcuts[-4].shape[-2:],
-                                 self.align_corners)
+                                 self.align_corners, bands)
         x = F.relu(self.conv_4x(self.adapter_4x(shortcuts[-4]) + x))
         return self.conv_out(x)

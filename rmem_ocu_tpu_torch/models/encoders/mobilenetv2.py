@@ -4,6 +4,8 @@ Counterpart of the JAX package's `models/encoders/mobilenetv2.py`
 (reference aot_plus/networks/encoders/mobilenetv2.py:63-247). NCHW. The
 module tree is the reference's (`features.N`, each inverted residual's
 `.conv` Sequential), so its state_dict keys are the reference torch keys.
+Its 3x3 convolutions, dilated ones included, run on a band of rows under
+spatial sharding (parallel/spatial.py).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from rmem_ocu_tpu_torch.ops.layers import clip, make_bn
+from rmem_ocu_tpu_torch.parallel.spatial import Conv2d
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:
@@ -34,9 +37,10 @@ def conv_bn_relu(inp: int, out: int, kernel: int = 3, stride: int = 1,
                  frozen_bn: bool = True) -> nn.Sequential:
     """Conv (no bias) -> BN -> ReLU6 (reference ConvBNReLU)."""
     pad = (kernel - 1) // 2 * dilation
+    conv = Conv2d if kernel > 1 else nn.Conv2d
     return nn.Sequential(
-        nn.Conv2d(inp, out, kernel, stride=stride, padding=pad,
-                  dilation=dilation, groups=groups, bias=False),
+        conv(inp, out, kernel, stride=stride, padding=pad,
+             dilation=dilation, groups=groups, bias=False),
         make_bn(out, frozen_bn), ReLU6())
 
 

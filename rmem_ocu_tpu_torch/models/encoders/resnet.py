@@ -4,7 +4,8 @@ unless freeze_bn is off.
 Counterpart of the JAX package's `models/encoders/resnet.py` (reference
 aot_plus/networks/encoders/resnet.py:10-213). NCHW. The stem is a plain
 7x7/s2 conv (the JAX package's space-to-depth form exists only for the
-TPU's matrix unit).
+TPU's matrix unit). Its 3x3 and 7x7 convolutions and its max pool run
+on a band of rows under spatial sharding (parallel/spatial.py).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rmem_ocu_tpu_torch.ops.layers import make_bn, max_pool_3x3_s2
+from rmem_ocu_tpu_torch.parallel.spatial import Conv2d
 
 
 class Bottleneck(nn.Module):
@@ -24,8 +26,8 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = make_bn(planes, frozen_bn)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn2 = make_bn(planes, frozen_bn)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = make_bn(planes * 4, frozen_bn)
@@ -47,7 +49,7 @@ class ResNetEncoder(nn.Module):
         """layers: blocks per stage, (3, 4, 6) for ResNet-50, (3, 4, 23)
         for ResNet-101."""
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = make_bn(64, frozen_bn)
         inplanes = 64
         for stage, (planes, blocks, stride) in enumerate(zip(

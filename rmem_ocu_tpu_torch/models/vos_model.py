@@ -17,6 +17,14 @@ and act only in training mode.
 `parallel.tp.shard_model(model, world.model)` cuts the model into a
 rank's shard of a model group (`model.tp`, `model.tp_layout`): the
 transformer's projections split, everything else whole on every rank.
+
+Under spatial sharding (`parallel.spatial.banded`, entered by the training
+engine) the encoder, the id bank and the decoder run on the rank's band of
+rows. The 16x map and the id tokens become whole tokens for the
+transformer through a gather whose backward only slices (the transformer's
+entry sums the ranks' parts of their gradient, so it is alike on every
+rank), and the decoder takes its band of the transformer's outputs, whose
+backward gathers the ranks' gradients.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from rmem_ocu_tpu_torch.models.lstt import LSTTStack
 from rmem_ocu_tpu_torch.ops.layers import (EPS, DropPath, dropout,
                                            tokens_from_2d)
 from rmem_ocu_tpu_torch.ops.position import sine_position_embedding
+from rmem_ocu_tpu_torch.parallel import spatial
 from rmem_ocu_tpu_torch.parallel.dist import World
 from rmem_ocu_tpu_torch.utils.device import resolve_device
 
@@ -85,7 +94,7 @@ class VOSModel(nn.Module):
         # patch-wise identity bank (reference aot.py:64-83): a strided conv
         # of the one-hot id mask down to the 16x grid
         k = 17 if cfg.align_corners else 16
-        self.patch_wise_id_bank = nn.Conv2d(
+        self.patch_wise_id_bank = spatial.Conv2d(
             cfg.id_dim, d, k, stride=16, padding=8 if cfg.align_corners else 0)
         if self.is_deaot:
             self.id_norm = nn.LayerNorm(d, eps=EPS)
@@ -150,9 +159,10 @@ class VOSModel(nn.Module):
 
     def get_id_emb(self, one_hot: torch.Tensor) -> torch.Tensor:
         """one_hot: [B, H, W, id_dim] -> id tokens [B, HW/256, d], dropped
-        at id_dropout in training (reference aot.py:84, 113)."""
-        x = tokens_from_2d(self.patch_wise_id_bank(
-            one_hot.permute(0, 3, 1, 2)))
+        at id_dropout in training (reference aot.py:84, 113). On a band of
+        rows under spatial sharding, whole tokens alike on every rank."""
+        x = tokens_from_2d(_whole_rows(self.patch_wise_id_bank(
+            one_hot.permute(0, 3, 1, 2))))
         x = self.id_norm(x) if self.is_deaot else x
         return dropout(x, self.id_dropout, self.training)
 
@@ -171,9 +181,10 @@ class VOSModel(nn.Module):
     def lstt_forward(self, curr_emb_16x, long_mem, short_mem, curr_id_emb,
                      self_pos, size_2d, temporal_pe=None,
                      need_mass: bool = False):
-        """curr_emb_16x: [B, C, h, w]; see LSTTStack.forward and
-        GPMStack.forward (which takes no self_pos)."""
-        tgt = tokens_from_2d(curr_emb_16x)
+        """curr_emb_16x: [B, C, h, w] (a band of its rows under spatial
+        sharding); see LSTTStack.forward and GPMStack.forward (which takes
+        no self_pos)."""
+        tgt = tokens_from_2d(_whole_rows(curr_emb_16x))
         if self.is_deaot:
             return self.LSTT(tgt, long_mem, short_mem, curr_id_emb, size_2d,
                              temporal_pe, need_mass=need_mass)
@@ -183,10 +194,17 @@ class VOSModel(nn.Module):
     def decode_id_logits(self, lstt_outputs: List[torch.Tensor],
                          shortcuts: List[torch.Tensor]) -> torch.Tensor:
         """Decode the LSTT / GPM outputs ([B, HW, C] per layer); returns
-        logits [B, H4, W4, O+1]."""
+        logits [B, H4, W4, O+1]. Under spatial sharding the shortcuts and
+        the logits are bands of rows and the outputs whole."""
         b, _, h, w = shortcuts[-1].shape
-        inputs = [shortcuts[-1]] + [
-            x.transpose(1, 2).reshape(b, -1, h, w) for x in lstt_outputs]
+        bands = spatial.current()
+        if bands is None:
+            to_2d = lambda x: x.transpose(1, 2).reshape(b, -1, h, w)
+        else:
+            h = bands.whole_rows(spatial.GRID_STRIDE)
+            to_2d = lambda x: spatial.scatter_rows(
+                x.transpose(1, 2).reshape(b, -1, h, w), bands)
+        inputs = [shortcuts[-1]] + [to_2d(x) for x in lstt_outputs]
         return self.decoder(inputs, shortcuts).permute(0, 2, 3, 1)
 
     def fuse_memory_values(self, memories: List[dict], id_emb: torch.Tensor
@@ -232,6 +250,12 @@ class VOSModel(nn.Module):
             hks.append(hk)
             hvs.append(hv)
         return (outs_k, outs_v), (hks, hvs)
+
+
+def _whole_rows(x: torch.Tensor) -> torch.Tensor:
+    """x, or under spatial sharding the whole map of which x is a band."""
+    bands = spatial.current()
+    return x if bands is None else spatial.gather_rows(x, bands)
 
 
 @torch.no_grad()

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rmem_ocu_tpu_torch.parallel import spatial
 from rmem_ocu_tpu_torch.parallel.dist import (Ranges, World, all_reduce_sum,
                                               take)
 from rmem_ocu_tpu_torch.parallel.layers import scatter_to_model
@@ -136,17 +137,23 @@ class GroupNorm1D(nn.Module):
 
 
 class ConvGN(nn.Module):
-    """Conv2d + GroupNorm(8) (reference basic.py:60-70), NCHW."""
+    """Conv2d + GroupNorm(8) (reference basic.py:60-70), NCHW; on a band
+    of rows under spatial sharding, normalised by the whole map's
+    moments."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
                  gn_groups: int = 8):
         super().__init__()
-        self.conv = nn.Conv2d(in_dim, out_dim, kernel_size,
-                              padding=kernel_size // 2)
+        conv = spatial.Conv2d if kernel_size > 1 else nn.Conv2d
+        self.conv = conv(in_dim, out_dim, kernel_size,
+                         padding=kernel_size // 2)
         self.gn = nn.GroupNorm(gn_groups, out_dim, eps=EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gn(self.conv(x))
+        bands = spatial.current()
+        x = self.conv(x)
+        return self.gn(x) if bands is None else spatial.group_norm(
+            x, self.gn, bands)
 
 
 class _ChannelShard:
@@ -250,7 +257,7 @@ class BatchNorm2d(nn.Module):
     norm when freeze_bn is off; the JAX package's `BatchNorm`). In
     training the batch is normalised with its biased variance and the
     running statistics move at momentum 0.1 towards the batch mean and
-    unbiased variance; statistics are f32 whatever x's dtype. In eval the
+    unbiased variance; statistics are f32 (f64 on f64 inputs). In eval the
     running statistics normalise.
 
     With `defer_stats` set (the training engine sets it) a training
@@ -259,12 +266,13 @@ class BatchNorm2d(nn.Module):
     twice, and each run must start from the same statistics.
 
     With `world` set to a data-parallel World (the training engine sets
-    it) the batch moments are those of the world's batch, as the JAX
-    package's one program over a data mesh computes them (SyncBN): the
-    sum, then the squared deviations from the global mean, and the
-    element count, each summed over the ranks by a differentiable
-    all-reduce. Every rank runs the same reduces in the same order, the
-    recompute of a checkpointed encoder included."""
+    it; under spatial sharding the whole world, whose model ranks hold
+    bands of the same samples) the batch moments are those of the world's
+    batch, as the JAX package's one program over a data mesh computes
+    them (SyncBN): the sum, then the squared deviations from the global
+    mean, and the element count, each summed over the ranks by a
+    differentiable all-reduce. Every rank runs the same reduces in the
+    same order, the recompute of a checkpointed encoder included."""
 
     def __init__(self, dim: int, epsilon: float = EPS,
                  momentum: float = 0.1):
@@ -295,7 +303,7 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean, var, unbias = self._moments(xf)
             m = self.momentum
             with torch.no_grad():
@@ -334,5 +342,9 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """3x3 / stride-2 / pad-1 max pool (reference nn.MaxPool2d(3, 2, 1))."""
+    """3x3 / stride-2 / pad-1 max pool (reference nn.MaxPool2d(3, 2, 1)),
+    on a band of rows under spatial sharding."""
+    bands = spatial.current()
+    if bands is not None:
+        return spatial.max_pool_3x3_s2(x, bands)
     return F.max_pool2d(x, 3, 2, 1)

@@ -1,0 +1,351 @@
+"""Spatial sharding of training over a model group: bands of H rows.
+
+The counterpart of the JAX package's `train_spatial_sharding`
+(rmem_ocu_tpu/train/trainer.py:138-147), which constrains the episode's
+frames and masks to P('data', None, 'model') and lets GSPMD partition the
+encoder's and decoder's convolutions with halo exchanges. Here every part
+is explicit. The M ranks of a model group split the image's rows into
+bands whose boundaries fall on the 16x grid: rank r owns the pixel rows
+[start_r, start_r+1), the grid's rows dealt out as evenly as they go,
+the first ranks taking one more (465 px, 30 grid rows: 240 + 225 px at
+M=2; 8/8/7/7 grid rows at M=4). A map at stride s holds the rows
+[start_r / s, start_r+1 / s) of the whole map, the last rank up to the
+whole map's ceil(H / s) rows: the arithmetic of the odd sizes the
+encoders produce, 465 -> 233 -> 117 -> 59 -> 30. Every map of the
+encoders the knob supports has ceil(W / s) columns, so a map's width
+names its stride (`Bands.level`).
+
+The pieces:
+
+- `halo_rows`: a band with `top` rows of the rank above and `bottom` rows
+  of the rank below, exchanged with `batch_isend_irecv`; at the image's
+  edge the layer's own padding. Its backward sends each halo row's
+  gradient back to the rank that owns the row.
+- `Conv2d` and `max_pool_3x3_s2`: an output band reads input rows
+  [o0 s - p, (o1 - 1) s - p + d (k - 1)], so the band takes p rows above
+  (a band starts at a multiple of the stride) and d (k - 1) - p - s + 1
+  below, and runs with padding (0, p). Only the rows a layer reads cross
+  the group. A 1x1 convolution reads its own rows and stays nn.Conv2d.
+- `group_norm`: GroupNorm's moments summed over the group.
+- `gather_rows`: a band made whole on every rank, whose backward only
+  slices: for tensors whose gradient is alike on every rank (the tokens
+  into the LSTT, whose entry sums the ranks' parts), and for values
+  without gradient (the per-pixel losses' threshold, the prediction).
+  `scatter_rows`: a rank's band of a tensor alike on every rank, whose
+  backward gathers (the LSTT's outputs into the decoder).
+
+A model's methods band their maps while `banded(bands)` is entered; the
+training engine enters it around each call of the model, inside the
+checkpointed functions, so a recompute bands alike. Every rank runs the
+same exchanges in the same order, recomputes included. `STATS` counts the
+exchanges and gathers and the bytes this rank sends into them.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.distributed as tdist
+import torch.nn.functional as F
+from torch import nn
+
+from rmem_ocu_tpu_torch.parallel import dist
+from rmem_ocu_tpu_torch.parallel.dist import World, all_reduce_sum
+from rmem_ocu_tpu_torch.parallel.layers import scatter_to_model
+
+GRID_STRIDE = 16
+STRIDES = (1, 2, 4, 8, 16)
+# the encoders whose every convolution and pool is banded
+ENCODERS = ('resnet50', 'resnet101', 'mobilenetv2')
+# the parameters used band-locally: a rank's gradient is its band's part
+BAND_LOCAL = ('encoder', 'decoder', 'encoder_projector',
+              'patch_wise_id_bank')
+
+STATS = {'halo': 0, 'halo_bytes': 0, 'gather': 0, 'gather_bytes': 0}
+
+
+def reset_stats() -> None:
+    for k in STATS:
+        STATS[k] = 0
+
+
+def check_model(cfg) -> None:
+    """Raise unless the model's encoder runs banded (ROADMAP item 15c
+    ports ResNet-50/101 and MobileNetV2)."""
+    if cfg.encoder not in ENCODERS or cfg.use_mask or not cfg.align_corners:
+        raise NotImplementedError(
+            f'train_spatial_sharding=True with encoder {cfg.encoder!r}: '
+            f'bands are ported for {", ".join(ENCODERS)}; Swin-B with its '
+            f'shifted windows across bands, ResNeSt, MobileNetV3 and the '
+            f'TopDown/oracle encoder wait for the rest of ROADMAP item 15c')
+
+
+@dataclass(frozen=True)
+class Bands:
+    """The bands of an image of `size` (H, W) over the model group
+    `world`: `starts[r]` is rank r's first pixel row, `starts[M]` H."""
+    world: World
+    size: Tuple[int, int]
+    starts: Tuple[int, ...]
+
+    def whole_rows(self, stride: int) -> int:
+        return -(-self.size[0] // stride)
+
+    def rows(self, stride: int, rank: Optional[int] = None
+             ) -> Tuple[int, int]:
+        """(first, end) rows of rank's band (this rank's by default) of
+        the map at `stride`."""
+        r = self.world.rank if rank is None else rank
+        end = (self.whole_rows(stride) if r == self.world.size - 1
+               else self.starts[r + 1] // stride)
+        return self.starts[r] // stride, end
+
+    def level(self, width: int) -> int:
+        """The stride of a map (or a row-major [..., rows, W] tensor) of
+        `width` columns."""
+        for s in STRIDES:
+            if -(-self.size[1] // s) == width:
+                return s
+        raise ValueError(f'a width of {width} is no stride of a '
+                         f'{self.size} image')
+
+    def check_halo(self, stride: int, top: int, bottom: int,
+                   what: str) -> None:
+        """Raise when a halo needs more rows than a neighbour holds."""
+        n = [e - s for s, e in (self.rows(stride, r)
+                                for r in range(self.world.size))]
+        for r in range(self.world.size):
+            if (r > 0 and top > n[r - 1]) or (
+                    r < self.world.size - 1 and bottom > n[r + 1]):
+                raise ValueError(
+                    f'{what} at stride {stride}: a halo of {top} rows above '
+                    f'and {bottom} below on rank {r}, whose neighbours '
+                    f'hold {n[max(r - 1, 0)]} and '
+                    f'{n[min(r + 1, len(n) - 1)]} rows; the bands {n} are '
+                    f'too thin for a model group of {self.world.size}')
+
+
+def make_bands(size, world: World) -> Bands:
+    """The bands of an image of `size` (H, W) over the model group
+    `world`. Raises when a band would be empty or a width would name two
+    strides."""
+    h, w = int(size[0]), int(size[1])
+    m = world.size
+    grid = -(-h // GRID_STRIDE)
+    if grid < m:
+        raise ValueError(f'{h} px make {grid} rows of the 16x grid: a model '
+                         f'group of {m} would leave a band empty')
+    if len({-(-w // s) for s in STRIDES}) < len(STRIDES):
+        raise ValueError(f'a width of {w} px does not name each stride')
+    starts, at = [], 0
+    for r in range(m):
+        starts.append(at * GRID_STRIDE)
+        at += grid // m + (r < grid % m)
+    return Bands(world=world, size=(h, w), starts=tuple(starts) + (h,))
+
+
+_ACTIVE = threading.local()
+
+
+@contextlib.contextmanager
+def banded(bands: Optional[Bands]):
+    """Band the maps of the enclosed model calls (nothing when None)."""
+    prev = getattr(_ACTIVE, 'bands', None)
+    _ACTIVE.bands = bands
+    try:
+        yield
+    finally:
+        _ACTIVE.bands = prev
+
+
+def current() -> Optional[Bands]:
+    return getattr(_ACTIVE, 'bands', None)
+
+
+# ------------------------------------------------------------ exchange
+def _exchange(world: World, sends, recvs) -> None:
+    """Send each (tensor, model rank) and receive into each (buffer, model
+    rank), all at once. gloo sends host memory only: CUDA tensors go
+    through host copies."""
+    group = world.group
+    stage = (bool(sends or recvs) and (sends or recvs)[0][0].is_cuda
+             and tdist.get_backend(group) == 'gloo')
+    host = lambda t: t.cpu() if stage else t
+    sends = [(host(t.contiguous()), r) for t, r in sends]
+    inbox = [(host(b), b, r) for b, r in recvs]
+    ops = [tdist.P2POp(tdist.isend, t, tdist.get_global_rank(group, r),
+                       group) for t, r in sends]
+    ops += [tdist.P2POp(tdist.irecv, t, tdist.get_global_rank(group, r),
+                        group) for t, _, r in inbox]
+    if not ops:
+        return
+    for work in tdist.batch_isend_irecv(ops):
+        work.wait()
+    if stage:
+        for t, b, _ in inbox:
+            b.copy_(t)
+    STATS['halo'] += 1
+    STATS['halo_bytes'] += sum(t.numel() * t.element_size() for t, _ in sends)
+
+
+def _fill_rows(x: torch.Tensor, n: int, fill: float) -> torch.Tensor:
+    shape = list(x.shape)
+    shape[-2] = n
+    return x.new_full(shape, fill)
+
+
+class _HaloRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, top, bottom, world, fill, edge):
+        r, last = world.rank, world.size - 1
+        above = _fill_rows(x, edge[0] if r == 0 else top,
+                           fill if r == 0 else 0.0)
+        below = _fill_rows(x, edge[1] if r == last else bottom,
+                           fill if r == last else 0.0)
+        sends, recvs = [], []
+        if r > 0:
+            if bottom:
+                sends.append((x[..., :bottom, :], r - 1))
+            if top:
+                recvs.append((above, r - 1))
+        if r < last:
+            if top:
+                sends.append((x[..., x.shape[-2] - top:, :], r + 1))
+            if bottom:
+                recvs.append((below, r + 1))
+        _exchange(world, sends, recvs)
+        ctx.args = (top, bottom, world, above.shape[-2], x.shape[-2])
+        return torch.cat([above, x, below], dim=-2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # each halo row's gradient goes back to the rank that owns the
+        # row and adds to it there
+        top, bottom, world, n_above, n = ctx.args
+        r, last = world.rank, world.size - 1
+        gx = grad[..., n_above:n_above + n, :].clone(
+            memory_format=torch.contiguous_format)
+        sends, recvs = [], []
+        from_above = from_below = None
+        if r > 0:
+            if top:
+                sends.append((grad[..., :top, :], r - 1))
+            if bottom:
+                from_above = _fill_rows(gx, bottom, 0.0)
+                recvs.append((from_above, r - 1))
+        if r < last:
+            if bottom:
+                sends.append((grad[..., n_above + n:, :], r + 1))
+            if top:
+                from_below = _fill_rows(gx, top, 0.0)
+                recvs.append((from_below, r + 1))
+        _exchange(world, sends, recvs)
+        if from_above is not None:
+            gx[..., :bottom, :] += from_above
+        if from_below is not None:
+            gx[..., n - top:, :] += from_below
+        return gx, None, None, None, None, None
+
+
+def halo_rows(x: torch.Tensor, top: int, bottom: int, world: World,
+              fill: float = 0.0, edge: Optional[Tuple[int, int]] = None
+              ) -> torch.Tensor:
+    """x, a band of rows (dim -2), with the last `top` rows of the rank
+    above on top and the first `bottom` rows of the rank below beneath.
+    At the image's edge (rank 0's top, the last rank's bottom) `edge`
+    rows of `fill` (default: top and bottom). top and bottom are the same
+    on every rank."""
+    edge = (top, bottom) if edge is None else tuple(edge)
+    return _HaloRows.apply(x, top, bottom, world, fill, edge)
+
+
+# ------------------------------------------------------------- layers
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, bands: Bands) -> torch.Tensor:
+    """conv's output rows of this rank's band, from x, the input's band:
+    p rows of halo above, d (k - 1) - p - s + 1 below (none when the
+    stride skips past them), the conv's zero padding at the image's edge."""
+    k, s, p, d = (conv.kernel_size[0], conv.stride[0], conv.padding[0],
+                  conv.dilation[0])
+    top, bottom = p, max(d * (k - 1) - p - s + 1, 0)
+    bands.check_halo(bands.level(x.shape[-1]), top, bottom,
+                     f'a {k}x{k} conv')
+    x = halo_rows(x, top, bottom, bands.world, 0.0, edge=(p, p))
+    return F.conv2d(x, conv.weight, conv.bias, conv.stride,
+                    (0, conv.padding[1]), conv.dilation, conv.groups)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that runs on its band of rows under `banded` (the
+    encoders' and the decoder's convolutions larger than 1x1)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bands = current()
+        return super().forward(x) if bands is None else conv2d(self, x,
+                                                                bands)
+
+
+def max_pool_3x3_s2(x: torch.Tensor, bands: Bands) -> torch.Tensor:
+    """The 3x3 / stride-2 / pad-1 max pool of a band: one row of halo
+    above, -inf at the image's edge."""
+    bands.check_halo(bands.level(x.shape[-1]), 1, 0, 'the max pool')
+    x = halo_rows(x, 1, 0, bands.world, float('-inf'), edge=(1, 1))
+    return F.max_pool2d(x, 3, 2, (0, 1))
+
+
+def group_norm(x: torch.Tensor, gn: nn.GroupNorm, bands: Bands
+               ) -> torch.Tensor:
+    """GroupNorm of a band by the whole map's moments (f32, or f64 on f64
+    inputs): the sums of each (sample, group) and then of its squared
+    deviations over the group, by a differentiable all-reduce whose
+    backward sums (each rank's normalisation of its band feeds its own
+    work)."""
+    n, c = x.shape[:2]
+    g = gn.num_groups
+    xf = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(n, g, -1)
+    w = x.shape[-1]
+    count = c // g * bands.whole_rows(bands.level(w)) * w
+    mean = all_reduce_sum(xf.sum(-1), bands.world) / count
+    dev = xf - mean[..., None]
+    var = all_reduce_sum(dev.square().sum(-1), bands.world) / count
+    y = (dev * torch.rsqrt(var + gn.eps)[..., None]).reshape(x.shape)
+    y = y * gn.weight.to(y.dtype)[:, None, None] + gn.bias.to(y.dtype)[
+        :, None, None]
+    return y.to(x.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, world, first, whole):
+        ctx.args = (first, x.shape[-2])
+        return dist.all_gather(x, world, ((first, x.shape[-2]),), whole, -2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        first, n = ctx.args
+        return grad.narrow(-2, first, n), None, None, None
+
+
+def gather_rows(x: torch.Tensor, bands: Bands) -> torch.Tensor:
+    """The whole map (alike on every rank) of which x is this rank's band:
+    one all-reduce of a zero-filled buffer. Its backward only slices, so
+    the whole's gradient must be alike on every rank."""
+    s = bands.level(x.shape[-1])
+    first, _ = bands.rows(s)
+    whole = bands.whole_rows(s)
+    STATS['gather'] += 1
+    STATS['gather_bytes'] += x.numel() // x.shape[-2] * whole * \
+        x.element_size()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherRows.apply(x, bands.world, first, whole)
+    return dist.all_gather(x, bands.world, ((first, x.shape[-2]),), whole,
+                           -2)
+
+
+def scatter_rows(x: torch.Tensor, bands: Bands) -> torch.Tensor:
+    """This rank's band of x, a map alike on every rank; the backward
+    gathers the ranks' gradients (scatter_to_model)."""
+    first, end = bands.rows(bands.level(x.shape[-1]))
+    return scatter_to_model(x, bands.world, ((first, end - first),), -2)

@@ -26,16 +26,27 @@ On a D x M world (tensor parallelism, the JAX package's ('data', 'model')
 mesh, its :52-60, :219-233) the trainer cuts the model into this rank's
 shard of its model group (parallel/tp.py `shard_model`). The M ranks of a
 model group take the same rows of the batch and draw the same masks; the
-gradients and metrics are averaged over the data group only. A split
-parameter's gradient is whole on its rank; a parameter kept whole is
-used alike by every rank, its gradient alike on every rank of the group
-(the modules sum the parts of it that the ranks' shards produce); it is
-averaged over the whole world, so that every rank of a model group keeps
-the same copy even where the card's backward is not deterministic. The clip takes the norm
-over every rank's shards. ZeRO-1 splits each moment over the data group,
-along a dimension the model group does not split. `state_dict` gathers
-both, so a checkpoint has the layout of one process whatever the mesh,
-and `load_state_dict` cuts it again: checkpoints restore at any mesh.
+metrics are averaged over the data group only. The gradients fall in
+three classes:
+
+- a split parameter of the transformer: its gradient is whole on its
+  rank; averaged over the data group;
+- a parameter kept whole and used alike by every rank: its gradient is
+  alike on every rank of the group (the modules sum the parts of it that
+  the ranks' shards produce); averaged over the whole world, so that
+  every rank of a model group keeps the same copy even where the card's
+  backward is not deterministic;
+- under `train_spatial_sharding` (the model group splits the image's
+  rows, engine/train_engine.py), a parameter of the encoder, the decoder,
+  the encoder's projector or the id bank, used on the rank's band only:
+  its gradient on a rank is its band's part, so it is summed over the
+  model group and averaged over the data group.
+
+The clip takes the norm over every rank's shards. ZeRO-1 splits each
+moment over the data group, along a dimension the model group does not
+split. `state_dict` gathers both, so a checkpoint has the layout of one
+process whatever the mesh, and `load_state_dict` cuts it again:
+checkpoints restore at any mesh.
 """
 from __future__ import annotations
 
@@ -47,9 +58,8 @@ import torch
 from rmem_ocu_tpu_torch.config import ExpConfig
 from rmem_ocu_tpu_torch.engine.train_engine import TrainEngine
 from rmem_ocu_tpu_torch.models.vos_model import VOSModel
-from rmem_ocu_tpu_torch.parallel import dist
+from rmem_ocu_tpu_torch.parallel import dist, spatial, tp
 from rmem_ocu_tpu_torch.parallel.dist import World
-from rmem_ocu_tpu_torch.parallel import tp
 from rmem_ocu_tpu_torch.parallel.tp import OPT_MOMENTS, Zero1
 from rmem_ocu_tpu_torch.train import optim
 
@@ -252,14 +262,20 @@ class Trainer:
             # the split gradients average over the data group; the whole
             # parameters' over the world, so that their copies in a model
             # group stay bitwise alike even where the backward is not
-            # deterministic on the card (cuDNN's weight gradients)
+            # deterministic on the card (cuDNN's weight gradients); the
+            # band-local ones sum over the model group
             trainable = [k for k in grads if not masks.frozen[k]]
+            band = [k for k in trainable if self.engine.spatial
+                    and k.split('.')[0] in spatial.BAND_LOCAL]
             dist.all_reduce_([grads[k] for k in trainable
                               if k in self.layout], self.world.data,
                              mean=True)
             dist.all_reduce_([grads[k] for k in trainable
-                              if k not in self.layout], self.world,
-                             mean=True)
+                              if k not in self.layout and k not in band],
+                             self.world, mean=True)
+            dist.all_reduce_([grads[k] for k in band], self.world)
+            for k in band:
+                grads[k] /= self.world.data.size
             grad_norm = self._grad_norm(grads)
             now_lr = optim.schedule_lr(state.step, exp)
             current = {k: p.detach() for k, p in params.items()}

@@ -655,3 +655,78 @@ def test_tp_serving_on_the_card_matches_one_process(tmp_path):
                                         True).topk(2, dim=1).values
             gaps = (top2[:, 0] - top2[:, 1])[x != y]
             assert not gaps.numel() or float(gaps.max()) <= 2 * diff + 1e-6
+
+
+def _spatial_world_matches_one_process(tmp_path, cases, n, tp, device,
+                                       backend, local_ranks=None):
+    """Train `cases` with `train_spatial_sharding` on an n-rank world of
+    model groups of tp, and in this process on card 0: losses within
+    1e-5, each averaged gradient leaf within 2e-3 of its largest (or of
+    1e-6), weights and EMA within 1e-4 after the steps, the ranks alike
+    (tests/test_torch_spatial.py's bars); no kernel runs."""
+    import json
+    import torch_dp_worker as worker
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    dev = _cuda()
+    spec = str(tmp_path / f'spec{n}x{tp}.json')
+    with open(spec, 'w') as f:
+        json.dump(dict(device=device, backend=backend, timeout=300,
+                       out=str(tmp_path), cases=cases, tp=tp), f)
+    procs = worker.spawn(n, [worker.__file__, spec], local_ranks=local_ranks)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    before = (memory_read_fused.launches, local_window_attention.launches)
+    try:
+        one = {c['name']: worker.run_case(c, World(device=dev))
+               for c in cases}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        worker.wait(procs, 600)
+    assert (memory_read_fused.launches,
+            local_window_attention.launches) == before
+    for c in cases:
+        a = one[c['name']]
+        b = torch.load(worker.digest_path(str(tmp_path), c['name'], n))
+        assert b['same_on_ranks'] and b['whole_grads_alike']
+        for sa, sb in zip(a['steps'], b['steps']):
+            for k in ('loss', 'aux_loss', 'pred_loss', 'frame_losses'):
+                np.testing.assert_allclose(sb[k], sa[k], rtol=0, atol=1e-5,
+                                           err_msg=k)
+        for k, g in a['grads'].items():
+            torch.testing.assert_close(
+                b['grads'][k], g, rtol=0,
+                atol=2e-3 * max(float(g.abs().max()), 1e-6), msg=k)
+        torch.testing.assert_close(b['weights'], a['weights'], rtol=0,
+                                   atol=1e-4)
+        torch.testing.assert_close(b['ema'], a['ema'], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_spatial_ranks_on_the_card_train_as_one(tmp_path):
+    """A model group of two processes on card 0 (gloo over CUDA tensors,
+    the halo rows staged through host memory) splitting the rows of 49x49
+    clips trains `deaott` as one process on the card does."""
+    _spatial_world_matches_one_process(
+        tmp_path, [dict(name='sp_card', model='deaott', steps=2, batch=2,
+                        capture=True, remat='full',
+                        overrides=dict(train_spatial_sharding=True))],
+        2, 2, 'cuda:0', 'gloo', local_ranks=[0, 0])
+
+
+@pytest.mark.cuda
+def test_spatial_over_nccl_trains_as_one(tmp_path):
+    """Four processes, one a card, over NCCL (the halo exchange as
+    `batch_isend_irecv` between cards): a 2 x 2 world trains `deaott`
+    with ZeRO-1, and a 1 x 4 world trains `r50_deaotl` on 113x113 clips
+    (bands of 32, 32, 32 and 17 px), as one process does."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip('needs four CUDA devices: one rank a card over NCCL')
+    sp = dict(train_spatial_sharding=True)
+    _spatial_world_matches_one_process(
+        tmp_path, [dict(name='nccl22', model='deaott', steps=2, batch=2,
+                        capture=True, zero1=True, remat='full',
+                        overrides=sp)], 4, 2, None, 'nccl')
+    _spatial_world_matches_one_process(
+        tmp_path, [dict(name='nccl14', model='r50_deaotl', steps=2, batch=2,
+                        capture=True, remat='full', overrides=sp,
+                        size=113)], 4, 4, None, 'nccl')

@@ -47,7 +47,7 @@ from rmem_ocu_tpu.utils.torch_convert import convert_torch_params
 import torch_threads  # noqa: F401
 import torch_dp_worker as worker
 import chip_smoke
-from rmem_ocu_tpu_torch import build_vos_model
+from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.engine import train_engine
 from rmem_ocu_tpu_torch.engine.train_engine import TrainEngine
 from rmem_ocu_tpu_torch.ops.layers import keep_mask, noise_from
@@ -424,9 +424,11 @@ def test_eval_cli_world_of_two(cli_runs):
     (lambda: eval_cli.main(['--mesh', '3', '--device', 'cpu']),
      'torchrun --nproc_per_node 3 .* --mesh 3'),
     (lambda: TrainEngine(build_vos_model(
-        worker.exp_of(_cases('')[0]).model, device='cpu'),
-        replace(worker.exp_of(_cases('')[0]),
-                train_spatial_sharding=True)), 'item 15c'),
+        get_config('pre_vost', model='swinb_deaotl').model, device='cpu'),
+        replace(get_config('pre_vost', model='swinb_deaotl'),
+                train_spatial_sharding=True, mesh_shape=(1, 2),
+                mesh_axes=('data', 'model')), World(size=2, tp=2)),
+     'Swin-B with its shifted windows .* item 15c'),
     (lambda: train_cli.main(CLI_ARGS + ['--multihost', '--mesh', '3']),
      'torchrun --nproc_per_node 3'),
 ], ids=['mesh_without_group', 'mesh_dxm', 'eval_mesh', 'spatial',

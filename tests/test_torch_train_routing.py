@@ -150,13 +150,32 @@ def test_kernel_wrappers_refuse_autograd():
 @pytest.mark.parametrize('knob,value', [
     ('train_remat_policy', 'dots'), ('train_remat_policy', 'dots_k1024'),
     ('train_scan_unroll', 2), ('train_encoder_chunk', 2),
-    ('train_spatial_sharding', True), ('mesh_axes', ('data', 'model'))])
+    ('mesh_axes', ('data', 'model'))])
 def test_xla_only_knobs_raise(knob, value):
     exp = replace(get_config('pre_vost', model='deaott'), **{knob: value})
     model = build_vos_model(exp.model, device='cpu', exp=exp)
     with pytest.raises(NotImplementedError, match=knob):
         TrainEngine(model, exp)
     assert train_engine.check_port_knobs(get_config('pre_vost')) is None
+
+
+def test_spatial_sharding_at_one_rank_is_one_process():
+    """At M = 1 the knob is a no-op, as in the JAX package: the episode
+    runs and its loss is the one without the knob, bit for bit."""
+    exp = replace(get_config('pre_vost', model='deaott',
+                             data_seq_len=3), train_long_term_mem_gap=1)
+    rs = np.random.RandomState(3)
+    frames = torch.from_numpy(rs.randn(2, 3, 49, 49, 3).astype(np.float32))
+    masks = torch.from_numpy(rs.randint(0, 3, (2, 3, 49, 49)))
+    losses = []
+    for knob in (False, True):
+        model = build_vos_model(exp.model, device='cpu', exp=exp).train()
+        engine = TrainEngine(model, replace(exp,
+                                            train_spatial_sharding=knob))
+        loss, _ = engine.episode_loss(frames, masks, torch.tensor([2, 1]),
+                                      0, torch.Generator().manual_seed(1))
+        losses.append(loss)
+    assert torch.equal(losses[0], losses[1])
 
 
 def test_trainable_bn_stats_come_out_once():

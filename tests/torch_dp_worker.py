@@ -18,7 +18,9 @@ rank. Keys: name, model, steps, batch, zero1, remat, overrides (config
 fields), seed (of the model's weights), save (a checkpoint root written
 after the steps), flaky_save (rank 0's first write of that save fails),
 restore (a checkpoint root restored before them), capture (keep the
-first step's averaged gradients and parameters). A spec's `tp` makes the
+first step's averaged gradients and parameters), dtype (the model's and
+the frames', 'float32' by default), size (of the square clips, 49 by
+default). A spec's `tp` makes the
 world D x tp (tensor parallelism): a case then runs on a ('data',
 'model') mesh, takes the rows of its data rank, and its digest holds the
 whole tensors, gathered over the model group.
@@ -26,7 +28,10 @@ whole tensors, gathered over the model group.
 A case of kind 'serve' (`run_serving`) streams a clip through the
 inference engine instead, the model's weights loaded from the case's
 `weights` file and cut over the model group; one of kind 'gather'
-(`run_gather`) differentiates through `gather_from_model`.
+(`run_gather`) differentiates through `gather_from_model`. Under spatial
+sharding, one of kind 'halo' (`run_halo`) exchanges halos of a band of
+rows, and one of kind 'maps' (`run_maps`) runs a model's encoder, id bank
+and decoder on a band; these write a digest from every rank.
 """
 import json
 import os
@@ -100,11 +105,11 @@ def exp_of(case):
                    train_remat_policy=case.get('remat', 'none'))
 
 
-def global_batch(b: int, seed: int):
+def global_batch(b: int, seed: int, size: int = SIZE):
     rs = np.random.RandomState(seed)
     obj_nums = np.array([2, 1, 2, 1][:b], np.int64)
-    return {'frames': rs.randn(b, T, SIZE, SIZE, 3).astype(np.float32),
-            'masks': (rs.rand(b, T, SIZE, SIZE)
+    return {'frames': rs.randn(b, T, size, size, 3).astype(np.float32),
+            'masks': (rs.rand(b, T, size, size)
                       * (obj_nums[:, None, None, None] + 1)).astype(np.int64),
             'obj_nums': obj_nums}
 
@@ -138,10 +143,12 @@ def run_case(case, world):
                       mesh_axes=('data', 'model'))
     model = build_vos_model(exp.model, device=world.device,
                             seed=case.get('seed', 0), exp=exp)
+    dtype = getattr(torch, case.get('dtype', 'float32'))
+    model.to(dtype)
     trainer = Trainer(model, exp, world)
     state = trainer.init_state()
     names = [k for k, _ in model.named_parameters()]
-    digest = {'steps': []}
+    digest = {'steps': [], 'split': list(trainer.layout)}
     if case.get('restore'):
         restored, _ = ckpt.restore_checkpoint(case['restore'],
                                               trainer.state_dict(state))
@@ -172,8 +179,10 @@ def run_case(case, world):
             world.model)
         return clip(grads, *args, **kw)
     for i in range(case['steps']):
-        batch = rank_rows(global_batch(case['batch'], 3 + i),
+        batch = rank_rows(global_batch(case['batch'], 3 + i,
+                                       case.get('size', SIZE)),
                           world.data.rank, world.data.size, world.device)
+        batch['frames'] = batch['frames'].to(dtype)
         seen = []
         if case.get('capture') and i == 0:
             optim.clip_by_global_norm = capture
@@ -194,7 +203,8 @@ def run_case(case, world):
                               if v.is_floating_point()})
     digest['ema'] = flat(saved['ema'])
     digest['same_on_ranks'] = same_on_all_ranks(
-        [digest['weights'], digest['ema']], world)
+        [digest['weights'].to(world.device), digest['ema'].to(world.device)],
+        world)
     moments = state.opt_state.get('mu', state.opt_state.get('trace'))
     big = max(moments, key=lambda k: model.get_parameter(k).numel())
     digest['largest_moment'] = (model.get_parameter(big).numel(),
@@ -213,7 +223,8 @@ def run_case(case, world):
             torch.save = save
         digest['saved_to'] = path
         digest['saved_alike'] = same_on_all_ranks(
-            [torch.tensor([zlib.crc32(path.encode())])], world)
+            [torch.tensor([zlib.crc32(path.encode())], device=world.device)],
+            world)
     return digest
 
 
@@ -290,13 +301,104 @@ def run_gather(case, world):
             'grad': dist.all_gather(x.grad, mw, mine, 8)}
 
 
+HALO_ROWS = 11                  # a whole map of 11 rows: 6 + 5 at M=2
+HALO_CASES = ((1, 1, 0.0, None), (3, 2, 0.0, (3, 3)), (1, 0, -1.0, (1, 1)),
+              (0, 2, 0.0, None), (2, 0, 0.0, (0, 4)))
+
+
+def halo_operands(n: int):
+    """A whole [2, 3, HALO_ROWS, 5] map, each rank's first row (M=n), and
+    per HALO_CASES entry (top, bottom, fill, edge) a weight for each
+    rank's band with its halo."""
+    rs = np.random.RandomState(4)
+    starts = [r * -(-HALO_ROWS // n) for r in range(n)] + [HALO_ROWS]
+    x = torch.from_numpy(rs.randn(2, 3, HALO_ROWS, 5))
+    weights = []
+    for top, bottom, _, edge in HALO_CASES:
+        edge = edge or (top, bottom)
+        rows = [(top if r else edge[0]) + starts[r + 1] - starts[r]
+                + (bottom if r < n - 1 else edge[1]) for r in range(n)]
+        weights.append([torch.from_numpy(rs.randn(2, 3, k, 5))
+                        for k in rows])
+    return x, starts, weights
+
+
+def run_halo(case, world):
+    """This model rank's band of halo_operands' map with each case's halo,
+    and the gradient of sum(band * weight) with respect to its band."""
+    from rmem_ocu_tpu_torch.parallel.spatial import halo_rows
+    mw = world.model
+    x, starts, weights = halo_operands(mw.size)
+    out = {'per_rank': True, 'ext': [], 'grad': []}
+    for (top, bottom, fill, edge), w in zip(HALO_CASES, weights):
+        band = x[..., starts[mw.rank]:starts[mw.rank + 1], :].clone()
+        band.requires_grad_()
+        ext = halo_rows(band, top, bottom, mw, fill, edge)
+        (ext * w[mw.rank]).sum().backward()
+        out['ext'].append(ext.detach())
+        out['grad'].append(band.grad)
+    return out
+
+
+def run_maps(case, world):
+    """The case's DeAOT model (eval, frozen BN) on this model rank's band
+    of a 49x49 clip: the rows each banded convolution's input holds against
+    its band's rows at its stride, and the largest difference of the
+    band's encoder maps, id tokens and decoded logits from the whole
+    image's computed here without bands."""
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.parallel import spatial
+    exp = get_config('pre_vost', model=case['model'])
+    model = build_vos_model(exp.model, device=world.device)
+    bands = spatial.make_bands((SIZE, SIZE), world.model)
+    rs = np.random.RandomState(6)
+    img = torch.from_numpy(rs.randn(2, SIZE, SIZE, 3).astype(np.float32))
+    ids = torch.from_numpy(rs.randint(0, 3, (2, SIZE, SIZE)))
+    one_hot = torch.nn.functional.one_hot(ids, exp.model.id_dim).float()
+    # a GPM layer's output [tgt, tgt_id] on the whole 16x grid
+    gpm_out = [torch.from_numpy(rs.randn(
+        2, bands.whole_rows(16) * -(-SIZE // 16),
+        2 * exp.model.encoder_embedding_dim).astype(np.float32))]
+    first, end = bands.rows(1)
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: inputs.append((bands.level(a[0].shape[-1]),
+                                    a[0].shape[-2])))
+        for m in model.modules() if isinstance(m, spatial.Conv2d)]
+
+    def run(banded):
+        rows = slice(first, end) if banded else slice(None)
+        with spatial.banded(bands if banded else None), torch.no_grad():
+            xs = model.encode_image(img[:, rows])
+            tokens = model.get_id_emb(one_hot[:, rows])
+            return xs, tokens, model.decode_id_logits(gpm_out, xs)
+    whole = run(False)
+    inputs.clear()
+    mine = run(True)
+    for h in hooks:
+        h.remove()
+    rows = lambda m: slice(*bands.rows(bands.level(m.shape[-1])))
+    err = max(float((m - w[..., rows(m), :]).abs().max())
+              for m, w in zip(mine[0], whole[0]))
+    logits = mine[2].permute(0, 3, 1, 2)
+    return {'per_rank': True, 'conv_inputs': inputs,
+            'band_rows': {s: bands.rows(s) for s in spatial.STRIDES},
+            'map_rows': [x.shape[-2] for x in mine[0]],
+            'map_err': err,
+            'token_err': float((mine[1] - whole[1]).abs().max()),
+            'logit_rows': logits.shape[-2],
+            'logit_err': float((logits - whole[2].permute(0, 3, 1, 2)[
+                ..., slice(*bands.rows(4)), :]).abs().max())}
+
+
 def gather_operands(n: int):
     rs = np.random.RandomState(0)
     return (torch.from_numpy(rs.randn(3, 8)),
             [torch.from_numpy(rs.randn(3, 8)) for _ in range(n)])
 
 
-RUNS = {'train': run_case, 'serve': run_serving, 'gather': run_gather}
+RUNS = {'train': run_case, 'serve': run_serving, 'gather': run_gather,
+        'halo': run_halo, 'maps': run_maps}
 
 
 def main(spec_path: str) -> None:
@@ -312,7 +414,11 @@ def main(spec_path: str) -> None:
     try:
         for case in spec['cases']:
             digest = RUNS[case.get('kind', 'train')](case, world)
-            if world.is_main:
+            if digest.get('per_rank'):
+                torch.save(digest, digest_path(
+                    spec['out'], f'{case["name"]}_r{world.rank}',
+                    world.size))
+            elif world.is_main:
                 torch.save(digest, digest_path(spec['out'], case['name'],
                                                world.size))
             print(f'rank {world.rank}: {case["name"]} ok', flush=True)
