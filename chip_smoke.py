@@ -32,9 +32,12 @@ Phases, each fatal on failure:
    others), holding eviction ids, masks and exact kernel launch counts;
 5. main path, bf16, per path: 353x625 (352x624 for Swin), 3 objects, at 1
    and 8 streams (the ResNet-50 paths and swinb_deaotl) or 1: frames/s,
-   p50 frame latency, peak memory and a profile by kernel group and by
-   part of the model (encoder, in Swin its window attention, the
-   attention's qkv and proj linears and the MLPs; LSTT; decoder);
+   p50 frame latency, peak memory; after every path's timed run (a profile
+   slows the frames timed after it in its process), the census of 5 more
+   frames of each, on its engine built again
+   (rmem_ocu_tpu_torch/tools/census.py: device time by component, kernel
+   group and part of the model, in Swin its window attention, the
+   attention's qkv and proj linears and the MLPs; launches by op);
 6. eval protocol, fp32, card against CPU: the port's Evaluator with flip
    and scales (1.0, 1.3) on 241x433 frames, 3 objects, and 10 objects
    growing to 12 (re-reference, two groups), holding eviction ids at every
@@ -42,8 +45,8 @@ Phases, each fatal on failure:
    masks against the CPU's (J&F);
 7. eval protocol, bf16, 1080x1920 frames at the default test_max_size
    (577x1041 and 753x1345), flip: eval frames/s, p50 frame latency, peak
-   memory, launches and a profiled window per sequence; then the eval CLI
-   on the synthetic test set, on its default device;
+   memory, launches and the census of a window of 5 frames per sequence;
+   then the eval CLI on the synthetic test set, on its default device;
 8. the VOST oracle, `r50_topdown_aotl`: the Evaluator fp32 on the card
    against the CPU (129x225, flip: eviction ids at every update, masks,
    launches, no re-reference), then bf16 on 1080x1920 frames.
@@ -53,8 +56,8 @@ Phases, each fatal on failure:
    no kernel launched across the step (training reads densely: the
    kernels have no backward); (b) bf16 AMP steps at the recipe shape
    (465x465 crops, T=17, gap 4, remat 'full', batch 2 and 4, and batch 2
-   without remat): step time, episodes/s, frames/s, peak memory and a
-   profile of one step by part; (c) the trained model in eval mode: the
+   without remat): step time, episodes/s, frames/s, peak memory and the
+   census of one step by component (forward, backward, recompute); (c) the trained model in eval mode: the
    inference engine launches B1 and B2 again, as many as expected.
 10. the pipeline, `r50_deaotl`: `tools.pipeline.main()` in-process on a
    synthetic VOST tree written from a seed (3 train and 2 val sequences of
@@ -102,6 +105,14 @@ Phases, each fatal on failure:
    parallelism alone) and in one process: the peak memory a rank, the
    halo exchanges and gathers a step and their MB, the step time, no
    kernel launched.
+14. the census tool: `stages` of r50_deaotl at 1 and 8 streams beside
+   phase 5's p50; `frames --stage_by_stage` of deaot_1head and
+   deaot_2heads (B1, B2, B3 launches equal to the expected counts, each
+   kernel's ms a call beside phase 3's row); `train` at the recipe shape
+   (components sum to the step's device busy time within 1%, matched
+   share at least 0.5, no kernel launched); `trace` of phase 5's exported
+   trace (its device total equal to that profile's busy time within 1%).
+   A profile of the card that sees no kernel fails the run.
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -134,13 +145,6 @@ N_OBJ = 3
 # or 1080p frame becomes 577x1041 (37x66) and, at scale 1.3, 753x1345
 # (48x85); more than 10 objects make batch 2
 EVAL_GRIDS = (((37, 66), 1), ((37, 66), 2), ((48, 85), 1))
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # cycles of the sleep kernel a timed burst waits behind: ~30 ms, longer
@@ -694,143 +698,37 @@ def phase_engine_fp32(torch, path: str):
           f'launches (B1, B2, B3) {counts}')
 
 
-# kernel-name fragments -> group, first match wins (cuDNN's implicit-GEMM
-# convolutions before cuBLAS's GEMMs)
-KERNEL_GROUPS = (
-    ('B3 memory_read_attention', ('attentionread',)),
-    ('B1 memory_read', ('memory_read',)),
-    ('B2 local_attn', ('local_attn',)),
-    ('convolution', ('conv', 'fprop', 'implicit', 'winograd', 'cudnn')),
-    ('matmul', ('gemm', 'cutlass', 'cublas', 'xmma', 'nvjet')),
-    ('normalisation', ('norm',)),
-    ('softmax', ('softmax',)),
-    ('other', ('',)),
-)
-
-
-def annotate_modules(model):
-    """Profiler ranges around the model's parts, by forward hooks (the
-    port's code carries none): the encoder, in Swin its window attention
-    (the whole WindowAttention module, and apart its qkv and proj linears)
-    and its MLPs, the LSTT / GPM stack and the decoder. Returns the hook
-    handles; report_profile reads each range's device time."""
-    from torch.profiler import record_function
-    from rmem_ocu_tpu_torch.models.encoders.swin import Mlp, WindowAttention
-    parts = [('encoder', model.encoder), ('lstt', model.LSTT),
-             ('decoder', model.decoder)]
-    for m in model.modules():
-        if isinstance(m, WindowAttention):
-            parts += [('swin window attention', m),
-                      ('swin attention qkv + proj linears', m.qkv),
-                      ('swin attention qkv + proj linears', m.proj)]
-        elif isinstance(m, Mlp):
-            parts.append(('swin mlp', m))
-    handles = []
-    for name, mod in parts:
-        ranges = []
-
-        def enter(_mod, _args, name=name, ranges=ranges):
-            ranges.append(record_function(f'part: {name}').__enter__())
-
-        def leave(_mod, _args, _out, ranges=ranges):
-            ranges.pop().__exit__(None, None, None)
-        handles.append(mod.register_forward_pre_hook(enter))
-        handles.append(mod.register_forward_hook(leave))
-    return handles
-
-
-def profile_frames(torch, eng, state, frames, tag: str, size, n: int = 5):
-    """torch.profiler over n frames: device time by kernel group and by
-    part of the model, kernels launched per frame and the device's idle
-    share of the window."""
-    from torch.profiler import ProfilerActivity, profile
-    handles = annotate_modules(eng.model)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            start.record()
-            for i in range(n):
-                logits, state = eng.propagate(state, frames[i % len(frames)])
-                state = eng.update_memory(state,
-                                          eng.predict_mask(logits, size))
-            end.record()
-            torch.cuda.synchronize()
-    finally:
-        for h in handles:
-            h.remove()
-    return report_profile(prof, start.elapsed_time(end), n, tag)
-
-
-def report_profile(prof, window_ms: float, n: int, tag: str):
-    """Prints the device time of a profiled window of n frames by kernel
-    group, the kernels launched per frame, the idle share of the window,
-    the top kernels and, where annotate_modules marked them, the device
-    time of the model's parts. Returns the device's busy ms per frame, or
-    None when the profiler saw no kernels."""
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    busy, launches, kernels, parts = 0.0, 0, [], {}
-    for evt in prof.key_averages():
-        if evt.key.startswith('part: '):
-            # the CPU range's device time sums the kernels launched in it;
-            # its device-side twin spans the range, gaps included
-            if not str(evt.device_type).endswith('CUDA'):
-                parts[evt.key[6:]] = evt.device_time_total / 1e3
-            continue
-        if not str(evt.device_type).endswith('CUDA'):
-            continue
-        ms = evt.self_device_time_total / 1e3
-        busy += ms
-        launches += evt.count
-        kernels.append((ms, evt.count, evt.key))
-        name = evt.key.lower()
-        for group, keys in KERNEL_GROUPS:
-            if any(k in name for k in keys):
-                groups[group] += ms
-                break
-    if busy == 0.0:
-        print(f'profile {tag}: device time not measured (the profiler saw '
-              f'no kernels)')
-        return None
-    parts_s = ', '.join(f'{g} {t / n:.3f} ms ({100 * t / busy:.1f}%)'
-                        for g, t in sorted(groups.items(),
-                                           key=lambda x: -x[1]))
-    print(f'profile {tag}: {window_ms / n:.3f} ms/frame window, '
-          f'device busy {busy / n:.3f} ms/frame, idle share '
-          f'{max(0.0, 1 - busy / window_ms):.3f}, {launches / n:.0f} '
-          f'kernels/frame; by group per frame: {parts_s}')
-    if parts:
-        print(f'profile {tag}: by part per frame: ' + ', '.join(
-            f'{g} {t / n:.3f} ms ({100 * t / busy:.1f}%)'
-            for g, t in parts.items()))
-    for ms, count, name in sorted(kernels, reverse=True)[:8]:
-        print(f'  top kernel {tag}: {ms / n:.3f} ms/frame, '
-              f'{count / n:.0f}/frame, {name[:90]}')
-    return busy / n
-
-
-def phase_main_path(torch, path: str, batch: int):
-    """The bf16 main path of `path` at `batch` streams; returns the kernel
-    launch counts (B1, B2, B3) of the run."""
+def main_path_setup(torch, path: str, batch: int):
+    """The bf16 engine of `path` at `batch` streams with its reference
+    frame added: (exp, engine, state, frames on the card)."""
     from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
     spec = spec_of(path)
-    size, n_warm, n_timed = spec['size'], spec['warm'], spec['timed']
     exp = get_config('pre_vost_2', compute_dtype='bfloat16',
                      **spec['overrides'])
-    grid = grid_of(size, exp.model.align_corners)
     model = build_vos_model(exp.model, seed=0).to(torch.bfloat16)
     eng = InferEngine(model, exp, long_term_mem_gap=spec['gap'])
-    img0, mask0, frames = make_inputs(batch, 8, seed=5, size=size)
+    img0, mask0, frames = make_inputs(batch, 8, seed=5, size=spec['size'])
     frames = [torch.from_numpy(f).cuda() for f in frames]
-    state = eng.init_state(batch, grid)
+    state = eng.init_state(batch, grid_of(spec['size'],
+                                          exp.model.align_corners))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     state = eng.add_reference_frame(state, torch.from_numpy(img0),
                                     torch.from_numpy(mask0),
                                     torch.full((batch,), N_OBJ))
+    return exp, eng, state, frames
+
+
+def phase_main_path(torch, path: str, batch: int):
+    """The bf16 main path of `path` at `batch` streams; returns the kernel
+    launch counts (B1, B2, B3) of the timed run and its p50 frame latency.
+    No profile runs in its process before it (main_path_census follows
+    every path's timed run): the profiler slows later frames."""
+    spec = spec_of(path)
+    size, n_warm, n_timed = spec['size'], spec['warm'], spec['timed']
+    exp, eng, state, frames = main_path_setup(torch, path, batch)
+    grid = grid_of(size, exp.model.align_corners)
     events = []
     for i in range(n_warm + n_timed):
         start = torch.cuda.Event(enable_timing=True)
@@ -866,13 +764,31 @@ def phase_main_path(torch, path: str, batch: int):
     fps = batch * n_timed / (total_ms / 1e3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tag = f'{path} streams={batch}'
+    p50 = statistics.median(per_frame)
     print(f'main path bf16 {size[0]}x{size[1]} {N_OBJ} objects gap '
           f'{spec["gap"]} {tag}: {fps:.2f} frames/s aggregate, p50 frame '
-          f'latency {statistics.median(per_frame):.3f} ms, peak memory '
+          f'latency {p50:.3f} ms, peak memory '
           f'{peak:.3f} GiB, {n_timed} timed frames after {n_warm} warm-up, '
           f'launches (B1, B2, B3) {counts}')
-    profile_frames(torch, eng, state, frames, tag, size)
-    return counts
+    return counts, p50
+
+
+def main_path_census(torch, path: str, batch: int, trace_dir=None) -> dict:
+    """The census of 5 frames of `path` at `batch` streams after the timed
+    run's frames (its chrome trace under `trace_dir` if given), on an
+    engine built again as phase_main_path builds it."""
+    from rmem_ocu_tpu_torch.tools import census
+    from rmem_ocu_tpu_torch.utils.profiling import format_census
+    spec = spec_of(path)
+    _, eng, state, frames = main_path_setup(torch, path, batch)
+    for i in range(spec['warm'] + spec['timed']):
+        state = census.frame_step(eng, state, frames[i % len(frames)],
+                                  spec['size'])
+    c, _ = census.profile_frames(eng, state, frames, spec['size'], 5,
+                                 trace_dir)
+    for line in format_census(c, f'{path} streams={batch}'):
+        print(line)
+    return c
 
 
 # ---------------------------------------------------------------- eval
@@ -881,16 +797,13 @@ def array_sequence(name: str, size, n_frames: int, labels: dict, seed: int,
     """A sequence of the port's eval data whose frames and labels are made
     here from `seed` instead of read from files: smooth random images that
     drift a little from frame to frame, and `labels`, {frame index: uint8
-    label map at `size`}. `on_frame`, when set, is called with each frame
-    index before the evaluator gets the frame (the profiler's window)."""
+    label map at `size`}."""
     import cv2
     from rmem_ocu_tpu_torch.data.eval_datasets import VOSSequence
     h, w = size
     base = np.random.RandomState(seed).rand(h // 32 + 2, w // 32 + 2, 3)
 
     class ArraySequence(VOSSequence):
-        on_frame = None
-
         def _raw_image(self, img_name):
             idx = int(img_name[:5])
             jitter = np.random.RandomState(seed * 1000 + idx).rand(
@@ -900,11 +813,6 @@ def array_sequence(name: str, size, n_frames: int, labels: dict, seed: int,
 
         def _raw_label(self, label_name):
             return labels[int(label_name[:5])]
-
-        def frame(self, idx):
-            if self.on_frame is not None:
-                self.on_frame(idx)
-            return super().frame(idx)
 
     return ArraySequence('', '', name, [f'{i:05d}.jpg' for i in range(
         n_frames)], [f'{i:05d}.png' for i in labels], **seq_kw)
@@ -1053,7 +961,8 @@ def phase_eval_bf16(torch, out_root: str):
     from rmem_ocu_tpu_torch import build_vos_model, get_config
     from rmem_ocu_tpu_torch.eval.evaluator import EvalStats, Evaluator
     from rmem_ocu_tpu_torch.data.eval_datasets import EvalDataset
-    from torch.profiler import ProfilerActivity, profile
+    from rmem_ocu_tpu_torch.tools import census
+    from rmem_ocu_tpu_torch.utils.profiling import format_census
     exp = get_config('pre_vost_2', model='r50_deaotl',
                      compute_dtype='bfloat16')
     model = build_vos_model(exp.model, seed=0).to(torch.bfloat16)
@@ -1102,37 +1011,16 @@ def phase_eval_bf16(torch, out_root: str):
                                   ('objects10to12', 17, 11)):
         seq = eval_sequences(EVAL_BF16_SIZE, (n_frames, n_frames), 10,
                              **seq_kw)[name]
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        running = []
-
-        def on_frame(idx, prof=prof, events=events, first=first,
-                     running=running):
-            if idx == first:
-                torch.cuda.synchronize()
-                prof.start()
-                running.append(True)
-                events[0].record()
-            elif idx == first + 5:
-                events[1].record()
-                torch.cuda.synchronize()
-                prof.stop()
-                running.pop()
-        seq.on_frame = on_frame
-        try:
-            ev.evaluate(EvalDataset({name: seq}), verbose=False)
-        finally:
-            if running:
-                prof.stop()
-        device_ms[name] = report_profile(
-            prof, events[0].elapsed_time(events[1]), 5, f'eval bf16 {name}')
-    if None not in device_ms.values():
-        frames = {name: len(seq) - 1 for name, seq in seqs.items()}
-        busy = sum(device_ms[n] * frames[n] for n in frames) / sum(
-            frames.values())
-        print(f'eval bf16 whole run: device busy {busy:.3f} ms/frame (the '
-              f'windows weighted by the timed frames)')
+        c = census.profile_eval(ev, name, seq, first, 5)
+        for line in format_census(c, f'eval bf16 {name}',
+                                  stage_by_stage=True):
+            print(line)
+        device_ms[name] = c['busy_ms']
+    frames = {name: len(seq) - 1 for name, seq in seqs.items()}
+    busy = sum(device_ms[n] * frames[n] for n in frames) / sum(
+        frames.values())
+    print(f'eval bf16 whole run: device busy {busy:.3f} ms/frame (the '
+          f'windows weighted by the timed frames)')
     return all_counts
 
 
@@ -1383,79 +1271,6 @@ def phase_training_fp32(torch):
     return counts
 
 
-def annotate_training(model):
-    """Profiler ranges of a training step: the model's parts by forward
-    hooks (with remat their recompute in backward too), the loss, and the
-    optimizer + EMA, by wrapping the functions the trainer calls."""
-    from torch.profiler import record_function
-    from rmem_ocu_tpu_torch.engine import train_engine
-    from rmem_ocu_tpu_torch.train import optim
-    handles = annotate_modules(model)
-    saved = []
-
-    def wrap(mod, name, label):
-        fn = getattr(mod, name)
-
-        def ranged(*a, **k):
-            with record_function(f'part: {label}'):
-                return fn(*a, **k)
-        setattr(mod, name, ranged)
-        saved.append((mod, name, fn))
-    wrap(train_engine, 'segmentation_loss', 'loss')
-    for name in ('clip_by_global_norm', 'adam_update', 'apply_updates',
-                 'ema_update'):
-        wrap(optim, name, 'optimizer + ema')
-
-    def undo():
-        for h in handles:
-            h.remove()
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    return undo
-
-
-def report_train_profile(prof, window_ms: float, tag: str):
-    """Device time of one profiled step by part and kernel group, the
-    backward's share (autograd's evaluate_function ranges, remat recompute
-    included) and the idle share of the step."""
-    busy, parts, groups, bwd = 0.0, {}, {g: 0.0 for g, _ in KERNEL_GROUPS}, 0.0
-    kernels = []
-    for evt in prof.key_averages():
-        cuda = str(evt.device_type).endswith('CUDA')
-        if evt.key.startswith('part: '):
-            # the CPU range's device time sums the kernels launched in it;
-            # its device-side twin spans the range, gaps included
-            if not cuda:
-                parts[evt.key[6:]] = evt.device_time_total / 1e3
-        elif (evt.key.startswith('autograd::engine::evaluate_function')
-              and not cuda):
-            bwd += evt.device_time_total / 1e3
-        elif cuda:
-            ms = evt.self_device_time_total / 1e3
-            busy += ms
-            kernels.append((ms, evt.count, evt.key))
-            for group, keys in KERNEL_GROUPS:
-                if any(k in evt.key.lower() for k in keys):
-                    groups[group] += ms
-                    break
-    if busy == 0.0:
-        print(f'profile {tag}: device time not measured (the profiler saw '
-              f'no kernels)')
-        return
-    print(f'profile {tag}: step window {window_ms:.1f} ms, device busy '
-          f'{busy:.1f} ms, idle share {max(0.0, 1 - busy / window_ms):.3f}; '
-          f'backward (autograd, with the remat recompute) {bwd:.1f} ms '
-          f'({100 * bwd / busy:.1f}%); by part (forward hooks: forward and '
-          f'recompute): ' + ', '.join(f'{g} {t:.1f} ms ({100 * t / busy:.1f}'
-                                      f'%)' for g, t in parts.items()))
-    print(f'profile {tag}: by kernel group: ' + ', '.join(
-        f'{g} {t:.1f} ms ({100 * t / busy:.1f}%)' for g, t in
-        sorted(groups.items(), key=lambda x: -x[1])))
-    print(f'profile {tag}: {sum(c for _, c, _ in kernels)} kernels a step')
-    for ms, count, name in sorted(kernels, reverse=True)[:10]:
-        print(f'  top kernel {tag}: {ms:.1f} ms, {count}x, {name[:100]}')
-
-
 def phase_training_bf16(torch):
     """9b: bf16 AMP training of r50_deaotl at the recipe shape (pre_vost_2:
     465x465 crops, T=17, write gap 4), 3 objects, remat 'full', per-card
@@ -1463,9 +1278,10 @@ def phase_training_bf16(torch):
     frames/s, peak memory, a profile of one step; batch 2 again without
     remat. Returns the trained model of the last batch-2 run."""
     from dataclasses import replace
-    from torch.profiler import ProfilerActivity, profile
     from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.tools import census
     from rmem_ocu_tpu_torch.train.trainer import Trainer
+    from rmem_ocu_tpu_torch.utils.profiling import format_census
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     base = get_config('pre_vost_2', model='r50_deaotl', train_amp=True)
@@ -1536,20 +1352,10 @@ def phase_training_bf16(torch):
               f'and {ema_moved} EMA leaves moved, launches (B1, B2, B3) '
               f'{read_counts()}')
         if batch == 2:
-            undo = annotate_training(model)
-            try:
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    start.record()
-                    state, metrics = trainer.train_step(state, batch_d, gen)
-                    end.record()
-                    torch.cuda.synchronize()
-            finally:
-                undo()
-            report_train_profile(prof, start.elapsed_time(end), tag)
+            c, state, metrics = census.profile_train_step(trainer, state,
+                                                          batch_d, gen)
+            for line in format_census(c, tag):
+                print(line)
             trained = model
     return trained
 
@@ -2918,6 +2724,116 @@ def phase_tp_cli(torch, root: str, data: str, result: str, one_dir: str,
     return {'tp_eval_cli': ranks[0], 'tp_train_cli': (0, 0, 0)}
 
 
+# ------------------------------------------------------ 14: the census
+B_GROUPS = ('B1 memory_read', 'B2 local_attn', 'B3 memory_read_attention')
+
+
+def census_cli(argv) -> dict:
+    """`python -m rmem_ocu_tpu_torch.tools.census ARGV` in this process:
+    prints its lines and returns its JSON dict (its last line)."""
+    import contextlib
+    import io
+    from rmem_ocu_tpu_torch.tools import census
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = census.main(argv)
+    lines = buf.getvalue().splitlines()
+    check(rc == 0 and lines[0].startswith('card: '),
+          f'census {argv}: rc {rc}, first line {lines[:1]}')
+    for line in lines[:-1]:
+        print(f'census {argv[0]}: {line}')
+    return json.loads(lines[-1])
+
+
+def phase_census(torch, rows, main_runs, trace_dir: str) -> dict:
+    """14: the census tool (rmem_ocu_tpu_torch/tools/census.py) on the
+    card: `stages` of deaot_1head at 1 and 8 streams beside phase 5's p50;
+    `frames --stage_by_stage` of deaot_1head (B1, B2) and deaot_2heads (B3)
+    at 1 stream on a bank filled to steady state, its B1/B2/B3 launches equal to the expected counts and to
+    the wrappers' counters, each group's ms a call beside phase 3's row;
+    `train` at the recipe shape (B=2): its components and unmatched sum to
+    the step's device busy time within 1%, the matched share at least 0.5,
+    no B1/B2/B3 launch; `trace` of phase 5's deaot_1head trace, its device
+    total equal to that profile's busy time within 1%. Returns the census
+    ms a call of B1, B2 and B3."""
+    from rmem_ocu_tpu_torch.tools import census
+    from rmem_ocu_tpu_torch.utils.profiling import format_census
+    frame_stages = ('propagate (enc+lstt+decode @4x)', 'update_memory',
+                    'predict_mask (upsample+argmax)')
+    for streams in (1, 8):
+        st = census_cli(['stages', '--streams', str(streams)])['stages']
+        parts = sum(st[k]['median_ms'] for k in frame_stages)
+        full = st['FULL FRAME']['median_ms']
+        print(f'census stages deaot_1head streams={streams} (medians): '
+              + ', '.join(f'{k} {v["median_ms"]:.3f} ms'
+                          for k, v in st.items())
+              + f'; propagate + update_memory + predict_mask {parts:.3f} '
+              f'ms = {parts / full:.3f} x the full frame; phase 5 p50 '
+              f'{main_runs[("deaot_1head", streams)][1]:.3f} ms')
+
+    per_call = {}
+    n = 5
+    for path, row_of in (('deaot_1head', {B_GROUPS[0]: 'b1_bf16_B1',
+                                          B_GROUPS[1]: 'b2_bf16_B1'}),
+                         ('deaot_2heads', {B_GROUPS[2]: 'b3_bf16_B1'})):
+        spec = spec_of(path)
+        overrides = dict(spec['overrides'])
+        engine, state, frames, size = census.build_frames(
+            overrides.pop('model'), 1, spec['size'], 'cuda', overrides,
+            spec['gap'])
+        state = census.fill_bank(engine, state, frames, size)
+        reset_counts()
+        c, state = census.profile_frames(engine, state, frames, size, n)
+        counts = read_counts()
+        tag = f'census frames {path} streams=1'
+        for line in format_census(c, tag, stage_by_stage=True):
+            print(line)
+        got = tuple(round(c['group_launches'][g] * n) for g in B_GROUPS)
+        want = expected_counts(path, n, n_reference=0)
+        check(got == want == counts, f'{tag}: launches (B1, B2, B3) '
+              f'{got}, counters {counts}, expected {want}')
+        for group, row in row_of.items():
+            # a bank read (B1, B3) is two launches: the read and its combine
+            launches = c['group_launches'][group]
+            calls = launches / (1 if group == B_GROUPS[1] else 2)
+            per_call[group] = c['groups'][group] / calls
+            print(f'{tag}: {group} {c["groups"][group] / launches:.4f} ms a '
+                  f'launch, {per_call[group]:.4f} ms a call ({calls:g} '
+                  f'calls a frame), phase 3 row {row}: '
+                  f'{rows[row]["ms"]:.4f} ms')
+
+    c = census_cli(['train', '--batch', '2'])
+    comps = c['components']
+    total = sum(sum(v.values()) for v in comps.values())
+    bwd = sum(v['backward'] for v in comps.values())
+    print(f'census train r50_deaotl B=2: components and unmatched '
+          f'{total:.3f} ms against device busy {c["busy_ms"]:.3f} ms; '
+          f'matched share {c["matched_share"]:.4f}, of the backward '
+          f'{c["backward_matched_share"]:.4f}; forward / backward / '
+          f'recompute {sum(v["forward"] for v in comps.values()):.3f} / '
+          f'{bwd:.3f} / {sum(v["recompute"] for v in comps.values()):.3f} '
+          f'ms; B1/B2/B3 launches '
+          f'{[c["group_launches"][g] for g in B_GROUPS]}')
+    check(abs(total - c['busy_ms']) <= 0.01 * c['busy_ms'],
+          f'census train: components {total} ms, busy {c["busy_ms"]} ms')
+    check(c['matched_share'] >= 0.5,
+          f'census train: matched share {c["matched_share"]}')
+    check(all(c['group_launches'][g] == 0 for g in B_GROUPS),
+          f'census train: kernels launched {c["group_launches"]}')
+
+    t = census_cli(['trace', trace_dir, '--steps', str(n)])
+    main = main_runs[('deaot_1head', 1)][2]
+    print(f'census trace of phase 5 deaot_1head streams=1: device '
+          f'{t["total_ms"]:.4f} ms a frame ({t["kernel_ms"]:.4f} kernels) '
+          f'against the profile\'s busy {main["busy_ms"]:.4f} '
+          f'({main["kernel_ms"]:.4f} kernels)')
+    check(abs(t['total_ms'] - main['busy_ms']) <= 0.01 * main['busy_ms']
+          and abs(t['kernel_ms'] - main['kernel_ms'])
+          <= 0.01 * main['kernel_ms'],
+          f'census trace {t["total_ms"]} ms, profile {main["busy_ms"]} ms')
+    return per_call
+
+
 def print_resources(logs) -> None:
     """Registers, shared memory and spills of each kernel: ptxas's report
     per entry (static shared memory only), then the runtime's view of the
@@ -2973,7 +2889,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.time()
-    smi = nvidia_smi()
+    from rmem_ocu_tpu_torch.utils.profiling import card_line
+    smi = card_line('cuda')
     print(f'device: {smi}; torch {torch.__version__}, CUDA '
           f'{torch.version.cuda}, {torch.cuda.get_device_name(0)}')
 
@@ -2987,12 +2904,20 @@ def main() -> int:
     for path in PATHS:
         phase_engine_fp32(torch, path)
     print(f'phase 4 done at {time.time() - t_start:.1f} s')
-    counts = {}
-    for path in PATHS:
-        for batch in spec_of(path)['streams']:
-            c = phase_main_path(torch, path, batch)
-            if batch == 1:
-                counts[path] = c
+    counts, main_runs = {}, {}
+    # phase 5's trace of deaot_1head at 1 stream, read by phase 14 (removed
+    # at exit also when a phase fails)
+    traces = tempfile.TemporaryDirectory()
+    trace_dir = traces.name
+    runs = [(path, batch) for path in PATHS
+            for batch in spec_of(path)['streams']]
+    for path, batch in runs:
+        main_runs[(path, batch)] = phase_main_path(torch, path, batch)
+        if batch == 1:
+            counts[path] = main_runs[(path, batch)][0]
+    for run in runs:
+        main_runs[run] += (main_path_census(
+            torch, *run, trace_dir if run == ('deaot_1head', 1) else None),)
     print(f'phase 5 done at {time.time() - t_start:.1f} s')
     with tempfile.TemporaryDirectory() as tmp:
         phase_eval_fp32(torch, os.path.join(tmp, 'fp32'))
@@ -3033,16 +2958,20 @@ def main() -> int:
         finally:
             os.chdir(cwd)
     print(f'phase 13 done at {time.time() - t_start:.1f} s')
+    census_ms = phase_census(torch, rows, main_runs, trace_dir)
+    traces.cleanup()
+    print(f'phase 14 done at {time.time() - t_start:.1f} s')
 
     kernels = []
-    for name, src, replaces, row_name, idx, path in KERNELS:
+    for (name, src, replaces, row_name, idx, path), group in zip(
+            KERNELS, B_GROUPS):
         # every check above raised on failure, so reaching here is 'ok'
         kind = row_name.split('_')[0]
         kernels.append(dict(
             name=name, route='cuda', source=src, replaces=replaces,
             launches=counts[path][idx],
             launches_by_path={p: c[idx] for p, c in counts.items()},
-            **rows[row_name], verdict='ok',
+            **rows[row_name], census_ms=census_ms[group], verdict='ok',
             tp_shard_rows={k: {f: v[f] for f in ('ms', 'bound_ms',
                                                  'bound_share')}
                            for k, v in tp_rows.items()

@@ -52,7 +52,7 @@ from typing import Optional
 
 import torch
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from rmem_ocu_tpu_torch.config import ExpConfig
 from rmem_ocu_tpu_torch.memory import bank as membank
@@ -126,6 +126,9 @@ class TrainEngine:
         self.gap = exp.train_long_term_mem_gap
         self.skip = exp.train_short_term_mem_skip
         self.remat = exp.train_remat_policy == 'full'
+        # the checkpoints' context_fn (forward context, recompute context);
+        # the profiler census ranges the recompute through it
+        self.remat_context = noop_context_fn
         self.bns = {name: m for name, m in model.named_modules()
                     if isinstance(m, BatchNorm2d)}
         for m in self.bns.values():
@@ -260,7 +263,8 @@ class TrainEngine:
             return self._call(p, 'encode_image', imgs, m,
                               var_loss=var_loss_on)
         flat = frames.reshape(b * t_total, h, w, 3)
-        out = (checkpoint(encode, params, flat, enc_mask, use_reentrant=False)
+        out = (checkpoint(encode, params, flat, enc_mask, use_reentrant=False,
+                          context_fn=self.remat_context)
                if self.remat else encode(params, flat, enc_mask))
         xs, var_loss = out if var_loss_on else (out, None)
         xs = [x.reshape(b, t_total, *x.shape[1:]) for x in xs]  # NCHW
@@ -430,7 +434,8 @@ class TrainEngine:
                     first_short, xs[-1][:, t_idx], frame_xs(t_idx),
                     one_hot_all[:, t_idx], ignore_all[:, t_idx],
                     masks[:, t_idx])
-            out = (checkpoint(frame_step, *args, use_reentrant=False)
+            out = (checkpoint(frame_step, *args, use_reentrant=False,
+                              context_fn=self.remat_context)
                    if self.remat else frame_step(*args))
             bank, short, first_short, loss, rev_loss, iou, pred_mask = out
             frame_losses.append(loss)

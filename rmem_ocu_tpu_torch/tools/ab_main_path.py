@@ -3,7 +3,9 @@
     python -m rmem_ocu_tpu_torch.tools.ab_main_path TREE_A TREE_B
 
 Runs each tree's own `chip_smoke.phase_main_path` (every path at 1 and 8
-streams) in a fresh process from that tree, in the order A, B, B, A, so
+streams), then its `main_path_census` of each where the tree has one (in
+older trees phase_main_path profiles each path itself), in a fresh process
+from that tree, in the order A, B, B, A, so
 that both trees share the card, its host and its drift. Prints each run's
 lines and then, per tree, path and stream count, the frames/s, the p50
 frame latency and the device time per frame of the two turns. Needs a CUDA
@@ -18,9 +20,11 @@ from pathlib import Path
 
 RUN = '''
 import torch, chip_smoke as cs
-for path in cs.PATHS:
-    for batch in (1, 8):
-        cs.phase_main_path(torch, path, batch)
+runs = [(path, batch) for path in cs.PATHS for batch in (1, 8)]
+for run in runs:
+    cs.phase_main_path(torch, *run)
+for run in runs if hasattr(cs, 'main_path_census') else ():
+    cs.main_path_census(torch, *run)
 '''
 MAIN = re.compile(r'main path .* (\w+) streams=(\d+): ([\d.]+) frames/s '
                   r'aggregate, p50 frame latency ([\d.]+) ms')

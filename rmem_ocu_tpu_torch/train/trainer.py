@@ -225,6 +225,65 @@ class Trainer:
                      if k in IOU_METRICS else part / world.size)
             metrics[k] = value.reshape(metrics[k].shape)
 
+    @torch.no_grad()
+    def _update(self, state: TrainState, masks: optim.ParamMasks,
+                aux: dict):
+        """After the backward: reduce, clip and apply the gradients, write
+        back the trainable BatchNorm statistics of the episode (`aux`'s
+        batch_stats) and move the EMA. Returns (the optimizer state, the
+        EMA, the gradient norm, the learning rate)."""
+        exp = self.exp
+        params = self._params()
+        # frozen gradients are zero, so the clip and the optimizer see
+        # only the trainable ones (reference trainer.py:552)
+        grads = {k: (torch.zeros_like(p) if masks.frozen[k]
+                     or p.grad is None else p.grad)
+                 for k, p in params.items()}
+        # the split gradients average over the data group; the whole
+        # parameters' over the world, so that their copies in a model
+        # group stay bitwise alike even where the backward is not
+        # deterministic on the card (cuDNN's weight gradients); the
+        # band-local ones sum over the model group
+        trainable = [k for k in grads if not masks.frozen[k]]
+        band = [k for k in trainable if self.engine.spatial
+                and k.split('.')[0] in spatial.BAND_LOCAL]
+        dist.all_reduce_([grads[k] for k in trainable
+                          if k in self.layout], self.world.data,
+                         mean=True)
+        dist.all_reduce_([grads[k] for k in trainable
+                          if k not in self.layout and k not in band],
+                         self.world, mean=True)
+        dist.all_reduce_([grads[k] for k in band], self.world)
+        for k in band:
+            grads[k] /= self.world.data.size
+        grad_norm = self._grad_norm(grads)
+        now_lr = optim.schedule_lr(state.step, exp)
+        current = {k: p.detach() for k, p in params.items()}
+        clipped = optim.clip_by_global_norm(
+            grads, exp.train_clip_grad_norm, norm=grad_norm)
+        if exp.train_opt == 'sgd':
+            updates, opt_state = optim.sgd_update(
+                self._shard(clipped), state.opt_state,
+                self._shard(current), masks, exp)
+        else:
+            updates, opt_state = optim.adam_update(
+                self._shard(clipped), state.opt_state)
+        if self.zero1 is not None:
+            updates = self.zero1.gather(updates)
+        new = optim.apply_updates(current, updates, masks, now_lr, exp)
+        for k, p in params.items():
+            p.copy_(new[k])
+            p.grad = None
+        # the trainable BN statistics of the episode (the world's
+        # under data parallelism), stored at the buffers' f32
+        for name, (mean, var) in aux.pop('batch_stats', {}).items():
+            bn = self.model.get_submodule(name)
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+        ema = optim.ema_update(state.ema, self._floating_state(),
+                               state.ema_updates + 1, self.ema_decay)
+        return opt_state, ema, grad_norm, now_lr
+
     def train_step(self, state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None
                    ) -> Tuple[TrainState, dict]:
@@ -252,56 +311,8 @@ class Trainer:
             batch['frames'], batch['masks'], batch['obj_nums'], state.step,
             generator, use_prev_pred=use_prev_pred)
         loss.backward()
-
-        with torch.no_grad():
-            # frozen gradients are zero, so the clip and the optimizer see
-            # only the trainable ones (reference trainer.py:552)
-            grads = {k: (torch.zeros_like(p) if masks.frozen[k]
-                         or p.grad is None else p.grad)
-                     for k, p in params.items()}
-            # the split gradients average over the data group; the whole
-            # parameters' over the world, so that their copies in a model
-            # group stay bitwise alike even where the backward is not
-            # deterministic on the card (cuDNN's weight gradients); the
-            # band-local ones sum over the model group
-            trainable = [k for k in grads if not masks.frozen[k]]
-            band = [k for k in trainable if self.engine.spatial
-                    and k.split('.')[0] in spatial.BAND_LOCAL]
-            dist.all_reduce_([grads[k] for k in trainable
-                              if k in self.layout], self.world.data,
-                             mean=True)
-            dist.all_reduce_([grads[k] for k in trainable
-                              if k not in self.layout and k not in band],
-                             self.world, mean=True)
-            dist.all_reduce_([grads[k] for k in band], self.world)
-            for k in band:
-                grads[k] /= self.world.data.size
-            grad_norm = self._grad_norm(grads)
-            now_lr = optim.schedule_lr(state.step, exp)
-            current = {k: p.detach() for k, p in params.items()}
-            clipped = optim.clip_by_global_norm(
-                grads, exp.train_clip_grad_norm, norm=grad_norm)
-            if exp.train_opt == 'sgd':
-                updates, opt_state = optim.sgd_update(
-                    self._shard(clipped), state.opt_state,
-                    self._shard(current), masks, exp)
-            else:
-                updates, opt_state = optim.adam_update(
-                    self._shard(clipped), state.opt_state)
-            if self.zero1 is not None:
-                updates = self.zero1.gather(updates)
-            new = optim.apply_updates(current, updates, masks, now_lr, exp)
-            for k, p in params.items():
-                p.copy_(new[k])
-                p.grad = None
-            # the trainable BN statistics of the episode (the world's
-            # under data parallelism), stored at the buffers' f32
-            for name, (mean, var) in aux.pop('batch_stats', {}).items():
-                bn = self.model.get_submodule(name)
-                bn.running_mean.copy_(mean)
-                bn.running_var.copy_(var)
-            ema = optim.ema_update(state.ema, self._floating_state(),
-                                   state.ema_updates + 1, self.ema_decay)
+        opt_state, ema, grad_norm, now_lr = self._update(state, masks,
+                                                         aux)
         metrics = {
             'loss': loss.detach(), 'aux_loss': aux['aux_loss'].detach(),
             'pred_loss': aux['pred_loss'].detach(), 'iou': aux['iou'],

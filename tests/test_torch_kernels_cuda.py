@@ -430,6 +430,28 @@ def test_training_mode_reads_densely_on_the_card(heads):
 
 
 @pytest.mark.cuda
+def test_census_frames_sees_the_kernels_on_the_card():
+    """The census of `r50_deaotl` frames on the card (129x129, gap 5)
+    counts B1 and B2 launches as the wrappers' counters do, 6 and 3 a
+    frame, no B3, and places every kernel in a component."""
+    from rmem_ocu_tpu_torch.tools import census
+    _cuda()
+    engine, state, frames, size = census.build_frames(size=(129, 129))
+    state = census.frame_step(engine, state, frames[0], size)
+    before = (memory_read_fused.launches, local_window_attention.launches,
+              memory_read_attention.launches)
+    c, _ = census.profile_frames(engine, state, frames, size, n=3)
+    after = (memory_read_fused.launches, local_window_attention.launches,
+             memory_read_attention.launches)
+    launches = c['group_launches']
+    assert (launches['B1 memory_read'], launches['B2 local_attn'],
+            launches['B3 memory_read_attention']) == (6, 3, 0)
+    assert tuple(a - b for a, b in zip(after, before)) == (18, 9, 0)
+    assert c['device'] == 'cuda' and c['busy_ms'] > 0
+    assert c['matched_share'] == 1.0
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_refuse_autograd_on_the_card():
     """No kernel has a backward: each wrapper raises on a CUDA input that
     requires grad under grad mode, and launches under no_grad."""
