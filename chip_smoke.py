@@ -104,7 +104,15 @@ Phases, each fatal on failure:
    B=2, remat 'full'), 4 steps with the knob, without it (tensor
    parallelism alone) and in one process: the peak memory a rank, the
    halo exchanges and gathers a step and their MB, the step time, no
-   kernel launched.
+   kernel launched; (c) the encoders banded since: the full-depth
+   `rs101_aotl`, `r50_topdown_aotl` (its reconstruction loss), the same
+   with `oracle=True` and `aotl` on MobileNetV3, float64 with the knob
+   against one process on the card (12d's gates; in float32 rounding at
+   the ReLUs behind ResNeSt's split-attention pool moves its gradients
+   past them), and `rs101_aotl` and
+   `r50_topdown_aotl` in bf16 at the recipe shape, 3 steps with the knob
+   and with tensor parallelism alone (13b's lines; the peak a rank lower
+   with the knob).
 14. the census tool: `stages` of r50_deaotl at 1 and 8 streams beside
    phase 5's p50; `frames --stage_by_stage` of deaot_1head and
    deaot_2heads (B1, B2, B3 launches equal to the expected counts, each
@@ -1614,6 +1622,8 @@ def phase_pipeline(torch, root: str):
 
 # ---------------------------------------------------------- data parallel
 DP_SIZE, DP_T = (129, 129), 5
+# the model of phases 9-13b: (name, config overrides)
+R50_DEAOTL = ('r50_deaotl', {})
 # the settings of 11a: name, config overrides of r50_deaotl, ZeRO-1. The
 # trainable BN trains with SGD: AdamW's first steps move a parameter by
 # ~lr whatever its gradient, so the trainable BN's near-cancelled
@@ -1682,9 +1692,11 @@ def on_device(tree, device):
     return tree.to(device, copy=True) if torch.is_tensor(tree) else tree
 
 
-def dp_train(torch, setting, world, start=None) -> dict:
-    """Two fp32 steps of r50_deaotl (129x129, T=5, gap 1, 3 objects) in
-    one setting, on this rank's rows of a global batch of 2; returns the
+def dp_train(torch, setting, world, start=None, arch=R50_DEAOTL,
+             dtype: str = 'float32') -> dict:
+    """Two fp32 (or `dtype`) steps of r50_deaotl, or of `arch` (model
+    name, config overrides), at 129x129, T=5, gap 1, 3 objects, in one
+    setting, on this rank's rows of a global batch of 2; returns the
     world's metrics of each step, the weights before and after (and the
     names and sizes of their leaves), the EMA, whether every rank holds
     the same, and the kernel launches; whole tensors under tensor
@@ -1703,11 +1715,12 @@ def dp_train(torch, setting, world, start=None) -> dict:
     if world.tp > 1:
         overrides = dict(overrides, mesh_shape=(world.data.size, world.tp),
                          mesh_axes=('data', 'model'))
-    exp = replace(get_config('pre_vost_2', model='r50_deaotl',
+    exp = replace(get_config('pre_vost_2', model=arch[0],
                              data_seq_len=DP_T, train_total_steps=100,
-                             **overrides),
+                             **arch[1], **overrides),
                   train_long_term_mem_gap=1, train_zero1=zero1)
-    model = build_vos_model(exp.model, device=world.device, seed=0, exp=exp)
+    model = build_vos_model(exp.model, device=world.device, seed=0,
+                            exp=exp).to(getattr(torch, dtype))
     trainer = Trainer(model, exp, world)
     state = trainer.init_state()
     generator = torch.Generator().manual_seed(1)
@@ -1739,7 +1752,8 @@ def dp_train(torch, setting, world, start=None) -> dict:
     reset_counts()
     for i in range(0 if start is None else 1, 2):
         frames, masks = train_clip(2, DP_T, DP_SIZE, seed=20 + i)
-        batch = {'frames': torch.from_numpy(frames[rows]).to(world.device),
+        batch = {'frames': torch.from_numpy(frames[rows]).to(
+                     world.device, getattr(torch, dtype)),
                  'masks': torch.from_numpy(masks[rows]).to(world.device),
                  'obj_nums': torch.full((n,), N_OBJ, device=world.device)}
         # phase 12d holds each step's gradients of its setting
@@ -2147,13 +2161,21 @@ def step_gaps(torch, leaves, ga, gb, ua, ub):
     reference gradient exceeds twice the leaf's largest difference, so
     that its sign is the same in both worlds. An element nearer 0 may
     change sign between them, and AdamW then moves it by ~lr the other
-    way whatever its size. Returns ((gradient difference, leaf), (update
-    gap, leaf), elements with a gradient left out of the update's gap,
-    elements with a gradient)."""
+    way whatever its size. A leaf whose largest gradient lies below 1e-6
+    of the step's global gradient norm in both worlds is zero but for
+    rounding (an AOT self-attention's key bias: the softmax ignores a
+    per-query constant) and is left out, as phase 9a leaves it out.
+    Returns ((gradient difference, leaf), (update gap, leaf), elements
+    with a gradient left out of the update's gap, elements with a
+    gradient)."""
     ua, ub = by_leaf(torch, leaves, ua), by_leaf(torch, leaves, ub)
     worst_g, worst_u, left, total = (0.0, ''), (0.0, ''), 0, 0
+    norm = float(sum(float(g.double().square().sum())
+                     for g in ga.values())) ** 0.5
     for k, g in ga.items():
         g, h = g.float().reshape(-1), gb[k].float().reshape(-1)
+        if max(float(g.abs().max()), float(h.abs().max())) < 1e-6 * norm:
+            continue
         top = max(float(g.abs().max()), 1e-30)
         diff = float((h - g).abs().max())
         worst_g = max(worst_g, (diff / top, k))
@@ -2325,17 +2347,20 @@ def phase_tp_serving(torch, root: str, dp_one: dict):
 
 
 def tp_training(torch, dp_one: dict, ranks: list, one_world,
-                setting=TP_SETTING, tag: str = 'tp 12d'):
+                setting=TP_SETTING, tag: str = 'tp 12d', arch=R50_DEAOTL,
+                dtype: str = 'float32'):
     """12d's gates on a trainer of a 1 x M world in `setting` (`ranks`'
     results, TP_SETTING's by default) against 11a's one process in
-    TP_SETTING (`dp_one`; spatial sharding is a no-op at one process);
-    see phase_tp_serving. Returns rank 0's kernel launches."""
+    TP_SETTING (`dp_one`; spatial sharding is a no-op at one process),
+    both training `arch` in `dtype`; see phase_tp_serving. Returns rank
+    0's kernel launches."""
     # the trainer of a 1 x 2 world against 11a's one process, and its
     # second step against one process's from the world's first
     name = setting[0]
     key = 'train' if setting is TP_SETTING else 'spatial'
     a, b = dp_one[TP_SETTING[0]], ranks[0][key]
-    a2 = dp_train(torch, setting, one_world, start=b.pop('state1'))
+    a2 = dp_train(torch, setting, one_world, start=b.pop('state1'),
+                  arch=arch, dtype=dtype)
     err = 0.0
     for i, (sa, sb) in enumerate(zip(a['steps'], b['steps'])):
         for k in DP_METRICS:
@@ -2376,8 +2401,9 @@ def tp_training(torch, dp_one: dict, ranks: list, one_world,
     check(all(x[key]['launches'] == (0, 0, 0) for x in ranks),
           f'{tag}: training launched {[x[key]["launches"] for x in ranks]}')
     flips, flip_share, flip_g, leaves = sign_flip_share(torch, a, b)
-    print(f'{tag} trainer 1 x {TP} (gloo, CUDA tensors) {name} vs 11a\'s '
-          f'one process, fp32 129x129, T={DP_T}, 2 steps: losses '
+    print(f'{tag} trainer 1 x {TP} (gloo, CUDA tensors) {arch[0]} '
+          f'{arch[1] or ""} {name} vs one process, {dtype} 129x129, '
+          f'T={DP_T}, 2 steps: losses '
           f'{[s["loss"] for s in b["steps"]]} vs '
           f'{[s["loss"] for s in a["steps"]]}, max loss/metric diff '
           f'{err:.3g}, weights {dw:.3g}, EMA {de:.3g}; ranks alike; '
@@ -2400,10 +2426,28 @@ def tp_training(torch, dp_one: dict, ranks: list, one_world,
 
 # ------------------------------------------------- 13: spatial sharding
 SP_STEPS = 4                    # 13b: steps at the recipe shape, 1 warm-up
+# 13c: the encoders banded since r50_deaotl's (name, model, overrides);
+# the first two also at the recipe shape, SP_ENC_STEPS steps each
+SP_ENCODERS = (
+    ('resnest101', ('rs101_aotl', {})),
+    ('topdown', ('r50_topdown_aotl', {})),
+    ('topdown_oracle', ('r50_topdown_aotl', dict(oracle=True))),
+    ('mobilenetv3', ('aotl', dict(encoder='mobilenetv3',
+                                  encoder_dim=(24, 40, 112, 960)))))
+SP_ENC_STEPS = 3
+# 13c's training against one process runs in float64: in float32 the
+# split-attention pool's mean of a map whose signs cancel feeds a ReLU, and
+# the rounding of any order of its sums flips kinks behind it (the world's
+# step-1 gradients of ResNeSt-101's first layer-2 and layer-3 blocks were
+# up to 15% of a leaf's largest off one process's in float32, within 1e-6
+# in float64)
+SP_ENC_DTYPE = 'float64'
 
 
-def sp_bf16(torch, world, spatial_on: bool) -> dict:
-    """13b on this rank: bf16 AMP steps of r50_deaotl at the recipe shape
+def sp_bf16(torch, world, spatial_on: bool, arch=R50_DEAOTL,
+            steps: int = SP_STEPS) -> dict:
+    """13b and 13c on this rank: `steps` bf16 AMP steps of r50_deaotl (or
+    of `arch`) at the recipe shape
     (465x465, T=17, gap 4, B=2, remat 'full') on a 1 x M world with the
     knob on or off (TP alone), or in one process (`world` without a
     group). Returns the peak memory above the memory held before the
@@ -2419,8 +2463,8 @@ def sp_bf16(torch, world, spatial_on: bool) -> dict:
     from rmem_ocu_tpu_torch.train.trainer import Trainer
     mesh = {} if world.tp == 1 else dict(mesh_shape=(1, world.tp),
                                          mesh_axes=('data', 'model'))
-    exp = replace(get_config('pre_vost_2', model='r50_deaotl',
-                             train_amp=True, **mesh),
+    exp = replace(get_config('pre_vost_2', model=arch[0], train_amp=True,
+                             **arch[1], **mesh),
                   train_spatial_sharding=spatial_on)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
@@ -2449,7 +2493,7 @@ def sp_bf16(torch, world, spatial_on: bool) -> dict:
             after_forward=above(torch.cuda.memory_allocated),
             forward_peak=above(torch.cuda.max_memory_allocated))
         return result
-    for i in range(SP_STEPS):
+    for i in range(steps):
         trainer.engine.episode_loss = marked if i == 1 else episode
         if i == 1:
             out['peak_first'] = (torch.cuda.max_memory_allocated(
@@ -2480,7 +2524,11 @@ def sp_worker(spec_path: str) -> int:
     """A rank of 13, in a child process, a model group of two on card 0
     over gloo: 13a's fp32 training of SP_SETTING, then 13b's bf16 steps
     with the knob off and on; then rank 0 takes 13b's steps in one
-    process while rank 1 waits. Each rank writes its results."""
+    process while rank 1 waits; 13c's float64 training of SP_SETTING for
+    each of SP_ENCODERS (after 13a, before any bf16 step turns TF32 on)
+    and its bf16 steps with the knob off and on for the first two. The
+    spec's `parts` (default all of '13a', '13b', '13c') picks what runs.
+    Each rank writes its results."""
     import torch
     from rmem_ocu_tpu_torch.parallel import dist
     from rmem_ocu_tpu_torch.parallel.dist import World
@@ -2490,23 +2538,48 @@ def sp_worker(spec_path: str) -> int:
     world = dist.init_from_env('cuda:0', backend='gloo', timeout_s=900,
                                tp=TP)
     try:
-        out = {'spatial': dp_train(torch, SP_SETTING, world)}
-        for on in (False, True):
-            out['bf16', on] = sp_bf16(torch, world, on)
-        if world.is_main:
-            out['bf16_one'] = sp_bf16(torch, World(device=world.device),
-                                      True)
-        dist.agree(False, world)
+        parts = spec.get('parts', ('13a', '13b', '13c'))
+        out = {}
+        if '13a' in parts:
+            out['spatial'] = dp_train(torch, SP_SETTING, world)
+        if '13c' in parts:
+            for name, arch in SP_ENCODERS:
+                out['13c', name] = dp_train(torch, SP_SETTING, world,
+                                            arch=arch, dtype=SP_ENC_DTYPE)
+        if '13b' in parts:
+            for on in (False, True):
+                out['bf16', on] = sp_bf16(torch, world, on)
+            if world.is_main:
+                out['bf16_one'] = sp_bf16(torch, World(device=world.device),
+                                          True)
+            dist.agree(False, world)
+        if '13c' in parts:
+            for name, arch in SP_ENCODERS[:2]:
+                for on in (False, True):
+                    out['13c bf16', name, on] = sp_bf16(
+                        torch, world, on, arch, SP_ENC_STEPS)
         torch.save(out, f'{spec["out"]}.rank{world.rank}')
     finally:
         dist.destroy(world)
     return 0
 
 
-def phase_spatial(torch, root: str, dp_one: dict, tp_train: dict):
-    """13: `train_spatial_sharding` on a 1 x 2 world, two ranks on the
-    card in child processes (`--sp-worker`, gloo over CUDA tensors; each
-    rank trains on its band of the image's rows). 13a: SP_SETTING's two
+def spatial_ranks(torch, root: str, parts=('13a', '13b', '13c')) -> list:
+    """The results of phase 13's two ranks on the card in child processes
+    (`--sp-worker`, gloo over CUDA tensors; each rank trains on its band
+    of the image's rows), running `parts`."""
+    spec = dict(out=os.path.join(root, 'sp'), parts=list(parts))
+    spec_path = os.path.join(root, 'sp.json')
+    with open(spec_path, 'w') as f:
+        json.dump(spec, f)
+    wait_ranks(spawn_ranks(TP, [os.path.abspath(__file__), '--sp-worker',
+                                spec_path]), 1200)
+    return [torch.load(f'{spec["out"]}.rank{r}') for r in range(TP)]
+
+
+def phase_spatial(torch, ranks: list, dp_one: dict, tp_train: dict):
+    """13a and 13b: `train_spatial_sharding` on a 1 x 2 world, the two
+    ranks' results (spatial_ranks). 13a: SP_SETTING's two
     fp32 steps at 129x129, T=5, gap 1, against 11a's one process with
     12d's gates (tp_training: losses 1e-5, weights and EMA 1e-4, each
     step from one state with each leaf's gradient within GRAD_TOL of its
@@ -2521,13 +2594,6 @@ def phase_spatial(torch, root: str, dp_one: dict, tp_train: dict):
     steps 2 on lower with the knob than without. Returns the launches."""
     from rmem_ocu_tpu_torch.parallel.dist import World
     t0 = time.time()
-    spec = dict(out=os.path.join(root, 'sp'))
-    spec_path = os.path.join(root, 'sp.json')
-    with open(spec_path, 'w') as f:
-        json.dump(spec, f)
-    wait_ranks(spawn_ranks(TP, [os.path.abspath(__file__), '--sp-worker',
-                                spec_path]), 1200)
-    ranks = [torch.load(f'{spec["out"]}.rank{r}') for r in range(TP)]
     one_world = World(device=torch.device('cuda'))
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -2556,25 +2622,36 @@ def phase_spatial(torch, root: str, dp_one: dict, tp_train: dict):
     for on, label in ((False, 'TP alone'), (True, 'spatial')):
         for r, x in enumerate(ranks):
             runs[f'{label} rank {r}'] = x['bf16', on]
+    print_sp_bf16('sp 13b', R50_DEAOTL, runs, SP_STEPS)
+    print(f'sp 13a/13b gates ok in {time.time() - t0:.1f} s')
+    return {'sp_train': launches,
+            'sp_bf16': ranks[0]['bf16', True]['launches']}
+
+
+def print_sp_bf16(tag: str, arch, runs: dict, steps: int) -> None:
+    """13b and 13c's gates and lines for bf16 runs of `arch` at the
+    recipe shape (label -> sp_bf16's result): finite losses and 0
+    launches in each; the peak a rank lower with the knob ('spatial rank
+    r') than with TP alone ('TP alone rank r')."""
     for label, x in runs.items():
-        check(x['launches'] == (0, 0, 0), f'13b {label}: launches '
+        check(x['launches'] == (0, 0, 0), f'{tag} {label}: launches '
                                           f'{x["launches"]}')
-        check(all(np.isfinite(x['losses'])), f'13b {label}: losses '
+        check(all(np.isfinite(x['losses'])), f'{tag} {label}: losses '
                                               f'{x["losses"]}')
     peak = {k: v['peak'] / 2 ** 30 for k, v in runs.items()}
     first = {k: v['peak_first'] / 2 ** 30 for k, v in runs.items()}
     sp_peak = max(peak[f'spatial rank {r}'] for r in range(TP))
     tp_peak = max(peak[f'TP alone rank {r}'] for r in range(TP))
-    check(sp_peak < tp_peak, f'13b: peak a rank {sp_peak:.3f} GiB with the '
-                             f'knob, {tp_peak:.3f} without')
+    check(sp_peak < tp_peak, f'{tag} {arch[0]}: peak a rank {sp_peak:.3f} '
+                             f'GiB with the knob, {tp_peak:.3f} without')
     for label, x in runs.items():
         st = x['stats'][-1]
-        print(f'sp 13b {label}: r50_deaotl bf16 AMP 465x465 T=17 B=2 remat '
-              f'full, {SP_STEPS} steps: peak memory {peak[label]:.3f} GiB '
-              f'above the start in steps 2-{SP_STEPS} '
+        print(f'{tag} {label}: {arch[0]} {arch[1] or ""} bf16 AMP 465x465 '
+              f'T=17 B=2 remat full, {steps} steps: peak memory '
+              f'{peak[label]:.3f} GiB above the start in steps 2-{steps} '
               f'({first[label]:.3f} in step 1); step '
               f'{statistics.median(x["step_ms"][1:]):.1f} ms median of '
-              f'steps 2-{SP_STEPS} '
+              f'steps 2-{steps} '
               f'({[round(t, 1) for t in x["step_ms"]]}); '
               f'a step: {st["halo"]} halo exchanges, '
               f'{st["halo_bytes"] / 2 ** 20:.2f} MiB sent, {st["gather"]} '
@@ -2582,13 +2659,53 @@ def phase_spatial(torch, root: str, dp_one: dict, tp_train: dict):
               f'{[round(v, 4) for v in x["losses"]]}; launches '
               f'{x["launches"]}; step 2 in GiB above the start: '
               f'{ {k: round(v, 3) for k, v in x["marks"].items()} }')
-    print(f'sp 13b peak a rank in steps 2-{SP_STEPS} {sp_peak:.3f} GiB '
-          f'with the knob against {tp_peak:.3f} GiB with TP alone '
-          f'({sp_peak / tp_peak:.3f}x) and {peak["one process"]:.3f} GiB '
-          f'in one process')
-    print(f'sp 13 ok in {time.time() - t0:.1f} s')
-    return {'sp_train': launches,
-            'sp_bf16': ranks[0]['bf16', True]['launches']}
+    print(f'{tag} {arch[0]} peak a rank in steps 2-{steps} {sp_peak:.3f} '
+          f'GiB with the knob against {tp_peak:.3f} GiB with TP alone '
+          f'({sp_peak / tp_peak:.3f}x)' + (
+              f' and {peak["one process"]:.3f} GiB in one process'
+              if 'one process' in peak else ''))
+
+
+def phase_spatial_encoders(torch, ranks: list) -> dict:
+    """13c: the encoders banded since r50_deaotl's under the knob, from
+    the two ranks' results (spatial_ranks). (a) For each of SP_ENCODERS
+    (the full-depth rs101_aotl, r50_topdown_aotl, the same with
+    oracle=True, aotl on MobileNetV3), SP_SETTING's two steps in
+    SP_ENC_DTYPE at 129x129, T=5, gap 1, against one process on the card
+    with 12d's gates
+    (tp_training: losses 1e-5, weights and EMA 1e-4, each step from one
+    state with each leaf's gradient within GRAD_TOL of its largest and its
+    update within 1e-2, the ranks alike, 0 launches). (b) For the first
+    two, bf16 AMP at the recipe shape, SP_ENC_STEPS steps each with the
+    knob and with TP alone: 13b's lines and gates (print_sp_bf16). Returns
+    the launches."""
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    t0 = time.time()
+    one_world = World(device=torch.device('cuda'))
+    launches = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, arch in SP_ENCODERS:
+            one = {TP_SETTING[0]: dp_train(torch, TP_SETTING, one_world,
+                                           arch=arch, dtype=SP_ENC_DTYPE)}
+            launches[f'sp_{name}'] = tp_training(
+                torch, one, [{'spatial': r['13c', name]} for r in ranks],
+                one_world, SP_SETTING, f'sp 13c {name}', arch, SP_ENC_DTYPE)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    print(f'sp 13c {SP_ENC_DTYPE} ok at {time.time() - t0:.1f} s')
+    for name, arch in SP_ENCODERS[:2]:
+        runs = {f'{label} rank {r}': x['13c bf16', name, on]
+                for on, label in ((False, 'TP alone'), (True, 'spatial'))
+                for r, x in enumerate(ranks)}
+        print_sp_bf16(f'sp 13c {name}', arch, runs, SP_ENC_STEPS)
+        launches[f'sp_{name}_bf16'] = runs['spatial rank 0']['launches']
+    print(f'sp 13c ok in {time.time() - t0:.1f} s')
+    return launches
 
 
 def cli_worker(tool: str, argv_json: str) -> int:
@@ -2954,7 +3071,10 @@ def main() -> int:
             counts.update(phase_tp_cli(torch, tmp, data, result, eval_one,
                                        one_counts))
             print(f'phase 12 done at {time.time() - t_start:.1f} s')
-            counts.update(phase_spatial(torch, tmp, dp_one, tp_train))
+            ranks = spatial_ranks(torch, tmp)
+            counts.update(phase_spatial(torch, ranks, dp_one, tp_train))
+            counts.update(phase_spatial_encoders(torch, ranks))
+            del ranks
         finally:
             os.chdir(cwd)
     print(f'phase 13 done at {time.time() - t_start:.1f} s')

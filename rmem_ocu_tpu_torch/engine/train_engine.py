@@ -41,9 +41,12 @@ every call of the model runs banded, inside the checkpointed functions
 too. The encoder's, id bank's and decoder's maps, the upsampled logits and
 the per-pixel losses are the band's; the transformer runs on whole tokens.
 The losses and the IoU are the whole image's, alike on every rank; the
-trainable BatchNorm takes its moments over the whole world; the
-prediction fed back under `use_prev_pred` is the band's, and
-`final_pred_mask` is gathered whole.
+trainable BatchNorm takes its moments over the whole world (over the
+data group where its input is alike on the model ranks: ResNeSt's
+split-attention BN); the TopDown encoder's reconstruction loss is the
+whole image's, alike on every rank and added once; the prediction fed
+back under `use_prev_pred` is the band's, and `final_pred_mask` is
+gathered whole.
 """
 from __future__ import annotations
 
@@ -133,7 +136,7 @@ class TrainEngine:
                     if isinstance(m, BatchNorm2d)}
         for m in self.bns.values():
             m.defer_stats = True
-            m.world = world if self.spatial else self.world
+            m.world = world if self.spatial and m.banded else self.world
 
     @property
     def device(self) -> torch.device:
@@ -256,6 +259,7 @@ class TrainEngine:
 
         # --- the offline encode of all B*T frames (aot_engine.py:174-196)
         var_loss_on = cfg.var_loss_weight is not None
+        # the oracle's labels: the band's rows under spatial sharding
         enc_mask = (masks.reshape(b * t_total, h, w)[..., None].long()
                     if cfg.use_mask else None)
 

@@ -5,7 +5,10 @@ Counterpart of the JAX package's `models/encoders/mobilenetv3.py`
 module tree is the reference's: `features.0` the stem, `features.1-15` the
 blocks, each a `.conv` Sequential whose indices depend on whether the
 block expands (with: pw, bn, act, dw, bn, SE, act, pw-linear, bn; without:
-dw, bn, act, SE, pw-linear, bn), and `conv` the last 1x1 conv.
+dw, bn, act, SE, pw-linear, bn), and `conv` the last 1x1 conv. Its
+convolutions larger than 1x1 run on a band of rows under spatial
+sharding (parallel/spatial.py), and the squeeze-excite pool is the whole
+map's mean.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from rmem_ocu_tpu_torch.models.encoders.mobilenetv2 import make_divisible
-from rmem_ocu_tpu_torch.ops.layers import clip, make_bn
+from rmem_ocu_tpu_torch.ops.layers import clip, make_bn, mean_hw
+from rmem_ocu_tpu_torch.parallel.spatial import Conv2d
 
 
 def h_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +46,7 @@ class SELayer(nn.Module):
                                 nn.Linear(mid, channel), HSigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.fc(x.mean(dim=(2, 3)))[:, :, None, None]
+        return x * self.fc(mean_hw(x))[:, :, None, None]
 
 
 class MBV3Block(nn.Module):
@@ -54,8 +58,8 @@ class MBV3Block(nn.Module):
         self.identity = stride == 1 and inp == oup
         self.expand = inp != hidden
         pad = (kernel - 1) // 2 * dilation
-        dw = nn.Conv2d(hidden, hidden, kernel, stride=stride, padding=pad,
-                       dilation=dilation, groups=hidden, bias=False)
+        dw = Conv2d(hidden, hidden, kernel, stride=stride, padding=pad,
+                    dilation=dilation, groups=hidden, bias=False)
         se = SELayer(hidden) if use_se else nn.Identity()
         tail = [nn.Conv2d(hidden, oup, 1, bias=False),
                 make_bn(oup, frozen_bn)]
@@ -110,7 +114,7 @@ class MobileNetV3Encoder(nn.Module):
         super().__init__()
         input_channel = make_divisible(16 * width_mult)
         features = [nn.Sequential(
-            nn.Conv2d(3, input_channel, 3, stride=2, padding=1, bias=False),
+            Conv2d(3, input_channel, 3, stride=2, padding=1, bias=False),
             make_bn(input_channel, frozen_bn))]
         current_stride, rate = 2, 1
         for k, t, c, use_se, use_hs, s in _CFGS:

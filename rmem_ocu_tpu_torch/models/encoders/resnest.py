@@ -8,6 +8,12 @@ strided blocks and the avg-down shortcut. The reference's `dilation=2`
 dilates only the dropped stage 4, so every kept stage is undilated, as in
 the JAX package. NCHW; the module tree gives the reference torch keys
 (`conv1.0/1/3/4/6` for the stem, `downsample.1/2` behind the pool).
+
+Under spatial sharding (parallel/spatial.py) its 3x3 convolutions, the
+max and avd pools run on a band of rows, the split-attention pool is the
+whole map's mean, and the avg-down pool runs on the band as it is: bands
+start on the 16x grid, so at strides 4 and 8 no 2x2 window crosses two
+(checked where it runs).
 """
 from __future__ import annotations
 
@@ -17,7 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rmem_ocu_tpu_torch.ops.layers import make_bn, max_pool_3x3_s2
+from rmem_ocu_tpu_torch.ops.layers import (avg_pool_3x3, make_bn,
+                                           max_pool_3x3_s2, mean_hw)
+from rmem_ocu_tpu_torch.parallel import spatial
+from rmem_ocu_tpu_torch.parallel.spatial import Conv2d
 
 
 class SplAtConv2d(nn.Module):
@@ -32,17 +41,18 @@ class SplAtConv2d(nn.Module):
         super().__init__()
         self.radix, self.channels = radix, channels
         inter = max(channels * radix // reduction_factor, 32)
-        self.conv = nn.Conv2d(inp, channels * radix, 3, stride=stride,
-                              padding=1, groups=radix, bias=False)
+        self.conv = Conv2d(inp, channels * radix, 3, stride=stride,
+                           padding=1, groups=radix, bias=False)
         self.bn0 = make_bn(channels * radix, frozen_bn)
         self.fc1 = nn.Conv2d(channels, inter, 1)
-        self.bn1 = make_bn(inter, frozen_bn)
+        # its input, the pooled vector, is alike on every model rank
+        self.bn1 = make_bn(inter, frozen_bn, banded=False)
         self.fc2 = nn.Conv2d(inter, channels * radix, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn0(self.conv(x)))
         splits = torch.split(x, self.channels, dim=1)
-        gap = sum(splits).mean(dim=(2, 3), keepdim=True)
+        gap = mean_hw(sum(splits), keepdim=True)
         gap = F.relu(self.bn1(self.fc1(gap)))
         b = x.shape[0]
         atten = torch.softmax(self.fc2(gap).reshape(b, self.radix, -1), 1)
@@ -75,9 +85,11 @@ class ResNeStBottleneck(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.conv2(out)
         if self.avd:
-            # count_include_pad, as flax's avg_pool with explicit padding
-            out = F.avg_pool2d(out, 3, self.stride, 1)
+            out = avg_pool_3x3(out, self.stride)
         out = self.bn3(self.conv3(out))
+        bands = spatial.current()
+        if bands is not None and self.downsample is not None:
+            spatial.check_windows(x, self.stride, bands, 'the avg-down pool')
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
 
@@ -91,11 +103,11 @@ class ResNeStEncoder(nn.Module):
         super().__init__()
         sw = 32 if layers[2] == 6 else 64
         self.conv1 = nn.Sequential(
-            nn.Conv2d(3, sw, 3, stride=2, padding=1, bias=False),
+            Conv2d(3, sw, 3, stride=2, padding=1, bias=False),
             make_bn(sw, frozen_bn), nn.ReLU(),
-            nn.Conv2d(sw, sw, 3, padding=1, bias=False),
+            Conv2d(sw, sw, 3, padding=1, bias=False),
             make_bn(sw, frozen_bn), nn.ReLU(),
-            nn.Conv2d(sw, sw * 2, 3, padding=1, bias=False))
+            Conv2d(sw, sw * 2, 3, padding=1, bias=False))
         self.bn1 = make_bn(sw * 2, frozen_bn)
         inplanes = sw * 2
         for stage, (planes, blocks, stride) in enumerate(zip(

@@ -272,13 +272,19 @@ class BatchNorm2d(nn.Module):
     them (SyncBN): the sum, then the squared deviations from the global
     mean, and the element count, each summed over the ranks by a
     differentiable all-reduce. Every rank runs the same reduces in the
-    same order, the recompute of a checkpointed encoder included."""
+    same order, the recompute of a checkpointed encoder included.
+
+    `banded` False marks a BN whose input is alike on every rank of a
+    model group under spatial sharding (ResNeSt's split-attention BN of
+    a pooled [B, C, 1, 1] vector): the engine gives it the data group,
+    since the whole world would count each sample M times."""
 
     def __init__(self, dim: int, epsilon: float = EPS,
-                 momentum: float = 0.1):
+                 momentum: float = 0.1, banded: bool = True):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.banded = banded
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer('running_mean', torch.zeros(dim))
@@ -323,11 +329,13 @@ class BatchNorm2d(nn.Module):
                 + offset.to(x.dtype)[:, None, None])
 
 
-def make_bn(dim: int, frozen: bool = True) -> nn.Module:
+def make_bn(dim: int, frozen: bool = True, banded: bool = True
+            ) -> nn.Module:
     """The encoders' norm: FrozenBatchNorm2d, or the trainable
     BatchNorm2d when freeze_bn is off (reference encoders/__init__.py:10-37
-    picks FrozenBatchNorm2d or BatchNorm2d)."""
-    return FrozenBatchNorm2d(dim) if frozen else BatchNorm2d(dim)
+    picks FrozenBatchNorm2d or BatchNorm2d); `banded`, see BatchNorm2d."""
+    return FrozenBatchNorm2d(dim) if frozen else BatchNorm2d(dim,
+                                                             banded=banded)
 
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -348,3 +356,21 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     if bands is not None:
         return spatial.max_pool_3x3_s2(x, bands)
     return F.max_pool2d(x, 3, 2, 1)
+
+
+def avg_pool_3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """3x3 / pad-1 average pool counting the padding (flax's avg_pool with
+    explicit padding), on a band of rows under spatial sharding."""
+    bands = spatial.current()
+    if bands is not None:
+        return spatial.avg_pool_3x3(x, stride, bands)
+    return F.avg_pool2d(x, 3, stride, 1)
+
+
+def mean_hw(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """x [B, C, H, W] averaged over H and W; under spatial sharding, of
+    the whole map of which x is a band."""
+    bands = spatial.current()
+    if bands is not None:
+        return spatial.mean_hw(x, bands, keepdim)
+    return x.mean(dim=(2, 3), keepdim=keepdim)

@@ -13,7 +13,10 @@ M=2; 8/8/7/7 grid rows at M=4). A map at stride s holds the rows
 whole map's ceil(H / s) rows: the arithmetic of the odd sizes the
 encoders produce, 465 -> 233 -> 117 -> 59 -> 30. Every map of the
 encoders the knob supports has ceil(W / s) columns, so a map's width
-names its stride (`Bands.level`).
+names its stride (`Bands.level`), but for the maps of the TopDown
+encoder's transposed convolutions, whose s (n - 1) - 2p + k rows and
+columns need not be ceil(H / s): their callers give the stride and the
+whole map's rows (`rows(stride, whole=)`).
 
 The pieces:
 
@@ -26,7 +29,14 @@ The pieces:
   (a band starts at a multiple of the stride) and d (k - 1) - p - s + 1
   below, and runs with padding (0, p). Only the rows a layer reads cross
   the group. A 1x1 convolution reads its own rows and stays nn.Conv2d.
-- `group_norm`: GroupNorm's moments summed over the group.
+- `avg_pool_3x3`: ResNeSt's avd pool (count_include_pad), as the max
+  pool, with zero rows at the image's edge.
+- `ConvTranspose2d`: an output band [o0, o1) reads the input rows
+  ceil((o0 + p - k + 1) / s) to floor((o1 - 1 + p) / s); the band takes
+  those rows, runs without row padding and keeps its rows of the whole
+  output.
+- `group_norm`: GroupNorm's moments summed over the group; `mean_hw`, a
+  whole map's mean (the squeeze-excite and split-attention pools).
 - `gather_rows`: a band made whole on every rank, whose backward only
   slices: for tensors whose gradient is alike on every rank (the tokens
   into the LSTT, whose entry sums the ranks' parts), and for values
@@ -59,12 +69,15 @@ from rmem_ocu_tpu_torch.parallel.layers import scatter_to_model
 GRID_STRIDE = 16
 STRIDES = (1, 2, 4, 8, 16)
 # the encoders whose every convolution and pool is banded
-ENCODERS = ('resnet50', 'resnet101', 'mobilenetv2')
+ENCODERS = ('resnet50', 'resnet101', 'mobilenetv2', 'mobilenetv3',
+            'resnest50', 'resnest101', 'resnet50_topdown')
 # the parameters used band-locally: a rank's gradient is its band's part
 BAND_LOCAL = ('encoder', 'decoder', 'encoder_projector',
               'patch_wise_id_bank')
 
 STATS = {'halo': 0, 'halo_bytes': 0, 'gather': 0, 'gather_bytes': 0}
+# a map's (stride, whole rows), where its width names no stride
+Rows = Tuple[int, int]
 
 
 def reset_stats() -> None:
@@ -73,14 +86,13 @@ def reset_stats() -> None:
 
 
 def check_model(cfg) -> None:
-    """Raise unless the model's encoder runs banded (ROADMAP item 15c
-    ports ResNet-50/101 and MobileNetV2)."""
-    if cfg.encoder not in ENCODERS or cfg.use_mask or not cfg.align_corners:
+    """Raise unless the model's encoder runs banded (every encoder but
+    Swin-B, whose align_corners=False models are the only ones)."""
+    if cfg.encoder not in ENCODERS or not cfg.align_corners:
         raise NotImplementedError(
             f'train_spatial_sharding=True with encoder {cfg.encoder!r}: '
             f'bands are ported for {", ".join(ENCODERS)}; Swin-B with its '
-            f'shifted windows across bands, ResNeSt, MobileNetV3 and the '
-            f'TopDown/oracle encoder wait for the rest of ROADMAP item 15c')
+            f'shifted windows across bands waits for ROADMAP item 15c')
 
 
 @dataclass(frozen=True)
@@ -94,14 +106,16 @@ class Bands:
     def whole_rows(self, stride: int) -> int:
         return -(-self.size[0] // stride)
 
-    def rows(self, stride: int, rank: Optional[int] = None
-             ) -> Tuple[int, int]:
+    def rows(self, stride: int, rank: Optional[int] = None,
+             whole: Optional[int] = None) -> Tuple[int, int]:
         """(first, end) rows of rank's band (this rank's by default) of
-        the map at `stride`."""
+        the map at `stride` whose whole holds `whole` rows (by default
+        ceil(H / stride))."""
         r = self.world.rank if rank is None else rank
-        end = (self.whole_rows(stride) if r == self.world.size - 1
-               else self.starts[r + 1] // stride)
-        return self.starts[r] // stride, end
+        if r < self.world.size - 1:
+            return self.starts[r] // stride, self.starts[r + 1] // stride
+        return (self.starts[r] // stride,
+                self.whole_rows(stride) if whole is None else whole)
 
     def level(self, width: int) -> int:
         """The stride of a map (or a row-major [..., rows, W] tensor) of
@@ -113,9 +127,9 @@ class Bands:
                          f'{self.size} image')
 
     def check_halo(self, stride: int, top: int, bottom: int,
-                   what: str) -> None:
+                   what: str, whole: Optional[int] = None) -> None:
         """Raise when a halo needs more rows than a neighbour holds."""
-        n = [e - s for s, e in (self.rows(stride, r)
+        n = [e - s for s, e in (self.rows(stride, r, whole)
                                 for r in range(self.world.size))]
         for r in range(self.world.size):
             if (r > 0 and top > n[r - 1]) or (
@@ -295,6 +309,91 @@ def max_pool_3x3_s2(x: torch.Tensor, bands: Bands) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, (0, 1))
 
 
+def avg_pool_3x3(x: torch.Tensor, stride: int, bands: Bands
+                 ) -> torch.Tensor:
+    """F.avg_pool2d(x, 3, stride, 1) of a band, count_include_pad: one row
+    of halo above and 2 - stride below, zero rows at the image's edge
+    (counted, as the padding is)."""
+    bottom = max(2 - stride, 0)
+    bands.check_halo(bands.level(x.shape[-1]), 1, bottom, 'the avg pool')
+    x = halo_rows(x, 1, bottom, bands.world, 0.0, edge=(1, 1))
+    return F.avg_pool2d(x, 3, stride, (0, 1))
+
+
+def check_windows(x: torch.Tensor, stride: int, bands: Bands,
+                  what: str) -> None:
+    """Raise unless every band of x's map starts on a window of a
+    stride x stride pool and every band but the last ends on one, so that
+    no window crosses two bands (the last one's partial window at the
+    bottom edge is the whole map's)."""
+    s = bands.level(x.shape[-1])
+    for r in range(bands.world.size):
+        first, end = bands.rows(s, r)
+        if first % stride or (r < bands.world.size - 1 and end % stride):
+            raise ValueError(f'{what}: rank {r}\'s band [{first}, {end}) '
+                             f'of the map at stride {s} splits a window '
+                             f'of {stride} rows')
+
+
+def transposed_rows(conv: nn.ConvTranspose2d, at: Optional[Rows]
+                    ) -> Optional[Rows]:
+    """(stride, whole rows) of the map that conv makes from the map `at`
+    (None stays None)."""
+    if at is None:
+        return None
+    k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+    stride, n = at
+    if stride % s:
+        raise ValueError(f'a stride-{s} transposed conv of the map at '
+                         f'stride {stride}')
+    return stride // s, s * (n - 1) - 2 * p + k + conv.output_padding[0]
+
+
+def conv_transpose2d(conv: nn.ConvTranspose2d, x: torch.Tensor,
+                     bands: Bands, at: Rows) -> torch.Tensor:
+    """conv's output rows of this rank's band, from x, this rank's band of
+    the map `at` (stride, whole rows). An output band [o0, o1) reads the
+    input rows ceil((o0 + p - k + 1) / s) to floor((o1 - 1 + p) / s):
+    the band takes them as halo (the most any rank needs, zeros past the
+    image's edge, where no input row exists), runs without row padding
+    and keeps the rows [o0, o1) of the whole output."""
+    k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
+    if conv.dilation[0] != 1:
+        raise NotImplementedError('a dilated banded transposed conv')
+    out = transposed_rows(conv, at)
+    top = bottom = 0
+    for r in range(bands.world.size):
+        a0, a1 = bands.rows(at[0], r, at[1])
+        o0, o1 = bands.rows(out[0], r, out[1])
+        top = max(top, a0 - -(-(o0 + p - k + 1) // s))
+        bottom = max(bottom, (o1 - 1 + p) // s - (a1 - 1))
+    bands.check_halo(at[0], top, bottom, f'a {k}x{k} transposed conv',
+                     at[1])
+    x = halo_rows(x, top, bottom, bands.world)
+    y = F.conv_transpose2d(x, conv.weight, conv.bias, conv.stride,
+                           (0, conv.padding[1]),
+                           (0, conv.output_padding[1]), conv.groups)
+    a0 = bands.rows(at[0], None, at[1])[0]
+    o0, o1 = bands.rows(out[0], None, out[1])
+    first = o0 + p - (a0 - top) * s
+    if first < 0 or first + o1 - o0 > y.shape[-2]:
+        raise ValueError(f'rows [{o0}, {o1}) of a {k}x{k} transposed conv '
+                         f'lie past its band\'s output')
+    return y[..., first:first + o1 - o0, :]
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d that runs on its band of rows under `banded`,
+    where `at`, the (stride, whole rows) of the input's map, is given."""
+
+    def forward(self, x: torch.Tensor, at: Optional[Rows] = None
+                ) -> torch.Tensor:
+        bands = current()
+        if bands is None:
+            return super().forward(x)
+        return conv_transpose2d(self, x, bands, at)
+
+
 def group_norm(x: torch.Tensor, gn: nn.GroupNorm, bands: Bands
                ) -> torch.Tensor:
     """GroupNorm of a band by the whole map's moments (f32, or f64 on f64
@@ -314,6 +413,20 @@ def group_norm(x: torch.Tensor, gn: nn.GroupNorm, bands: Bands
     y = y * gn.weight.to(y.dtype)[:, None, None] + gn.bias.to(y.dtype)[
         :, None, None]
     return y.to(x.dtype)
+
+
+def mean_hw(x: torch.Tensor, bands: Bands, keepdim: bool = False
+            ) -> torch.Tensor:
+    """The whole map's mean over rows and columns of which x [..., rows,
+    W] is a band (f32, or f64 on f64 inputs): the band's sums, summed
+    over the group by a differentiable all-reduce whose backward sums
+    (each rank's use of the mean feeds its own work), over the whole
+    map's count."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    w = x.shape[-1]
+    total = all_reduce_sum(xf.sum(dim=(-2, -1), keepdim=keepdim),
+                           bands.world)
+    return (total / (bands.whole_rows(bands.level(w)) * w)).to(x.dtype)
 
 
 class _GatherRows(torch.autograd.Function):

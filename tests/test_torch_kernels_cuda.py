@@ -736,6 +736,29 @@ def test_spatial_ranks_on_the_card_train_as_one(tmp_path):
 
 
 @pytest.mark.cuda
+def test_spatial_encoders_on_the_card_train_as_one(tmp_path):
+    """Two processes on card 0 over gloo split the rows of ResNeSt's,
+    the oracle TopDown's (banded transposed convs and half-pixel mask
+    resize) and MobileNetV3's models (at 129 px: its dilated 16x convs
+    need 4 rows of halo) and train them as one process on the card. In
+    float64, as chip_smoke.py phase 13c: in float32 the rounding of the
+    split-attention pool's sums flips ReLU kinks behind it."""
+    sp = dict(train_spatial_sharding=True)
+    train = dict(steps=2, batch=2, capture=True, remat='full',
+                 dtype='float64')
+    _spatial_world_matches_one_process(
+        tmp_path, [
+            dict(train, name='sp_card_rs50', model='rs101_aotl',
+                 overrides=dict(sp, encoder='resnest50')),
+            dict(train, name='sp_card_oracle', model='r50_topdown_aotl',
+                 overrides=dict(sp, oracle=True)),
+            dict(train, name='sp_card_mbv3', model='aotl', size=129,
+                 overrides=dict(sp, encoder='mobilenetv3',
+                                encoder_dim=(24, 40, 112, 960)))],
+        2, 2, 'cuda:0', 'gloo', local_ranks=[0, 0])
+
+
+@pytest.mark.cuda
 def test_spatial_over_nccl_trains_as_one(tmp_path):
     """Four processes, one a card, over NCCL (the halo exchange as
     `batch_isend_irecv` between cards): a 2 x 2 world trains `deaott`

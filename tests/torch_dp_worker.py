@@ -20,8 +20,9 @@ after the steps), flaky_save (rank 0's first write of that save fails),
 restore (a checkpoint root restored before them), capture (keep the
 first step's averaged gradients and parameters), dtype (the model's and
 the frames', 'float32' by default), size (of the square clips, 49 by
-default). A spec's `tp` makes the
-world D x tp (tensor parallelism): a case then runs on a ('data',
+default), deterministic (every train-time rate 0 and no id shuffle, as
+the JAX package's episode runs in a check against it). A spec's `tp`
+makes the world D x tp (tensor parallelism): a case then runs on a ('data',
 'model') mesh, takes the rows of its data rank, and its digest holds the
 whole tensors, gathered over the model group.
 
@@ -30,8 +31,10 @@ inference engine instead, the model's weights loaded from the case's
 `weights` file and cut over the model group; one of kind 'gather'
 (`run_gather`) differentiates through `gather_from_model`. Under spatial
 sharding, one of kind 'halo' (`run_halo`) exchanges halos of a band of
-rows, and one of kind 'maps' (`run_maps`) runs a model's encoder, id bank
-and decoder on a band; these write a digest from every rank.
+rows, one of kind 'maps' (`run_maps`) runs a model's encoder, id bank
+and decoder on a band, and one of kind 'bands' (`run_bands`) holds the
+band mean, the banded transposed conv and the half-pixel resize to the
+whole map's; these write a digest from every rank.
 """
 import json
 import os
@@ -146,6 +149,12 @@ def run_case(case, world):
     dtype = getattr(torch, case.get('dtype', 'float32'))
     model.to(dtype)
     trainer = Trainer(model, exp, world)
+    if case.get('deterministic'):
+        from functools import partial
+        from rmem_ocu_tpu_torch.models.vos_model import zero_dropout
+        zero_dropout(model)
+        trainer.engine.episode_loss = partial(trainer.engine.episode_loss,
+                                              enable_id_shuffle=False)
     state = trainer.init_state()
     names = [k for k, _ in model.named_parameters()]
     digest = {'steps': [], 'split': list(trainer.layout)}
@@ -193,7 +202,8 @@ def run_case(case, world):
         digest['steps'].append({
             k: (m[k].tolist() if torch.is_tensor(m[k]) else m[k])
             for k in ('loss', 'aux_loss', 'pred_loss', 'iou', 'lr',
-                      'grad_norm', 'frame_losses', 'frame_ious')})
+                      'grad_norm', 'frame_losses', 'frame_ious', 'var_loss')
+            if k in m})
         if seen:
             digest['grads'] = {k: v.cpu() for k, v in seen[0].items()}
             whole = tp.whole_state_dict(model)
@@ -341,54 +351,180 @@ def run_halo(case, world):
 
 
 def run_maps(case, world):
-    """The case's DeAOT model (eval, frozen BN) on this model rank's band
-    of a 49x49 clip: the rows each banded convolution's input holds against
-    its band's rows at its stride, and the largest difference of the
+    """The case's model (eval, frozen BN; `overrides` of its config) on
+    this model rank's band of a clip of `size` px (49 by default): the
+    rows each banded convolution's input holds against its band's rows at
+    its stride, the (stride, whole rows) each banded transposed conv is
+    told with the rows its input holds, and the largest difference of the
     band's encoder maps, id tokens and decoded logits from the whole
-    image's computed here without bands."""
+    image's computed here without bands. A mask-conditioned encoder takes
+    the clip's labels; its maps without them are held too."""
     from rmem_ocu_tpu_torch import build_vos_model, get_config
     from rmem_ocu_tpu_torch.parallel import spatial
-    exp = get_config('pre_vost', model=case['model'])
-    model = build_vos_model(exp.model, device=world.device)
-    bands = spatial.make_bands((SIZE, SIZE), world.model)
+    exp = get_config('pre_vost', model=case['model'],
+                     **case.get('overrides', {}))
+    cfg = exp.model
+    size = case.get('size', SIZE)
+    dtype = getattr(torch, case.get('dtype', 'float32'))
+    model = build_vos_model(cfg, device=world.device).to(dtype)
+    bands = spatial.make_bands((size, size), world.model)
     rs = np.random.RandomState(6)
-    img = torch.from_numpy(rs.randn(2, SIZE, SIZE, 3).astype(np.float32))
-    ids = torch.from_numpy(rs.randint(0, 3, (2, SIZE, SIZE)))
-    one_hot = torch.nn.functional.one_hot(ids, exp.model.id_dim).float()
-    # a GPM layer's output [tgt, tgt_id] on the whole 16x grid
-    gpm_out = [torch.from_numpy(rs.randn(
-        2, bands.whole_rows(16) * -(-SIZE // 16),
-        2 * exp.model.encoder_embedding_dim).astype(np.float32))]
+    img = torch.from_numpy(rs.randn(2, size, size, 3)).to(dtype)
+    ids = torch.from_numpy(rs.randint(0, 3, (2, size, size)))
+    one_hot = torch.nn.functional.one_hot(ids, cfg.id_dim).to(dtype)
+    # the transformer's outputs on the whole 16x grid: a GPM layer's
+    # [tgt, tgt_id], or each LSTT layer's tgt
+    d = cfg.encoder_embedding_dim
+    n_out = cfg.lstt_num if cfg.decoder_intermediate_lstt else 1
+    lstt_out = [torch.from_numpy(rs.randn(
+        2, bands.whole_rows(16) * -(-size // 16),
+        2 * d if cfg.vos == 'deaot' else d)).to(dtype)
+        for _ in range(n_out)]
     first, end = bands.rows(1)
-    inputs = []
+    inputs, t_inputs = [], []
     hooks = [m.register_forward_pre_hook(
         lambda m, a: inputs.append((bands.level(a[0].shape[-1]),
                                     a[0].shape[-2])))
         for m in model.modules() if isinstance(m, spatial.Conv2d)]
+    hooks += [m.register_forward_pre_hook(
+        lambda m, a: t_inputs.append((a[1], a[0].shape[-2])))
+        for m in model.modules() if isinstance(m, spatial.ConvTranspose2d)]
+    labels = ids[..., None] if cfg.use_mask else None
 
-    def run(banded):
+    def run(banded, mask):
         rows = slice(first, end) if banded else slice(None)
+        m = None if mask is None else mask[:, rows]
         with spatial.banded(bands if banded else None), torch.no_grad():
-            xs = model.encode_image(img[:, rows])
+            xs = model.encode_image(img[:, rows], m)
             tokens = model.get_id_emb(one_hot[:, rows])
-            return xs, tokens, model.decode_id_logits(gpm_out, xs)
-    whole = run(False)
+            return xs, tokens, model.decode_id_logits(lstt_out, xs)
+    whole = run(False, labels)
     inputs.clear()
-    mine = run(True)
+    t_inputs.clear()
+    mine = run(True, labels)
     for h in hooks:
         h.remove()
     rows = lambda m: slice(*bands.rows(bands.level(m.shape[-1])))
-    err = max(float((m - w[..., rows(m), :]).abs().max())
-              for m, w in zip(mine[0], whole[0]))
+    err = lambda a, b: max(float((m - w[..., rows(m), :]).abs().max())
+                           for m, w in zip(a, b))
     logits = mine[2].permute(0, 3, 1, 2)
-    return {'per_rank': True, 'conv_inputs': inputs,
-            'band_rows': {s: bands.rows(s) for s in spatial.STRIDES},
-            'map_rows': [x.shape[-2] for x in mine[0]],
-            'map_err': err,
-            'token_err': float((mine[1] - whole[1]).abs().max()),
-            'logit_rows': logits.shape[-2],
-            'logit_err': float((logits - whole[2].permute(0, 3, 1, 2)[
-                ..., slice(*bands.rows(4)), :]).abs().max())}
+    out = {'per_rank': True, 'conv_inputs': inputs,
+           'transposed_inputs': [(at, n, bands.rows(at[0], None, at[1]))
+                                 for at, n in t_inputs],
+           'band_rows': {s: bands.rows(s) for s in spatial.STRIDES},
+           'map_rows': [x.shape[-2] for x in mine[0]],
+           'map_err': err(mine[0], whole[0]),
+           'token_err': float((mine[1] - whole[1]).abs().max()),
+           'logit_rows': logits.shape[-2],
+           'logit_err': float((logits - whole[2].permute(0, 3, 1, 2)[
+               ..., slice(*bands.rows(4)), :]).abs().max())}
+    if labels is not None:
+        plain = run(False, None)[0]
+        out['unmasked_err'] = err(run(True, None)[0], plain)
+        out['mask_moves'] = float((plain[2] - whole[0][2]).abs().max())
+    return out
+
+
+# the TopDown decoders' transposed convs (in, out, k, s, p), narrowed,
+# and the stride of the map each reads
+DECODER_CONVS = (((16, 8, 3, 2, 1), 16), ((8, 4, 7, 2, 3), 2),
+                 ((8, 4, 3, 1, 1), 4))
+# images of 1, not 1 and 1 (mod 16) px; the transposed convs at the first
+# two
+BAND_SIZES = (49, 72, 465)
+
+
+def _interp(x, size):
+    return torch.nn.functional.interpolate(x, size=size, mode='bilinear',
+                                           align_corners=False)
+
+
+def run_bands(case, world):
+    """On this model rank, in float64, at images of BAND_SIZES px: the
+    band mean, half-pixel resizes (the oracle's mask from 1x to the 16x
+    grid, 16x to 4x, and at a size not 1 (mod 16) a transposed conv's 4x
+    map of one row and column too few to the stage's) and, with the
+    case's `transposed`, each
+    TopDown transposed conv at the first two sizes, against the
+    whole map's, forward and backward: each rank's loss weighs its band's
+    output by its own weights, and the whole map's reference sums every
+    rank's. Returns each check's largest forward and input-gradient
+    difference, and for the transposed convs this rank's weight and bias
+    gradients beside the whole map's (the ranks' sum is the whole's)."""
+    from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
+    from rmem_ocu_tpu_torch.parallel import spatial
+    mw = world.model
+    out = {'per_rank': True, 'checks': {}, 'param_grads': {}}
+
+    def hold(name, size, fn, whole_fn, x, at, out_at, module=None):
+        """fn(band, bands) against whole_fn(whole)'s band; `at` and
+        `out_at` are the (stride, whole rows) of the input's and the
+        output's maps (None: the output is whole on every rank)."""
+        bands = spatial.make_bands((size, size), mw)
+        rows = lambda a, r=None: (slice(None) if a is None else
+                                  slice(*bands.rows(a[0], r, a[1])))
+        params = [] if module is None else list(module.parameters())
+        whole = x.clone().requires_grad_()
+        want = whole_fn(whole)
+        rs = np.random.RandomState(zlib.crc32(name.encode()))
+        weights = [torch.from_numpy(rs.randn(
+            *want[..., rows(out_at, r), :].shape)) for r in range(mw.size)]
+        sum((want[..., rows(out_at, r), :] * weights[r]).sum()
+            for r in range(mw.size)).backward()
+        whole_grads = [p.grad.clone() for p in params]
+        for p in params:
+            p.grad = None
+        band = x[..., rows(at), :].clone().requires_grad_()
+        with spatial.banded(bands):
+            got = fn(band, bands)
+        (got * weights[mw.rank]).sum().backward()
+        out['checks'][name] = (
+            float((got - want[..., rows(out_at), :]).abs().max().detach()),
+            float((band.grad - whole.grad[..., rows(at), :]).abs().max()))
+        if params:
+            out['param_grads'][name] = ([p.grad.clone() for p in params],
+                                        whole_grads)
+            for p in params:
+                p.grad = None
+
+    for size in BAND_SIZES:
+        rs = np.random.RandomState(size)
+        x = torch.from_numpy(rs.randn(2, 3, size, size))
+        n16, n4 = -(-size // 16), -(-size // 4)
+        band_rows = lambda s, n: len(range(*spatial.make_bands(
+            (size, size), mw).rows(s, None, n)))
+        hold(f'mean {size}', size,
+             lambda b, bands: spatial.mean_hw(b, bands, True),
+             lambda w: w.mean(dim=(2, 3), keepdim=True), x, (1, size), None)
+        hold(f'resize 1x to 16x {size}', size,
+             lambda b, bands: interpolate_bilinear(
+                 b, (band_rows(16, n16), n16), False, bands),
+             lambda w: _interp(w, (n16, n16)), x, (1, size), (16, n16))
+        if size % 16 != 1:
+            # the TopDown decoders' 4x maps hold a row and column less
+            small = x[..., :n4 - 1, :n4 - 1].contiguous()
+            hold(f'resize 4x {n4 - 1} to {n4} {size}', size,
+                 lambda b, bands: interpolate_bilinear(
+                     b, (band_rows(4, n4), n4), False, bands,
+                     ((4, n4 - 1), (4, n4))),
+                 lambda w: _interp(w, (n4, n4)), small, (4, n4 - 1),
+                 (4, n4))
+        grid = x[..., :n16, :n16].contiguous()
+        hold(f'resize 16x to 4x {size}', size,
+             lambda b, bands: interpolate_bilinear(
+                 b, (band_rows(4, n4), n4), False, bands),
+             lambda w: _interp(w, (n4, n4)), grid, (16, n16), (4, n4))
+        if size == BAND_SIZES[-1] or not case.get('transposed'):
+            continue
+        for i, (spec, s) in enumerate(DECODER_CONVS):
+            torch.manual_seed(i)
+            conv = spatial.ConvTranspose2d(*spec).double()
+            at = (s, -(-size // s))
+            inp = torch.from_numpy(rs.randn(2, spec[0], at[1], at[1]))
+            hold(f'transposed conv {spec} {size}', size,
+                 lambda b, bands: conv(b, at), conv, inp, at,
+                 spatial.transposed_rows(conv, at), conv)
+    return out
 
 
 def gather_operands(n: int):
@@ -398,7 +534,7 @@ def gather_operands(n: int):
 
 
 RUNS = {'train': run_case, 'serve': run_serving, 'gather': run_gather,
-        'halo': run_halo, 'maps': run_maps}
+        'halo': run_halo, 'maps': run_maps, 'bands': run_bands}
 
 
 def main(spec_path: str) -> None:
