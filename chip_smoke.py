@@ -25,10 +25,11 @@ Phases, each fatal on failure:
    the shapes the paths give it (B1 and B2 also at the eval protocol's
    grids, 37x66 and 48x85, and at Swin's 22x39), with its time, the plain
    version's time, one library call's time as a yardstick, the least time
-   the card could take (bound) and the share of it reached (bound / time);
+   the card could take (bound) and the share of it reached (bound / time),
+   each time the median of 11 bursts;
 4. engine, fp32, card against CPU, per path: seeded random weights, one
-   reference frame and 10-12 frames at write gap 1 (eviction fires; 12 at
-   353x625 for the ResNet-50 paths, 10 at 128x224 or 129x225 for the
+   reference frame and 10 frames at write gap 1 (eviction fires; at
+   353x625 for the ResNet-50 paths, at 128x224 or 129x225 for the
    others), holding eviction ids, masks and exact kernel launch counts;
 5. main path, bf16, per path: 353x625 (352x624 for Swin), 3 objects, at 1
    and 8 streams (the ResNet-50 paths and swinb_deaotl) or 1: frames/s,
@@ -98,10 +99,12 @@ Phases, each fatal on failure:
    its step_2 restored at world 1.
 13. spatial sharding (`train_spatial_sharding`) over a model group of two
    on the card (`--sp-worker`, gloo over CUDA tensors), each rank
-   training on its band of the image's rows: (a) 12d's fp32 steps with
-   the knob against 11a's one process (12d's gates) and against 12d's
-   world without it; (b) bf16 AMP at the recipe shape (465x465, T=17,
-   B=2, remat 'full'), 4 steps with the knob, without it (tensor
+   training on its band of the image's rows, (a) and (c) on one pair of
+   ranks and (b) and (d) on another at the same time, while this process
+   takes (c)'s and (d)'s float64 steps in one process: (a) 12d's fp32
+   steps with the knob against 11a's one process (12d's gates) and
+   against 12d's world without it; (b) bf16 AMP at the recipe shape (465x465, T=17,
+   B=2, remat 'full'), 2 steps with the knob, without it (tensor
    parallelism alone) and in one process: the peak memory a rank, the
    halo exchanges and gathers a step and their MB, the step time, no
    kernel launched; (c) the encoders banded since: the full-depth
@@ -110,9 +113,13 @@ Phases, each fatal on failure:
    against one process on the card (12d's gates; in float32 rounding at
    the ReLUs behind ResNeSt's split-attention pool moves its gradients
    past them), and `rs101_aotl` and
-   `r50_topdown_aotl` in bf16 at the recipe shape, 3 steps with the knob
+   `r50_topdown_aotl` in bf16 at the recipe shape, 2 steps with the knob
    and with tensor parallelism alone (13b's lines; the peak a rank lower
-   with the knob).
+   with the knob); (d) Swin-B, its window halos and the shifted windows'
+   wrap round the image: the full-width `swinb_deaotl` and `swinb_aotl`
+   in float64 at 128x128 with the knob against one process (12d's
+   gates), and `swinb_deaotl` in bf16 at 464x464, T=17, B=2, 2 steps
+   with the knob and with TP alone (13b's lines and gates).
 14. the census tool: `stages` of r50_deaotl at 1 and 8 streams beside
    phase 5's p50; `frames --stage_by_stage` of deaot_1head and
    deaot_2heads (B1, B2, B3 launches equal to the expected counts, each
@@ -129,6 +136,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -161,7 +169,7 @@ EVAL_GRIDS = (((37, 66), 1), ((37, 66), 2), ((48, 85), 1))
 SLEEP_CYCLES = 50_000_000
 
 
-def time_ms(torch, fn, burst: int = 10, samples: int = 21) -> float:
+def time_ms(torch, fn, burst: int = 10, samples: int = 11) -> float:
     """Median device time of one call, from CUDA events around bursts of
     `burst` calls queued behind a sleep kernel (so host overhead between
     calls does not count)."""
@@ -541,8 +549,8 @@ def make_inputs(batch: int, n_frames: int, seed: int, size=(H, W),
 # for each other encoder (MobileNetV3 in AOT-L, the only way a registered
 # configuration reaches it).
 DEFAULTS = dict(size=(H, W), streams=(1, 8), warm=5, timed=30,
-                check_size=(H, W), check_frames=12, feed_cpu_mask=False)
-NEW = dict(check_frames=10, feed_cpu_mask=True)
+                check_size=(H, W), check_frames=10, feed_cpu_mask=False)
+NEW = dict(feed_cpu_mask=True)
 ONE_STREAM = dict(NEW, streams=(1,), warm=3, timed=10)
 SMALL = (129, 225)              # 9 x 15 grid
 PATHS = {
@@ -1282,7 +1290,7 @@ def phase_training_fp32(torch):
 def phase_training_bf16(torch):
     """9b: bf16 AMP training of r50_deaotl at the recipe shape (pre_vost_2:
     465x465 crops, T=17, write gap 4), 3 objects, remat 'full', per-card
-    batch 2 and 4: CUDA events over 5 steps after 2 warm-up, episodes/s,
+    batch 2 and 4: CUDA events over 3 steps after 2 warm-up, episodes/s,
     frames/s, peak memory, a profile of one step; batch 2 again without
     remat. Returns the trained model of the last batch-2 run."""
     from dataclasses import replace
@@ -1316,7 +1324,7 @@ def phase_training_bf16(torch):
         reset_counts()
         try:
             events, losses = [], []
-            n_steps = 7 if policy == 'full' else 2
+            n_steps = 5 if policy == 'full' else 2
             for i in range(n_steps):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -1693,9 +1701,10 @@ def on_device(tree, device):
 
 
 def dp_train(torch, setting, world, start=None, arch=R50_DEAOTL,
-             dtype: str = 'float32') -> dict:
+             dtype: str = 'float32', size=DP_SIZE) -> dict:
     """Two fp32 (or `dtype`) steps of r50_deaotl, or of `arch` (model
-    name, config overrides), at 129x129, T=5, gap 1, 3 objects, in one
+    name, config overrides), at 129x129 (or `size`), T=5, gap 1, 3
+    objects, in one
     setting, on this rank's rows of a global batch of 2; returns the
     world's metrics of each step, the weights before and after (and the
     names and sizes of their leaves), the EMA, whether every rank holds
@@ -1751,7 +1760,7 @@ def dp_train(torch, setting, world, start=None, arch=R50_DEAOTL,
         return clip(grads, *args, **kw)
     reset_counts()
     for i in range(0 if start is None else 1, 2):
-        frames, masks = train_clip(2, DP_T, DP_SIZE, seed=20 + i)
+        frames, masks = train_clip(2, DP_T, size, seed=20 + i)
         batch = {'frames': torch.from_numpy(frames[rows]).to(
                      world.device, getattr(torch, dtype)),
                  'masks': torch.from_numpy(masks[rows]).to(world.device),
@@ -2348,19 +2357,19 @@ def phase_tp_serving(torch, root: str, dp_one: dict):
 
 def tp_training(torch, dp_one: dict, ranks: list, one_world,
                 setting=TP_SETTING, tag: str = 'tp 12d', arch=R50_DEAOTL,
-                dtype: str = 'float32'):
+                dtype: str = 'float32', size=DP_SIZE):
     """12d's gates on a trainer of a 1 x M world in `setting` (`ranks`'
     results, TP_SETTING's by default) against 11a's one process in
     TP_SETTING (`dp_one`; spatial sharding is a no-op at one process),
-    both training `arch` in `dtype`; see phase_tp_serving. Returns rank
-    0's kernel launches."""
+    both training `arch` in `dtype` at `size`; see phase_tp_serving.
+    Returns rank 0's kernel launches."""
     # the trainer of a 1 x 2 world against 11a's one process, and its
     # second step against one process's from the world's first
     name = setting[0]
     key = 'train' if setting is TP_SETTING else 'spatial'
     a, b = dp_one[TP_SETTING[0]], ranks[0][key]
     a2 = dp_train(torch, setting, one_world, start=b.pop('state1'),
-                  arch=arch, dtype=dtype)
+                  arch=arch, dtype=dtype, size=size)
     err = 0.0
     for i, (sa, sb) in enumerate(zip(a['steps'], b['steps'])):
         for k in DP_METRICS:
@@ -2402,7 +2411,8 @@ def tp_training(torch, dp_one: dict, ranks: list, one_world,
           f'{tag}: training launched {[x[key]["launches"] for x in ranks]}')
     flips, flip_share, flip_g, leaves = sign_flip_share(torch, a, b)
     print(f'{tag} trainer 1 x {TP} (gloo, CUDA tensors) {arch[0]} '
-          f'{arch[1] or ""} {name} vs one process, {dtype} 129x129, '
+          f'{arch[1] or ""} {name} vs one process, {dtype} '
+          f'{size[0]}x{size[1]}, '
           f'T={DP_T}, 2 steps: losses '
           f'{[s["loss"] for s in b["steps"]]} vs '
           f'{[s["loss"] for s in a["steps"]]}, max loss/metric diff '
@@ -2425,7 +2435,7 @@ def tp_training(torch, dp_one: dict, ranks: list, one_world,
 
 
 # ------------------------------------------------- 13: spatial sharding
-SP_STEPS = 4                    # 13b: steps at the recipe shape, 1 warm-up
+SP_STEPS = 2                    # 13b: steps at the recipe shape, 1 warm-up
 # 13c: the encoders banded since r50_deaotl's (name, model, overrides);
 # the first two also at the recipe shape, SP_ENC_STEPS steps each
 SP_ENCODERS = (
@@ -2434,7 +2444,7 @@ SP_ENCODERS = (
     ('topdown_oracle', ('r50_topdown_aotl', dict(oracle=True))),
     ('mobilenetv3', ('aotl', dict(encoder='mobilenetv3',
                                   encoder_dim=(24, 40, 112, 960)))))
-SP_ENC_STEPS = 3
+SP_ENC_STEPS = 2
 # 13c's training against one process runs in float64: in float32 the
 # split-attention pool's mean of a map whose signs cancel feeds a ReLU, and
 # the rounding of any order of its sums flips kinks behind it (the world's
@@ -2442,13 +2452,22 @@ SP_ENC_STEPS = 3
 # up to 15% of a leaf's largest off one process's in float32, within 1e-6
 # in float64)
 SP_ENC_DTYPE = 'float64'
+# 13d: Swin-B under the knob (name, (model, overrides)), against one
+# process in SP_ENC_DTYPE at SP_SWIN_SIZE (multiples of 16: the id bank's
+# 16x16 conv takes whole grid cells; at M=2, 128 px has unshifted halos,
+# a wrap that carries a real row and a padded bottom at stride 4); the
+# first also at the recipe shape (464x464), SP_ENC_STEPS steps
+SP_SWIN = (('swinb_deaotl', ('swinb_deaotl', {})),
+           ('swinb_aotl', ('swinb_aotl', {})))
+SP_SWIN_SIZE = (128, 128)
 
 
 def sp_bf16(torch, world, spatial_on: bool, arch=R50_DEAOTL,
             steps: int = SP_STEPS) -> dict:
-    """13b and 13c on this rank: `steps` bf16 AMP steps of r50_deaotl (or
+    """13b-13d on this rank: `steps` bf16 AMP steps of r50_deaotl (or
     of `arch`) at the recipe shape
-    (465x465, T=17, gap 4, B=2, remat 'full') on a 1 x M world with the
+    (465x465, 464x464 for Swin, T=17, gap 4, B=2, remat 'full') on a 1 x
+    M world with the
     knob on or off (TP alone), or in one process (`world` without a
     group). Returns the peak memory above the memory held before the
     model was built, of the first step (its cuDNN calls choose their
@@ -2482,7 +2501,8 @@ def sp_bf16(torch, world, spatial_on: bool, arch=R50_DEAOTL,
              'obj_nums': torch.full((2,), N_OBJ, device=world.device)}
     gen = torch.Generator().manual_seed(7)
     reset_counts()
-    out = {'step_ms': [], 'stats': [], 'losses': [], 'marks': {}}
+    out = {'step_ms': [], 'stats': [], 'losses': [], 'marks': {},
+           'size': tuple(exp.data_randomcrop)}
     above = lambda f: (f(world.device) - base) / 2 ** 30
     episode = trainer.engine.episode_loss
 
@@ -2526,8 +2546,9 @@ def sp_worker(spec_path: str) -> int:
     with the knob off and on; then rank 0 takes 13b's steps in one
     process while rank 1 waits; 13c's float64 training of SP_SETTING for
     each of SP_ENCODERS (after 13a, before any bf16 step turns TF32 on)
-    and its bf16 steps with the knob off and on for the first two. The
-    spec's `parts` (default all of '13a', '13b', '13c') picks what runs.
+    and its bf16 steps with the knob off and on for the first two; 13d's
+    the same for SP_SWIN at SP_SWIN_SIZE, bf16 for the first. The spec's
+    `parts` (default all of '13a', '13b', '13c', '13d') picks what runs.
     Each rank writes its results."""
     import torch
     from rmem_ocu_tpu_torch.parallel import dist
@@ -2538,7 +2559,7 @@ def sp_worker(spec_path: str) -> int:
     world = dist.init_from_env('cuda:0', backend='gloo', timeout_s=900,
                                tp=TP)
     try:
-        parts = spec.get('parts', ('13a', '13b', '13c'))
+        parts = spec.get('parts', ('13a', '13b', '13c', '13d'))
         out = {}
         if '13a' in parts:
             out['spatial'] = dp_train(torch, SP_SETTING, world)
@@ -2546,6 +2567,11 @@ def sp_worker(spec_path: str) -> int:
             for name, arch in SP_ENCODERS:
                 out['13c', name] = dp_train(torch, SP_SETTING, world,
                                             arch=arch, dtype=SP_ENC_DTYPE)
+        if '13d' in parts:
+            for name, arch in SP_SWIN:
+                out['13d', name] = dp_train(
+                    torch, SP_SETTING, world, arch=arch, dtype=SP_ENC_DTYPE,
+                    size=SP_SWIN_SIZE)
         if '13b' in parts:
             for on in (False, True):
                 out['bf16', on] = sp_bf16(torch, world, on)
@@ -2558,23 +2584,50 @@ def sp_worker(spec_path: str) -> int:
                 for on in (False, True):
                     out['13c bf16', name, on] = sp_bf16(
                         torch, world, on, arch, SP_ENC_STEPS)
+        if '13d' in parts:
+            for on in (False, True):
+                out['13d bf16', on] = sp_bf16(torch, world, on,
+                                              SP_SWIN[0][1], SP_ENC_STEPS)
         torch.save(out, f'{spec["out"]}.rank{world.rank}')
     finally:
         dist.destroy(world)
     return 0
 
 
-def spatial_ranks(torch, root: str, parts=('13a', '13b', '13c')) -> list:
-    """The results of phase 13's two ranks on the card in child processes
+# 13's parts, on two pairs of ranks at once (the steps of a pair are
+# bound by the host, not the card)
+SP_PARTS = (('13a', '13c'), ('13b', '13d'))
+
+
+def spatial_ranks(torch, root: str, parts=SP_PARTS, meanwhile=None
+                  ) -> list:
+    """The results of phase 13's ranks on the card in child processes
     (`--sp-worker`, gloo over CUDA tensors; each rank trains on its band
-    of the image's rows), running `parts`."""
-    spec = dict(out=os.path.join(root, 'sp'), parts=list(parts))
-    spec_path = os.path.join(root, 'sp.json')
-    with open(spec_path, 'w') as f:
-        json.dump(spec, f)
-    wait_ranks(spawn_ranks(TP, [os.path.abspath(__file__), '--sp-worker',
-                                spec_path]), 1200)
-    return [torch.load(f'{spec["out"]}.rank{r}') for r in range(TP)]
+    of the image's rows): each item of `parts`, a part or a tuple of
+    parts, runs on a pair of ranks of its own, all pairs at once, and
+    each rank's results are merged over the pairs. `meanwhile()`, when
+    given, runs in this process while they train."""
+    procs, outs = [], []
+    for i, group in enumerate(parts):
+        group = (group,) if isinstance(group, str) else group
+        outs.append(os.path.join(root, f'sp{i}'))
+        spec_path = os.path.join(root, f'sp{i}.json')
+        with open(spec_path, 'w') as f:
+            json.dump(dict(out=outs[-1], parts=list(group)), f)
+        procs += spawn_ranks(TP, [os.path.abspath(__file__), '--sp-worker',
+                                  spec_path])
+    try:
+        if meanwhile is not None:
+            meanwhile()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise
+    wait_ranks(procs, 1200)
+    return [{k: v for out in outs
+             for k, v in torch.load(f'{out}.rank{r}').items()}
+            for r in range(TP)]
 
 
 def phase_spatial(torch, ranks: list, dp_one: dict, tp_train: dict):
@@ -2629,7 +2682,7 @@ def phase_spatial(torch, ranks: list, dp_one: dict, tp_train: dict):
 
 
 def print_sp_bf16(tag: str, arch, runs: dict, steps: int) -> None:
-    """13b and 13c's gates and lines for bf16 runs of `arch` at the
+    """13b-13d's gates and lines for bf16 runs of `arch` at the
     recipe shape (label -> sp_bf16's result): finite losses and 0
     launches in each; the peak a rank lower with the knob ('spatial rank
     r') than with TP alone ('TP alone rank r')."""
@@ -2646,7 +2699,8 @@ def print_sp_bf16(tag: str, arch, runs: dict, steps: int) -> None:
                              f'GiB with the knob, {tp_peak:.3f} without')
     for label, x in runs.items():
         st = x['stats'][-1]
-        print(f'{tag} {label}: {arch[0]} {arch[1] or ""} bf16 AMP 465x465 '
+        size = 'x'.join(map(str, x['size']))
+        print(f'{tag} {label}: {arch[0]} {arch[1] or ""} bf16 AMP {size} '
               f'T=17 B=2 remat full, {steps} steps: peak memory '
               f'{peak[label]:.3f} GiB above the start in steps 2-{steps} '
               f'({first[label]:.3f} in step 1); step '
@@ -2666,38 +2720,74 @@ def print_sp_bf16(tag: str, arch, runs: dict, steps: int) -> None:
               if 'one process' in peak else ''))
 
 
-def phase_spatial_encoders(torch, ranks: list) -> dict:
-    """13c: the encoders banded since r50_deaotl's under the knob, from
-    the two ranks' results (spatial_ranks). (a) For each of SP_ENCODERS
-    (the full-depth rs101_aotl, r50_topdown_aotl, the same with
-    oracle=True, aotl on MobileNetV3), SP_SETTING's two steps in
-    SP_ENC_DTYPE at 129x129, T=5, gap 1, against one process on the card
-    with 12d's gates
-    (tp_training: losses 1e-5, weights and EMA 1e-4, each step from one
-    state with each leaf's gradient within GRAD_TOL of its largest and its
-    update within 1e-2, the ranks alike, 0 launches). (b) For the first
-    two, bf16 AMP at the recipe shape, SP_ENC_STEPS steps each with the
-    knob and with TP alone: 13b's lines and gates (print_sp_bf16). Returns
-    the launches."""
-    from rmem_ocu_tpu_torch.parallel.dist import World
-    t0 = time.time()
-    one_world = World(device=torch.device('cuda'))
-    launches = {}
+@contextlib.contextmanager
+def no_tf32(torch):
+    """f32 convolutions and matmuls in full precision inside."""
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for name, arch in SP_ENCODERS:
-            one = {TP_SETTING[0]: dp_train(torch, TP_SETTING, one_world,
-                                           arch=arch, dtype=SP_ENC_DTYPE)}
-            launches[f'sp_{name}'] = tp_training(
-                torch, one, [{'spatial': r['13c', name]} for r in ranks],
-                one_world, SP_SETTING, f'sp 13c {name}', arch, SP_ENC_DTYPE)
+        yield
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
-    print(f'sp 13c {SP_ENC_DTYPE} ok at {time.time() - t0:.1f} s')
+
+
+def sp_models(part: str):
+    """(models, clip size) of 13c's or 13d's runs against one process."""
+    return (SP_ENCODERS, DP_SIZE) if part == '13c' else (SP_SWIN,
+                                                         SP_SWIN_SIZE)
+
+
+def sp_one_process(torch, part: str) -> dict:
+    """The one process of 13c's or 13d's float64 runs (`part`): each
+    model's two TP_SETTING steps in SP_ENC_DTYPE on the card ({name:
+    dp_train's result}). main() runs them while the ranks train."""
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    models, size = sp_models(part)
+    one_world = World(device=torch.device('cuda'))
+    with no_tf32(torch):
+        return {name: dp_train(torch, TP_SETTING, one_world, arch=arch,
+                               dtype=SP_ENC_DTYPE, size=size)
+                for name, arch in models}
+
+
+def sp_against_one(torch, ranks: list, part: str, ones=None) -> dict:
+    """(a) of 13c or 13d (`part`): for each of its models SP_SETTING's two
+    steps in SP_ENC_DTYPE on the two ranks (`ranks`, spatial_ranks)
+    against one process on the card (`ones`, sp_one_process's, run here
+    when None) with 12d's gates (tp_training: losses 1e-5, weights and
+    EMA 1e-4, each step from one state with each leaf's gradient within
+    GRAD_TOL of its largest and its update within 1e-2, the ranks alike,
+    0 launches). Returns the launches."""
+    from rmem_ocu_tpu_torch.parallel.dist import World
+    t0 = time.time()
+    models, size = sp_models(part)
+    ones = sp_one_process(torch, part) if ones is None else ones
+    one_world = World(device=torch.device('cuda'))
+    launches = {}
+    with no_tf32(torch):
+        for name, arch in models:
+            launches[f'sp_{name}'] = tp_training(
+                torch, {TP_SETTING[0]: ones[name]},
+                [{'spatial': r[part, name]} for r in ranks], one_world,
+                SP_SETTING, f'sp {part} {name}', arch, SP_ENC_DTYPE, size)
+    print(f'sp {part} {SP_ENC_DTYPE} ok in {time.time() - t0:.1f} s')
+    return launches
+
+
+def phase_spatial_encoders(torch, ranks: list, ones=None) -> dict:
+    """13c: the encoders banded since r50_deaotl's under the knob, from
+    the two ranks' results (spatial_ranks). (a) SP_ENCODERS (the
+    full-depth rs101_aotl, r50_topdown_aotl, the same with oracle=True,
+    aotl on MobileNetV3) at 129x129, T=5, gap 1, against one process
+    (sp_against_one; `ones`, sp_one_process's). (b) For the first two,
+    bf16 AMP at the recipe shape, SP_ENC_STEPS steps each with the knob
+    and with TP alone: 13b's lines and gates (print_sp_bf16). Returns the
+    launches."""
+    t0 = time.time()
+    launches = sp_against_one(torch, ranks, '13c', ones)
     for name, arch in SP_ENCODERS[:2]:
         runs = {f'{label} rank {r}': x['13c bf16', name, on]
                 for on, label in ((False, 'TP alone'), (True, 'spatial'))
@@ -2705,6 +2795,27 @@ def phase_spatial_encoders(torch, ranks: list) -> dict:
         print_sp_bf16(f'sp 13c {name}', arch, runs, SP_ENC_STEPS)
         launches[f'sp_{name}_bf16'] = runs['spatial rank 0']['launches']
     print(f'sp 13c ok in {time.time() - t0:.1f} s')
+    return launches
+
+
+def phase_spatial_swin(torch, ranks: list, ones=None) -> dict:
+    """13d: Swin-B under the knob (its windows' halos, the shifted
+    windows' wrap round the image), from the two ranks' results
+    (spatial_ranks). (a) SP_SWIN (the full-width swinb_deaotl and
+    swinb_aotl) at SP_SWIN_SIZE, T=5, gap 1, against one process
+    (sp_against_one; `ones`, sp_one_process's). (b) swinb_deaotl in bf16
+    AMP at the recipe shape (464x464, T=17, B=2), SP_ENC_STEPS steps each
+    with the knob and with TP alone: 13b's lines and gates
+    (print_sp_bf16). Returns the launches."""
+    t0 = time.time()
+    launches = sp_against_one(torch, ranks, '13d', ones)
+    name, arch = SP_SWIN[0]
+    runs = {f'{label} rank {r}': x['13d bf16', on]
+            for on, label in ((False, 'TP alone'), (True, 'spatial'))
+            for r, x in enumerate(ranks)}
+    print_sp_bf16(f'sp 13d {name}', arch, runs, SP_ENC_STEPS)
+    launches[f'sp_{name}_bf16'] = runs['spatial rank 0']['launches']
+    print(f'sp 13d ok in {time.time() - t0:.1f} s')
     return launches
 
 
@@ -3071,10 +3182,15 @@ def main() -> int:
             counts.update(phase_tp_cli(torch, tmp, data, result, eval_one,
                                        one_counts))
             print(f'phase 12 done at {time.time() - t_start:.1f} s')
-            ranks = spatial_ranks(torch, tmp)
+            # 13c's and 13d's one process runs while the ranks train
+            ones = {}
+            ranks = spatial_ranks(torch, tmp, meanwhile=lambda: ones.update(
+                {part: sp_one_process(torch, part)
+                 for part in ('13c', '13d')}))
             counts.update(phase_spatial(torch, ranks, dp_one, tp_train))
-            counts.update(phase_spatial_encoders(torch, ranks))
-            del ranks
+            counts.update(phase_spatial_encoders(torch, ranks, ones['13c']))
+            counts.update(phase_spatial_swin(torch, ranks, ones['13d']))
+            del ranks, ones
         finally:
             os.chdir(cwd)
     print(f'phase 13 done at {time.time() - t_start:.1f} s')

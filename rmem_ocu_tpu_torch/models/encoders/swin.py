@@ -14,6 +14,13 @@ probabilities are stored in bf16 around the f32 softmax, as in the JAX
 package. The MLP's GELU is the exact erf form on f32 and the tanh form on
 bf16. nn.LayerNorm reduces bf16 input in f32 and rounds once, as flax's
 LayerNorm does.
+
+Under spatial sharding (parallel/spatial.py) the encoder runs on a band
+of the image's rows. The patch embedding, the merges, the norms and the
+MLPs read their band's own rows (bands start on the 16x grid, so every
+band of every stride starts on an even row); a block's window attention
+takes the rows that complete its band's windows from the bands around
+(`SwinBlock._attend_band`).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from torch import nn
 
 from rmem_ocu_tpu_torch.ops.attention import _compact
 from rmem_ocu_tpu_torch.ops.layers import EPS, scale_in_dtype
+from rmem_ocu_tpu_torch.parallel import spatial
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -118,22 +126,38 @@ class SwinBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self._masks: Dict[tuple, torch.Tensor] = {}
 
-    def _mask(self, hp: int, wp: int, device) -> torch.Tensor:
-        """The shifted-window mask on the device, made once per grid."""
-        key = (hp, wp, str(device))
+    def _mask(self, hp: int, wp: int, device, rows: Optional[tuple] = None
+              ) -> torch.Tensor:
+        """The shifted-window mask on the device, made once per grid: of
+        every window, or of the window rows `rows` (first, count), modulo
+        the grid's, of a band."""
+        key = (hp, wp, str(device), rows)
         if key not in self._masks:
-            self._masks[key] = torch.from_numpy(shifted_window_mask(
-                hp, wp, self.ws, self.shift)).to(device)
+            mask = torch.from_numpy(shifted_window_mask(
+                hp, wp, self.ws, self.shift))
+            if rows is not None:
+                n_h, n = hp // self.ws, self.ws * self.ws
+                at = (rows[0] + torch.arange(rows[1])) % n_h
+                mask = mask.reshape(n_h, -1, n, n)[at].reshape(-1, n, n)
+            self._masks[key] = mask.to(device)
         return self._masks[key]
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        """x: [B, H*W, C]."""
+    def _windows(self, x: torch.Tensor, mask: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+        """Window attention over x [B, R, Wp, C] of whole windows."""
+        ws = self.ws
+        b, r, wp, c = x.shape
+        x = x.reshape(b, r // ws, ws, wp // ws, ws, c).transpose(2, 3)
+        x = self.attn(x.reshape(-1, ws * ws, c), mask)
+        x = x.reshape(b, r // ws, wp // ws, ws, ws, c).transpose(2, 3)
+        return x.reshape(b, r, wp, c)
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
+        """The (shifted) window attention of the whole map x [B, H, W, C]."""
         ws, shift = self.ws, self.shift
-        b, _, c = x.shape
-        shortcut = x
+        _, h, w, _ = x.shape
         # the grid is padded to whole windows AFTER norm1; the pad tokens
         # are not masked in unshifted windows (they act as the qkv bias)
-        x = self.norm1(x).reshape(b, h, w, c)
         pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
         x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
         hp, wp = h + pad_b, w + pad_r
@@ -141,13 +165,54 @@ class SwinBlock(nn.Module):
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
             mask = self._mask(hp, wp, x.device)
-        x = x.reshape(b, hp // ws, ws, wp // ws, ws, c).transpose(2, 3)
-        x = self.attn(x.reshape(-1, ws * ws, c), mask)
-        x = x.reshape(b, hp // ws, wp // ws, ws, ws, c).transpose(2, 3)
-        x = x.reshape(b, hp, wp, c)
+        x = self._windows(x, mask)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :h, :w].reshape(b, h * w, c)
+        return x[:, :h, :w]
+
+    def _attend_band(self, x: torch.Tensor, bands) -> torch.Tensor:
+        """The same for x [B, h, W, C], this rank's band of the map's rows
+        (parallel/spatial.py `window_rows`): the last rank pads its band to
+        the whole map's hp rows; each band takes the rows of the windows
+        meeting it from the bands around, wrapping at the image's edges in
+        the shifted blocks, whose windows start at rows 7k + 3 of the
+        unrolled map. Columns roll as in the whole map; rows do not."""
+        ws, shift = self.ws, self.shift
+        _, h, w, _ = x.shape
+        s = bands.level(w)
+        whole = bands.whole_rows(s)
+        hp, wp = -(-whole // ws) * ws, -(-w // ws) * ws
+        first = bands.rows(s)[0]
+        last = bands.world.rank == bands.world.size - 1
+        # the columns are padded after the exchange, which sends w of them
+        x = F.pad(x, (0, 0, 0, 0, 0, hp - whole if last else 0))
+        x, at = spatial.window_rows(
+            x.transpose(1, 2), bands, s, hp, ws, shift,
+            f'Swin stage {s.bit_length() - 3}\'s '
+            f'{"shifted" if shift else "unshifted"} windows')
+        x = F.pad(x.transpose(1, 2), (0, 0, 0, wp - w))
+        mask = None
+        if shift > 0:
+            x = torch.roll(x, -shift, dims=2)
+            # the band's first window is the whole map's window row
+            # (at - shift) / ws: on rank 0 the last one
+            mask = self._mask(hp, wp, x.device,
+                              ((at - shift) % hp // ws, x.shape[1] // ws))
+        x = self._windows(x, mask)
+        if shift > 0:
+            x = torch.roll(x, shift, dims=2)
+        return x[:, first - at:first - at + h, :w]
+
+    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """x: [B, h*w, C] (under spatial sharding h rows are this rank's
+        band of the map)."""
+        b, _, c = x.shape
+        shortcut = x
+        x = self.norm1(x).reshape(b, h, w, c)
+        bands = spatial.current()
+        x = self._attend(x) if bands is None else self._attend_band(x,
+                                                                    bands)
+        x = shortcut + x.reshape(b, h * w, c)
         return x + self.mlp(self.norm2(x))
 
 

@@ -16,14 +16,31 @@ encoders the knob supports has ceil(W / s) columns, so a map's width
 names its stride (`Bands.level`), but for the maps of the TopDown
 encoder's transposed convolutions, whose s (n - 1) - 2p + k rows and
 columns need not be ceil(H / s): their callers give the stride and the
-whole map's rows (`rows(stride, whole=)`).
+whole map's rows (`rows(stride, whole=)`). Swin-B's maps are ceil(H / s)
+rows too: its 4x patches and 2x2 merges read their band's own rows, as a
+band starts on an even row at every stride; only the last rank pads the
+image's bottom to whole patches and an odd map's last row.
 
 The pieces:
 
 - `halo_rows`: a band with `top` rows of the rank above and `bottom` rows
-  of the rank below, exchanged with `batch_isend_irecv`; at the image's
-  edge the layer's own padding. Its backward sends each halo row's
-  gradient back to the rank that owns the row.
+  of the rank below (one count, or one for each rank), exchanged with
+  `batch_isend_irecv`; at the image's edge the layer's own padding, or
+  with `wrap` (a roll of the rows) the rows of the rank at the other
+  edge. Its backward sends each halo row's gradient back to the rank
+  that owns the row.
+- `window_halos` and `window_rows`: Swin's windows of 7 rows, which start
+  at rows 7k (7k + 3 in the shifted blocks, modulo the map's rows padded
+  to whole windows, hp). Bands start on the 16x grid, not on windows, so
+  a band takes the rows that complete the windows meeting it, a count
+  of its own above and below (at most 6; the last rank's band holds the
+  pad rows). In the shifted blocks rank 0's first windows are the whole
+  map's last, which hold the last rows of the padded map above its first
+  rows (torch.roll's wrap): rank 0 takes the last rank's last rows above
+  its band, and the last rank rank 0's first rows below its own. Each
+  rank attends over its windows and keeps its own rows' outputs, so a
+  window that two bands share is computed on both and each (query, key)
+  pair counts once over the group.
 - `Conv2d` and `max_pool_3x3_s2`: an output band reads input rows
   [o0 s - p, (o1 - 1) s - p + d (k - 1)], so the band takes p rows above
   (a band starts at a multiple of the stride) and d (k - 1) - p - s + 1
@@ -68,9 +85,9 @@ from rmem_ocu_tpu_torch.parallel.layers import scatter_to_model
 
 GRID_STRIDE = 16
 STRIDES = (1, 2, 4, 8, 16)
-# the encoders whose every convolution and pool is banded
+# the encoders whose every convolution, pool and window is banded
 ENCODERS = ('resnet50', 'resnet101', 'mobilenetv2', 'mobilenetv3',
-            'resnest50', 'resnest101', 'resnet50_topdown')
+            'resnest50', 'resnest101', 'resnet50_topdown', 'swin_base')
 # the parameters used band-locally: a rank's gradient is its band's part
 BAND_LOCAL = ('encoder', 'decoder', 'encoder_projector',
               'patch_wise_id_bank')
@@ -86,13 +103,11 @@ def reset_stats() -> None:
 
 
 def check_model(cfg) -> None:
-    """Raise unless the model's encoder runs banded (every encoder but
-    Swin-B, whose align_corners=False models are the only ones)."""
-    if cfg.encoder not in ENCODERS or not cfg.align_corners:
+    """Raise unless the model's encoder runs banded."""
+    if cfg.encoder not in ENCODERS:
         raise NotImplementedError(
             f'train_spatial_sharding=True with encoder {cfg.encoder!r}: '
-            f'bands are ported for {", ".join(ENCODERS)}; Swin-B with its '
-            f'shifted windows across bands waits for ROADMAP item 15c')
+            f'bands are ported for {", ".join(ENCODERS)}')
 
 
 @dataclass(frozen=True)
@@ -126,20 +141,26 @@ class Bands:
         raise ValueError(f'a width of {width} is no stride of a '
                          f'{self.size} image')
 
-    def check_halo(self, stride: int, top: int, bottom: int,
-                   what: str, whole: Optional[int] = None) -> None:
-        """Raise when a halo needs more rows than a neighbour holds."""
+    def check_halo(self, stride: int, top, bottom, what: str,
+                   whole: Optional[int] = None, wrap: bool = False
+                   ) -> None:
+        """Raise when a halo needs more rows than a neighbour holds. top
+        and bottom are one count for every rank or a count for each;
+        `wrap` makes the first and the last rank neighbours."""
+        m = self.world.size
+        tops, bottoms = _per_rank(top, m), _per_rank(bottom, m)
         n = [e - s for s, e in (self.rows(stride, r, whole)
-                                for r in range(self.world.size))]
-        for r in range(self.world.size):
-            if (r > 0 and top > n[r - 1]) or (
-                    r < self.world.size - 1 and bottom > n[r + 1]):
+                                for r in range(m))]
+        for r in range(m):
+            up, down = _neighbours(r, m, wrap)
+            if (up is not None and tops[r] > n[up]) or (
+                    down is not None and bottoms[r] > n[down]):
+                held = lambda k: '-' if k is None else n[k]
                 raise ValueError(
-                    f'{what} at stride {stride}: a halo of {top} rows above '
-                    f'and {bottom} below on rank {r}, whose neighbours '
-                    f'hold {n[max(r - 1, 0)]} and '
-                    f'{n[min(r + 1, len(n) - 1)]} rows; the bands {n} are '
-                    f'too thin for a model group of {self.world.size}')
+                    f'{what} at stride {stride}: a halo of {tops[r]} rows '
+                    f'above and {bottoms[r]} below on rank {r}, whose '
+                    f'neighbours hold {held(up)} and {held(down)} rows; '
+                    f'the bands {n} are too thin for a model group of {m}')
 
 
 def make_bands(size, world: World) -> Bands:
@@ -211,69 +232,122 @@ def _fill_rows(x: torch.Tensor, n: int, fill: float) -> torch.Tensor:
     return x.new_full(shape, fill)
 
 
+def _per_rank(n, m: int) -> Tuple[int, ...]:
+    return tuple(int(k) for k in n) if isinstance(n, (tuple, list)) else (
+        int(n),) * m
+
+
+def _neighbours(r: int, m: int, wrap: bool):
+    """(the rank above r, the rank below r), None at the image's edge; with
+    the wrap the first and the last rank are each other's neighbours."""
+    up = r - 1 if r > 0 else (m - 1 if wrap else None)
+    down = r + 1 if r < m - 1 else (0 if wrap else None)
+    return up, down
+
+
 class _HaloRows(torch.autograd.Function):
+    # Two ranks may swap two messages each way (M = 2 with the wrap: the
+    # rank above is the rank below). gloo and NCCL match the messages of a
+    # pair in the order they are posted, so both sides post them alike:
+    # first the rows the receiver puts below its band, then those it puts
+    # above; in the backward first the gradient of the receiver's last
+    # rows, then that of its first rows.
     @staticmethod
-    def forward(ctx, x, top, bottom, world, fill, edge):
-        r, last = world.rank, world.size - 1
-        above = _fill_rows(x, edge[0] if r == 0 else top,
-                           fill if r == 0 else 0.0)
-        below = _fill_rows(x, edge[1] if r == last else bottom,
-                           fill if r == last else 0.0)
+    def forward(ctx, x, tops, bottoms, world, fill, edge, wrap):
+        r = world.rank
+        up, down = _neighbours(r, world.size, wrap)
+        n = x.shape[-2]
+        above = (_fill_rows(x, edge[0], fill) if up is None
+                 else _fill_rows(x, tops[r], 0.0))
+        below = (_fill_rows(x, edge[1], fill) if down is None
+                 else _fill_rows(x, bottoms[r], 0.0))
         sends, recvs = [], []
-        if r > 0:
-            if bottom:
-                sends.append((x[..., :bottom, :], r - 1))
-            if top:
-                recvs.append((above, r - 1))
-        if r < last:
-            if top:
-                sends.append((x[..., x.shape[-2] - top:, :], r + 1))
-            if bottom:
-                recvs.append((below, r + 1))
+        if up is not None and bottoms[up]:
+            sends.append((x[..., :bottoms[up], :], up))
+        if down is not None and tops[down]:
+            sends.append((x[..., n - tops[down]:, :], down))
+        if down is not None and bottoms[r]:
+            recvs.append((below, down))
+        if up is not None and tops[r]:
+            recvs.append((above, up))
         _exchange(world, sends, recvs)
-        ctx.args = (top, bottom, world, above.shape[-2], x.shape[-2])
+        ctx.args = (tops, bottoms, world, up, down, above.shape[-2], n)
         return torch.cat([above, x, below], dim=-2)
 
     @staticmethod
     def backward(ctx, grad):
         # each halo row's gradient goes back to the rank that owns the
         # row and adds to it there
-        top, bottom, world, n_above, n = ctx.args
-        r, last = world.rank, world.size - 1
+        tops, bottoms, world, up, down, n_above, n = ctx.args
+        r = world.rank
         gx = grad[..., n_above:n_above + n, :].clone(
             memory_format=torch.contiguous_format)
         sends, recvs = [], []
         from_above = from_below = None
-        if r > 0:
-            if top:
-                sends.append((grad[..., :top, :], r - 1))
-            if bottom:
-                from_above = _fill_rows(gx, bottom, 0.0)
-                recvs.append((from_above, r - 1))
-        if r < last:
-            if bottom:
-                sends.append((grad[..., n_above + n:, :], r + 1))
-            if top:
-                from_below = _fill_rows(gx, top, 0.0)
-                recvs.append((from_below, r + 1))
+        if up is not None and tops[r]:
+            sends.append((grad[..., :tops[r], :], up))
+        if down is not None and bottoms[r]:
+            sends.append((grad[..., n_above + n:, :], down))
+        if down is not None and tops[down]:
+            from_below = _fill_rows(gx, tops[down], 0.0)
+            recvs.append((from_below, down))
+        if up is not None and bottoms[up]:
+            from_above = _fill_rows(gx, bottoms[up], 0.0)
+            recvs.append((from_above, up))
         _exchange(world, sends, recvs)
         if from_above is not None:
-            gx[..., :bottom, :] += from_above
+            gx[..., :bottoms[up], :] += from_above
         if from_below is not None:
-            gx[..., n - top:, :] += from_below
-        return gx, None, None, None, None, None
+            gx[..., n - tops[down]:, :] += from_below
+        return gx, None, None, None, None, None, None
 
 
-def halo_rows(x: torch.Tensor, top: int, bottom: int, world: World,
-              fill: float = 0.0, edge: Optional[Tuple[int, int]] = None
-              ) -> torch.Tensor:
+def halo_rows(x: torch.Tensor, top, bottom, world: World,
+              fill: float = 0.0, edge: Optional[Tuple[int, int]] = None,
+              wrap: bool = False) -> torch.Tensor:
     """x, a band of rows (dim -2), with the last `top` rows of the rank
     above on top and the first `bottom` rows of the rank below beneath.
-    At the image's edge (rank 0's top, the last rank's bottom) `edge`
-    rows of `fill` (default: top and bottom). top and bottom are the same
-    on every rank."""
-    edge = (top, bottom) if edge is None else tuple(edge)
-    return _HaloRows.apply(x, top, bottom, world, fill, edge)
+    top and bottom are one count for every rank or a count for each rank
+    (what that rank receives). At the image's edge (rank 0's top, the last
+    rank's bottom) `edge` rows of `fill` (default: rank 0's top and the
+    last rank's bottom); with `wrap` (a roll of the rows) rank 0's rows
+    above are the last rank's last rows and the last rank's rows below
+    rank 0's first rows instead."""
+    m = world.size
+    tops, bottoms = _per_rank(top, m), _per_rank(bottom, m)
+    edge = (tops[0], bottoms[-1]) if edge is None else tuple(edge)
+    return _HaloRows.apply(x, tops, bottoms, world, fill, edge, wrap)
+
+
+def window_halos(bands: Bands, stride: int, hp: int, ws: int, shift: int
+                 ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The window plan of a map at `stride` padded at the bottom to `hp`
+    rows (whole windows of `ws` rows that start at rows ws k + shift,
+    modulo hp; the last rank's band holds the pad rows): for each rank the
+    rows of halo above and below that complete the windows meeting its
+    band (tops, bottoms). With a shift rank 0's windows reach up into the
+    last rows and the last rank's down into the first (the roll's
+    wrap)."""
+    tops, bottoms = [], []
+    for r in range(bands.world.size):
+        first, end = bands.rows(stride, r, hp)
+        tops.append((first - shift) % ws)
+        bottoms.append(ws - 1 - (end - 1 - shift) % ws)
+    return tuple(tops), tuple(bottoms)
+
+
+def window_rows(x: torch.Tensor, bands: Bands, stride: int, hp: int,
+                ws: int, shift: int, what: str) -> Tuple[torch.Tensor, int]:
+    """(x with the rows that complete the windows meeting its band, the
+    whole padded map's row of its first row, negative where it wraps) for
+    x [..., rows, X], this rank's band (rows at dim -2) of a map at
+    `stride` padded to `hp` rows, windows as `window_halos`. The halo is
+    each rank's own; it wraps when the windows are shifted. Raises, naming
+    `what`, where a band is thinner than the halo a neighbour takes."""
+    tops, bottoms = window_halos(bands, stride, hp, ws, shift)
+    bands.check_halo(stride, tops, bottoms, what, hp, wrap=shift > 0)
+    x = halo_rows(x, tops, bottoms, bands.world, wrap=shift > 0)
+    return x, bands.rows(stride, None, hp)[0] - tops[bands.world.rank]
 
 
 # ------------------------------------------------------------- layers

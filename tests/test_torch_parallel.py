@@ -416,6 +416,15 @@ def test_eval_cli_world_of_two(cli_runs):
     assert '[rank 0]' in log and '[rank 1]' not in log
 
 
+def _unbanded_model():
+    """A model whose config names an encoder the bands do not know (every
+    registered encoder is banded)."""
+    model = build_vos_model(get_config('pre_vost', model='r50_deaotl').model,
+                            device='cpu')
+    model.cfg = replace(model.cfg, encoder='swin_large')
+    return model
+
+
 @pytest.mark.parametrize('call,error', [
     (lambda: train_cli.main(CLI_ARGS + ['--mesh', '2']),
      'torchrun --nproc_per_node 2'),
@@ -423,12 +432,11 @@ def test_eval_cli_world_of_two(cli_runs):
      'torchrun --nproc_per_node 4 .* --mesh 2x2'),
     (lambda: eval_cli.main(['--mesh', '3', '--device', 'cpu']),
      'torchrun --nproc_per_node 3 .* --mesh 3'),
-    (lambda: TrainEngine(build_vos_model(
-        get_config('pre_vost', model='swinb_deaotl').model, device='cpu'),
-        replace(get_config('pre_vost', model='swinb_deaotl'),
-                train_spatial_sharding=True, mesh_shape=(1, 2),
-                mesh_axes=('data', 'model')), World(size=2, tp=2)),
-     'Swin-B with its shifted windows .* item 15c'),
+    (lambda: TrainEngine(_unbanded_model(), replace(
+        get_config('pre_vost', model='r50_deaotl'),
+        train_spatial_sharding=True, mesh_shape=(1, 2),
+        mesh_axes=('data', 'model')), World(size=2, tp=2)),
+     'encoder .*swin_large.*: bands are ported for .*swin_base'),
     (lambda: train_cli.main(CLI_ARGS + ['--multihost', '--mesh', '3']),
      'torchrun --nproc_per_node 3'),
 ], ids=['mesh_without_group', 'mesh_dxm', 'eval_mesh', 'spatial',

@@ -38,8 +38,8 @@ against the whole map's; a rank's encoder, id bank and decoder maps for
 the full-depth `rs101_aotl` (float32) and the oracle's `r50_topdown_aotl`
 at 72 px (not 1 mod 16: its transposed convs' maps have rows of no
 stride; float64, where two passes of ResNet-50 leave f32 rounding of
-1.4e-5 at maps of magnitude 12); MobileNetV3's bands refused at 49 px;
-Swin-B still refused.
+1.4e-5 at maps of magnitude 12); MobileNetV3's bands refused at 49 px.
+Swin-B's bands are tests/test_torch_spatial_swin.py's.
 """
 import json
 import os
@@ -373,13 +373,3 @@ def test_mobilenetv3_refuses_thin_bands():
     x = torch.zeros(1, dilated[0].in_channels, end - first, 4)
     with pytest.raises(ValueError, match='too thin'):
         spatial.conv2d(dilated[0], x, bands)
-
-
-@pytest.mark.parametrize('model', ['swinb_deaotl', 'swinb_aotl'])
-def test_swin_still_refused(model):
-    exp = replace(get_config('pre_vost', model=model, **SPATIAL),
-                  mesh_shape=(1, 2), mesh_axes=('data', 'model'))
-    with pytest.raises(NotImplementedError,
-                       match='Swin-B with its shifted windows .* item 15c'):
-        TrainEngine(build_vos_model(exp.model, device='cpu'), exp,
-                    World(size=2, tp=2))

@@ -20,8 +20,10 @@ after the steps), flaky_save (rank 0's first write of that save fails),
 restore (a checkpoint root restored before them), capture (keep the
 first step's averaged gradients and parameters), dtype (the model's and
 the frames', 'float32' by default), size (of the square clips, 49 by
-default), deterministic (every train-time rate 0 and no id shuffle, as
-the JAX package's episode runs in a check against it). A spec's `tp`
+default, or [H, W]), deterministic (every train-time rate 0 and no id
+shuffle, as the JAX package's episode runs in a check against it), swin
+(the model's encoder replaced by a SwinEncoder of these (embed, depths,
+heads), the config's encoder_dim set to match). A spec's `tp`
 makes the world D x tp (tensor parallelism): a case then runs on a ('data',
 'model') mesh, takes the rows of its data rank, and its digest holds the
 whole tensors, gathered over the model group.
@@ -32,9 +34,11 @@ inference engine instead, the model's weights loaded from the case's
 (`run_gather`) differentiates through `gather_from_model`. Under spatial
 sharding, one of kind 'halo' (`run_halo`) exchanges halos of a band of
 rows, one of kind 'maps' (`run_maps`) runs a model's encoder, id bank
-and decoder on a band, and one of kind 'bands' (`run_bands`) holds the
+and decoder on a band, one of kind 'bands' (`run_bands`) holds the
 band mean, the banded transposed conv and the half-pixel resize to the
-whole map's; these write a digest from every rank.
+whole map's, and one of kind 'swin' (`run_swin`) Swin's banded blocks
+and patch merges and the wrapping halo exchange; these write a digest
+from every rank.
 """
 import json
 import os
@@ -108,11 +112,33 @@ def exp_of(case):
                    train_remat_policy=case.get('remat', 'none'))
 
 
-def global_batch(b: int, seed: int, size: int = SIZE):
+def hw_of(size):
+    """(H, W) of a case's `size`: one side of a square, or [H, W]."""
+    return (size, size) if isinstance(size, int) else tuple(size)
+
+
+def build_model(case, cfg, device, **kw):
+    """build_vos_model of the config `cfg` on `device`, its encoder the
+    case's narrow SwinEncoder where the case names one."""
+    from rmem_ocu_tpu_torch import build_vos_model
+    from rmem_ocu_tpu_torch.models import vos_model
+    if 'swin' not in case:
+        return build_vos_model(cfg, device=device, **kw)
+    from rmem_ocu_tpu_torch.models.encoders.swin import SwinEncoder
+    build = vos_model.build_encoder
+    vos_model.build_encoder = lambda *a, **k: SwinEncoder(*case['swin'])
+    try:
+        return build_vos_model(cfg, device=device, **kw)
+    finally:
+        vos_model.build_encoder = build
+
+
+def global_batch(b: int, seed: int, size=SIZE):
     rs = np.random.RandomState(seed)
+    h, w = hw_of(size)
     obj_nums = np.array([2, 1, 2, 1][:b], np.int64)
-    return {'frames': rs.randn(b, T, size, size, 3).astype(np.float32),
-            'masks': (rs.rand(b, T, size, size)
+    return {'frames': rs.randn(b, T, h, w, 3).astype(np.float32),
+            'masks': (rs.rand(b, T, h, w)
                       * (obj_nums[:, None, None, None] + 1)).astype(np.int64),
             'obj_nums': obj_nums}
 
@@ -134,7 +160,6 @@ def run_case(case, world):
     and EMA after the last step (flat), whether every rank holds the
     same, the largest moment's size whole and on this rank, and what the
     case's restore and capture found."""
-    from rmem_ocu_tpu_torch import build_vos_model
     from rmem_ocu_tpu_torch.parallel.dist import same_on_all_ranks
     from rmem_ocu_tpu_torch.train import optim
     from rmem_ocu_tpu_torch.train.trainer import Trainer
@@ -144,8 +169,8 @@ def run_case(case, world):
     if world.tp > 1:
         exp = replace(exp, mesh_shape=(world.data.size, world.tp),
                       mesh_axes=('data', 'model'))
-    model = build_vos_model(exp.model, device=world.device,
-                            seed=case.get('seed', 0), exp=exp)
+    model = build_model(case, exp.model, world.device,
+                        seed=case.get('seed', 0), exp=exp)
     dtype = getattr(torch, case.get('dtype', 'float32'))
     model.to(dtype)
     trainer = Trainer(model, exp, world)
@@ -352,32 +377,33 @@ def run_halo(case, world):
 
 def run_maps(case, world):
     """The case's model (eval, frozen BN; `overrides` of its config) on
-    this model rank's band of a clip of `size` px (49 by default): the
+    this model rank's band of a clip of `size` px (49 by default, or
+    [H, W]; the case's narrow Swin where it names one): the
     rows each banded convolution's input holds against its band's rows at
     its stride, the (stride, whole rows) each banded transposed conv is
     told with the rows its input holds, and the largest difference of the
     band's encoder maps, id tokens and decoded logits from the whole
     image's computed here without bands. A mask-conditioned encoder takes
     the clip's labels; its maps without them are held too."""
-    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch import get_config
     from rmem_ocu_tpu_torch.parallel import spatial
     exp = get_config('pre_vost', model=case['model'],
                      **case.get('overrides', {}))
     cfg = exp.model
-    size = case.get('size', SIZE)
+    h, w = hw_of(case.get('size', SIZE))
     dtype = getattr(torch, case.get('dtype', 'float32'))
-    model = build_vos_model(cfg, device=world.device).to(dtype)
-    bands = spatial.make_bands((size, size), world.model)
+    model = build_model(case, cfg, world.device).to(dtype)
+    bands = spatial.make_bands((h, w), world.model)
     rs = np.random.RandomState(6)
-    img = torch.from_numpy(rs.randn(2, size, size, 3)).to(dtype)
-    ids = torch.from_numpy(rs.randint(0, 3, (2, size, size)))
+    img = torch.from_numpy(rs.randn(2, h, w, 3)).to(dtype)
+    ids = torch.from_numpy(rs.randint(0, 3, (2, h, w)))
     one_hot = torch.nn.functional.one_hot(ids, cfg.id_dim).to(dtype)
     # the transformer's outputs on the whole 16x grid: a GPM layer's
     # [tgt, tgt_id], or each LSTT layer's tgt
     d = cfg.encoder_embedding_dim
     n_out = cfg.lstt_num if cfg.decoder_intermediate_lstt else 1
     lstt_out = [torch.from_numpy(rs.randn(
-        2, bands.whole_rows(16) * -(-size // 16),
+        2, bands.whole_rows(16) * -(-w // 16),
         2 * d if cfg.vos == 'deaot' else d)).to(dtype)
         for _ in range(n_out)]
     first, end = bands.rows(1)
@@ -527,6 +553,106 @@ def run_bands(case, world):
     return out
 
 
+# a narrow Swin (embed, depths, heads) and a width that names each stride
+SWIN_NARROW = (32, (2, 2, 2), (2, 4, 8))
+SWIN_WIDTH = 64
+# the wrap's operands: a map of WRAP_ROWS rows; by M, the rows each rank
+# takes above and below (as many as its neighbours hold at most)
+WRAP_ROWS = 17
+WRAP_HALOS = {2: ((4, 1), (3, 5)), 4: ((2, 0, 3, 1), (1, 3, 2, 3))}
+
+
+def _swin_modules(dim: int, heads: int, merge: bool):
+    """A stage's unshifted and shifted blocks (and its merge), float64,
+    every parameter drawn at random (the relative bias too)."""
+    from rmem_ocu_tpu_torch.models.encoders.swin import (PatchMerging,
+                                                         SwinBlock)
+    mods = {f'block shift {k}': SwinBlock(dim, heads, 7, k) for k in (0, 3)}
+    if merge:
+        mods['merge'] = PatchMerging(dim)
+    for mod in mods.values():
+        mod.double()
+        with torch.no_grad():
+            for p in mod.parameters():
+                p.add_(torch.randn_like(p) * 0.2)
+    return mods
+
+
+def run_swin(case, world):
+    """On this model rank, in float64, at images of case['sizes'] rows by
+    SWIN_WIDTH px: the narrow Swin's blocks, unshifted and shifted, at
+    strides 4, 8 and 16 and its patch merges at 4 and 8, each on the
+    rank's band of a random map, against the whole map's, forward and
+    backward (each rank weighs its band's output by weights of its own;
+    the whole map's reference sums every rank's); then the wrapping halo
+    exchange of WRAP_HALOS against torch.roll of a whole map. Returns each
+    check's largest forward and input-gradient difference, and this
+    rank's parameter gradients beside the whole map's (the ranks' sum is
+    the whole's)."""
+    from rmem_ocu_tpu_torch.parallel import spatial
+    mw = world.model
+    out = {'per_rank': True, 'checks': {}, 'param_grads': {}}
+    embed, _, heads = SWIN_NARROW
+    for size in case['sizes']:
+        bands = spatial.make_bands((size, SWIN_WIDTH), mw)
+        for i, s in enumerate((4, 8, 16)):
+            torch.manual_seed(size + i)
+            h, w = bands.whole_rows(s), -(-SWIN_WIDTH // s)
+            c = embed * 2 ** i
+            rs = np.random.RandomState(size + i)
+            x = torch.from_numpy(rs.randn(2, h, w, c))
+            for name, mod in _swin_modules(c, heads[i], s < 16).items():
+                # the map after it: its stride and channels
+                t, c_out = (2 * s, 2 * c) if name == 'merge' else (s, c)
+                run = lambda z, n: mod(z.reshape(2, -1, c), n, w)
+                whole = x.clone().requires_grad_()
+                want = run(whole, h).reshape(2, bands.whole_rows(t), -1,
+                                             c_out)
+                weights = [torch.from_numpy(rs.randn(
+                    *want[:, slice(*bands.rows(t, r))].shape))
+                    for r in range(mw.size)]
+                sum((want[:, slice(*bands.rows(t, r))] * weights[r]).sum()
+                    for r in range(mw.size)).backward()
+                whole_grads = [p.grad.clone() for p in mod.parameters()]
+                mod.zero_grad()
+                rows = slice(*bands.rows(s))
+                band = x[:, rows].clone().requires_grad_()
+                with spatial.banded(bands):
+                    got = run(band, band.shape[1]).reshape(
+                        2, -1, *want.shape[2:])
+                (got * weights[mw.rank]).sum().backward()
+                key = f'{name} stride {s} {size}'
+                out['checks'][key] = (
+                    float((got - want[:, slice(*bands.rows(t))]).abs()
+                          .max()),
+                    float((band.grad - whole.grad[:, rows]).abs().max()))
+                out['param_grads'][key] = (
+                    [p.grad.clone() for p in mod.parameters()], whole_grads)
+    # the wrap: rank r's band with tops[r] rows above and bottoms[r]
+    # below, taken round the map's edges
+    tops, bottoms = WRAP_HALOS[mw.size]
+    rs = np.random.RandomState(7)
+    x = torch.from_numpy(rs.randn(2, 3, WRAP_ROWS, 5))
+    starts = [r * -(-WRAP_ROWS // mw.size) for r in range(mw.size)] + [
+        WRAP_ROWS]
+    whole = x.clone().requires_grad_()
+    weights, wants = [], []
+    for r in range(mw.size):
+        n = starts[r + 1] - starts[r] + tops[r] + bottoms[r]
+        wants.append(torch.roll(whole, tops[r] - starts[r], -2)[..., :n, :])
+        weights.append(torch.from_numpy(rs.randn(*wants[-1].shape)))
+    sum((a * b).sum() for a, b in zip(wants, weights)).backward()
+    band = x[..., starts[mw.rank]:starts[mw.rank + 1], :].clone()
+    band.requires_grad_()
+    got = spatial.halo_rows(band, tops, bottoms, mw, wrap=True)
+    (got * weights[mw.rank]).sum().backward()
+    out['checks']['wrap'] = (
+        float((got - wants[mw.rank]).abs().max().detach()),
+        float((band.grad - whole.grad[
+            ..., starts[mw.rank]:starts[mw.rank + 1], :]).abs().max()))
+    return out
+
+
 def gather_operands(n: int):
     rs = np.random.RandomState(0)
     return (torch.from_numpy(rs.randn(3, 8)),
@@ -534,7 +660,8 @@ def gather_operands(n: int):
 
 
 RUNS = {'train': run_case, 'serve': run_serving, 'gather': run_gather,
-        'halo': run_halo, 'maps': run_maps, 'bands': run_bands}
+        'halo': run_halo, 'maps': run_maps, 'bands': run_bands,
+        'swin': run_swin}
 
 
 def main(spec_path: str) -> None:
