@@ -26,7 +26,8 @@ Phases, each fatal on failure:
    grids, 37x66 and 48x85, and at Swin's 22x39), with its time, the plain
    version's time, one library call's time as a yardstick, the least time
    the card could take (bound) and the share of it reached (bound / time),
-   each time the median of 11 bursts;
+   the kernel's time the median of 11 bursts, the plain version's and the
+   library call's of 5;
 4. engine, fp32, card against CPU, per path: seeded random weights, one
    reference frame and 10 frames at write gap 1 (eviction fires; at
    353x625 for the ResNet-50 paths, at 128x224 or 129x225 for the
@@ -34,8 +35,8 @@ Phases, each fatal on failure:
 5. main path, bf16, per path: 353x625 (352x624 for Swin), 3 objects, at 1
    and 8 streams (the ResNet-50 paths and swinb_deaotl) or 1: frames/s,
    p50 frame latency, peak memory; after every path's timed run (a profile
-   slows the frames timed after it in its process), the census of 5 more
-   frames of each, on its engine built again
+   slows the frames timed after it in its process), the census of 3 more
+   frames of each, on the timed run's engine
    (rmem_ocu_tpu_torch/tools/census.py: device time by component, kernel
    group and part of the model, in Swin its window attention, the
    attention's qkv and proj linears and the MLPs; launches by op);
@@ -56,8 +57,9 @@ Phases, each fatal on failure:
    every trainable gradient, and an AdamW update from the same gradients;
    no kernel launched across the step (training reads densely: the
    kernels have no backward); (b) bf16 AMP steps at the recipe shape
-   (465x465 crops, T=17, gap 4, remat 'full', batch 2 and 4, and batch 2
-   without remat): step time, episodes/s, frames/s, peak memory and the
+   (465x465 crops, T=17, gap 4, remat 'full', batch 2 (3 timed steps
+   after 2) and 4 (2 after 1), and batch 2 without remat (1 step)): step
+   time, episodes/s, frames/s, peak memory and the
    census of one step by component (forward, backward, recompute); (c) the trained model in eval mode: the
    inference engine launches B1 and B2 again, as many as expected.
 10. the pipeline, `r50_deaotl`: `tools.pipeline.main()` in-process on a
@@ -104,7 +106,7 @@ Phases, each fatal on failure:
    takes (c)'s and (d)'s float64 steps in one process: (a) 12d's fp32
    steps with the knob against 11a's one process (12d's gates) and
    against 12d's world without it; (b) bf16 AMP at the recipe shape (465x465, T=17,
-   B=2, remat 'full'), 2 steps with the knob, without it (tensor
+   B=2, remat 'full'), 1 step with the knob, without it (tensor
    parallelism alone) and in one process: the peak memory a rank, the
    halo exchanges and gathers a step and their MB, the step time, no
    kernel launched; (c) the encoders banded since: the full-depth
@@ -113,21 +115,40 @@ Phases, each fatal on failure:
    against one process on the card (12d's gates; in float32 rounding at
    the ReLUs behind ResNeSt's split-attention pool moves its gradients
    past them), and `rs101_aotl` and
-   `r50_topdown_aotl` in bf16 at the recipe shape, 2 steps with the knob
+   `r50_topdown_aotl` in bf16 at the recipe shape, 1 step with the knob
    and with tensor parallelism alone (13b's lines; the peak a rank lower
    with the knob); (d) Swin-B, its window halos and the shifted windows'
    wrap round the image: the full-width `swinb_deaotl` and `swinb_aotl`
    in float64 at 128x128 with the knob against one process (12d's
-   gates), and `swinb_deaotl` in bf16 at 464x464, T=17, B=2, 2 steps
+   gates), and `swinb_deaotl` in bf16 at 464x464, T=17, B=2, 1 step
    with the knob and with TP alone (13b's lines and gates).
 14. the census tool: `stages` of r50_deaotl at 1 and 8 streams beside
    phase 5's p50; `frames --stage_by_stage` of deaot_1head and
    deaot_2heads (B1, B2, B3 launches equal to the expected counts, each
-   kernel's ms a call beside phase 3's row); `train` at the recipe shape
+   kernel's ms a call beside phase 3's row); `train` at 465x465, B=2,
+   T=5 (9b profiles a step of the recipe's 17)
    (components sum to the step's device busy time within 1%, matched
    share at least 0.5, no kernel launched); `trace` of phase 5's exported
    trace (its device total equal to that profile's busy time within 1%).
    A profile of the card that sees no kernel fails the run.
+15. `RMEM_BF16_PROBS=0` (f32 storage of the attention logits and
+   probabilities of bf16 inputs at the plain attention sites; the kernels
+   ignore it): (a) `deaot_2heads` and `swinb_deaotl` at 1 stream, 10
+   frames, the same weights and frames at the default, with the switch
+   and in fp32: B1, B2 and B3 launched as often with the switch as at the
+   default, finite logits, the switch's masks against the default's and
+   fp32's (more than 99.9% of pixels, a differing pixel excused only
+   where the other run's two best logits lie within twice the largest
+   logit difference), each bf16 mode's largest logit difference to fp32,
+   p50 and device-busy ms a frame, peak memory; (b) one r50_deaotl step at
+   the recipe shape after one warm-up, at the default and with the
+   switch, beside 9b's default step: step ms, peak memory, no kernel
+   launched, finite losses and gradients; and the 129x129, T=5 episode in
+   bf16 AMP at the default and with the switch, each leaf's gradient
+   cosine to the fp32 episode's.
+
+When a phase ends it prints the seconds since the start and its own
+(phase 3's with the build, phase 7's with phase 6's).
 
 The last lines are one JSON object listing the kernels, the card's
 `nvidia-smi` name and power limit, and `{"ok": true, "device": ...}`. With
@@ -357,6 +378,11 @@ def compare(outs, wants, rtol, atol_rms, atol):
     return err, rms, ok
 
 
+# bursts of the plain version's and the library call's times (the kernel's
+# own time takes time_ms's 11)
+YARDSTICK_SAMPLES = 5
+
+
 def kernel_row(torch, name, run, plain, library, n_bytes, n_flops, operands,
                err, plain_burst: int = 2):
     """`operands` names the type the kernel multiplies ('bfloat16' or
@@ -364,9 +390,11 @@ def kernel_row(torch, name, run, plain, library, n_bytes, n_flops, operands,
     already in `n_bytes`."""
     b_ms, b_by = bound_ms(n_bytes, n_flops, operands)
     row = dict(max_abs_err=err, ms=time_ms(torch, run),
-               plain_ms=time_ms(torch, plain, burst=plain_burst),
+               plain_ms=time_ms(torch, plain, burst=plain_burst,
+                                samples=YARDSTICK_SAMPLES),
                bound_ms=b_ms, bound_by=b_by,
-               library_ms=time_ms(torch, library))
+               library_ms=time_ms(torch, library,
+                                  samples=YARDSTICK_SAMPLES))
     row['bound_share'] = b_ms / row['ms']
     print(f'kernel {name}: ok, {json.dumps(row)}')
     return row
@@ -738,11 +766,14 @@ def main_path_setup(torch, path: str, batch: int):
 
 def phase_main_path(torch, path: str, batch: int):
     """The bf16 main path of `path` at `batch` streams; returns the kernel
-    launch counts (B1, B2, B3) of the timed run and its p50 frame latency.
-    No profile runs in its process before it (main_path_census follows
-    every path's timed run): the profiler slows later frames."""
+    launch counts (B1, B2, B3) of the timed run, its p50 frame latency and
+    (engine, state, frames) after it, for main_path_census. No profile
+    runs in its process before it (main_path_census follows every path's
+    timed run): the profiler slows later frames."""
     spec = spec_of(path)
     size, n_warm, n_timed = spec['size'], spec['warm'], spec['timed']
+    # the engines of the paths timed before stay held for their census
+    base = torch.cuda.memory_allocated()
     exp, eng, state, frames = main_path_setup(torch, path, batch)
     grid = grid_of(size, exp.model.align_corners)
     events = []
@@ -778,7 +809,7 @@ def phase_main_path(torch, path: str, batch: int):
     per_frame = [s.elapsed_time(e) for s, e in events]
     total_ms = events[0][0].elapsed_time(events[-1][1])
     fps = batch * n_timed / (total_ms / 1e3)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     tag = f'{path} streams={batch}'
     p50 = statistics.median(per_frame)
     print(f'main path bf16 {size[0]}x{size[1]} {N_OBJ} objects gap '
@@ -786,22 +817,33 @@ def phase_main_path(torch, path: str, batch: int):
           f'latency {p50:.3f} ms, peak memory '
           f'{peak:.3f} GiB, {n_timed} timed frames after {n_warm} warm-up, '
           f'launches (B1, B2, B3) {counts}')
-    return counts, p50
+    return counts, p50, (eng, state, frames)
 
 
-def main_path_census(torch, path: str, batch: int, trace_dir=None) -> dict:
-    """The census of 5 frames of `path` at `batch` streams after the timed
-    run's frames (its chrome trace under `trace_dir` if given), on an
-    engine built again as phase_main_path builds it."""
+# frames in the census of each main-path run (phase 5; phase 14 reads the
+# trace of one)
+MAIN_CENSUS_FRAMES = 3
+
+
+def main_path_census(torch, path: str, batch: int, trace_dir=None,
+                     live=None) -> dict:
+    """The census of MAIN_CENSUS_FRAMES frames of `path` at `batch`
+    streams after the timed run's frames (its chrome trace under
+    `trace_dir` if given): on the timed run's (engine, state, frames)
+    (`live`, phase_main_path's), or on an engine built again as
+    phase_main_path builds it and run through as many frames."""
     from rmem_ocu_tpu_torch.tools import census
     from rmem_ocu_tpu_torch.utils.profiling import format_census
     spec = spec_of(path)
-    _, eng, state, frames = main_path_setup(torch, path, batch)
-    for i in range(spec['warm'] + spec['timed']):
-        state = census.frame_step(eng, state, frames[i % len(frames)],
-                                  spec['size'])
-    c, _ = census.profile_frames(eng, state, frames, spec['size'], 5,
-                                 trace_dir)
+    if live is None:
+        _, eng, state, frames = main_path_setup(torch, path, batch)
+        for i in range(spec['warm'] + spec['timed']):
+            state = census.frame_step(eng, state, frames[i % len(frames)],
+                                      spec['size'])
+    else:
+        eng, state, frames = live
+    c, _ = census.profile_frames(eng, state, frames, spec['size'],
+                                 MAIN_CENSUS_FRAMES, trace_dir)
     for line in format_census(c, f'{path} streams={batch}'):
         print(line)
     return c
@@ -1292,7 +1334,8 @@ def phase_training_bf16(torch):
     465x465 crops, T=17, write gap 4), 3 objects, remat 'full', per-card
     batch 2 and 4: CUDA events over 3 steps after 2 warm-up, episodes/s,
     frames/s, peak memory, a profile of one step; batch 2 again without
-    remat. Returns the trained model of the last batch-2 run."""
+    remat. Returns the trained model of the batch-2 run and its step
+    (ms, peak GiB)."""
     from dataclasses import replace
     from rmem_ocu_tpu_torch import build_vos_model, get_config
     from rmem_ocu_tpu_torch.tools import census
@@ -1305,8 +1348,11 @@ def phase_training_bf16(torch):
     check(base.train_long_term_mem_gap == 4 and n_frames == 17
           and tuple(size) == (465, 465), f'recipe {size} T={n_frames} gap '
           f'{base.train_long_term_mem_gap}')
-    trained = None
-    for batch, policy in ((2, 'full'), (4, 'full'), (2, 'none')):
+    trained, step = None, None
+    # (batch, remat, warm-up steps, timed steps)
+    for batch, policy, n_warm, n_timed in ((2, 'full', 2, 3),
+                                           (4, 'full', 1, 2),
+                                           (2, 'none', 0, 1)):
         exp = replace(base, train_remat_policy=policy)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1324,15 +1370,14 @@ def phase_training_bf16(torch):
         reset_counts()
         try:
             events, losses = [], []
-            n_steps = 5 if policy == 'full' else 2
-            for i in range(n_steps):
+            for i in range(n_warm + n_timed):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 state, metrics = trainer.train_step(state, batch_d, gen)
                 end.record()
                 losses.append(metrics['loss'])
-                if i >= 2 or policy == 'none':
+                if i >= n_warm:
                     events.append((start, end))
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError as e:
@@ -1360,7 +1405,7 @@ def phase_training_bf16(torch):
         step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
         print(f'{tag} {size[0]}x{size[1]} T={n_frames} gap 4: '
               f'{step_ms:.1f} ms a step '
-              f'(median of {len(events)} after 2 warm-up), '
+              f'(median of {len(events)} after {n_warm} warm-up), '
               f'{1e3 * batch / step_ms:.3f} episodes/s, '
               f'{1e3 * batch * n_frames / step_ms:.1f} frames/s, peak '
               f'memory {peak:.3f} GiB, loss {float(losses[-1]):.4f}, grad '
@@ -1372,8 +1417,8 @@ def phase_training_bf16(torch):
                                                           batch_d, gen)
             for line in format_census(c, tag):
                 print(line)
-            trained = model
-    return trained
+            trained, step = model, dict(ms=step_ms, peak=peak)
+    return trained, step
 
 
 def phase_after_training(torch, model):
@@ -2435,16 +2480,14 @@ def tp_training(torch, dp_one: dict, ranks: list, one_world,
 
 
 # ------------------------------------------------- 13: spatial sharding
-SP_STEPS = 2                    # 13b: steps at the recipe shape, 1 warm-up
 # 13c: the encoders banded since r50_deaotl's (name, model, overrides);
-# the first two also at the recipe shape, SP_ENC_STEPS steps each
+# the first two also at the recipe shape, one step each
 SP_ENCODERS = (
     ('resnest101', ('rs101_aotl', {})),
     ('topdown', ('r50_topdown_aotl', {})),
     ('topdown_oracle', ('r50_topdown_aotl', dict(oracle=True))),
     ('mobilenetv3', ('aotl', dict(encoder='mobilenetv3',
                                   encoder_dim=(24, 40, 112, 960)))))
-SP_ENC_STEPS = 2
 # 13c's training against one process runs in float64: in float32 the
 # split-attention pool's mean of a map whose signs cancel feeds a ReLU, and
 # the rounding of any order of its sums flips kinks behind it (the world's
@@ -2456,26 +2499,23 @@ SP_ENC_DTYPE = 'float64'
 # process in SP_ENC_DTYPE at SP_SWIN_SIZE (multiples of 16: the id bank's
 # 16x16 conv takes whole grid cells; at M=2, 128 px has unshifted halos,
 # a wrap that carries a real row and a padded bottom at stride 4); the
-# first also at the recipe shape (464x464), SP_ENC_STEPS steps
+# first also at the recipe shape (464x464), one step
 SP_SWIN = (('swinb_deaotl', ('swinb_deaotl', {})),
            ('swinb_aotl', ('swinb_aotl', {})))
 SP_SWIN_SIZE = (128, 128)
 
 
-def sp_bf16(torch, world, spatial_on: bool, arch=R50_DEAOTL,
-            steps: int = SP_STEPS) -> dict:
-    """13b-13d on this rank: `steps` bf16 AMP steps of r50_deaotl (or
-    of `arch`) at the recipe shape
-    (465x465, 464x464 for Swin, T=17, gap 4, B=2, remat 'full') on a 1 x
-    M world with the
-    knob on or off (TP alone), or in one process (`world` without a
-    group). Returns the peak memory above the memory held before the
-    model was built, of the first step (its cuDNN calls choose their
-    algorithms) and of the others; where the second step's peak lies (the
-    memory held before it, after its episode's forward and the forward's
-    peak, against the step's); each step's CUDA-event ms, the halo
-    exchanges and gathers of each step with their bytes, the launches and
-    the losses."""
+def sp_bf16(torch, world, spatial_on: bool, arch=R50_DEAOTL) -> dict:
+    """13b-13d on this rank: one bf16 AMP step of r50_deaotl (or of
+    `arch`) at the recipe shape (465x465, 464x464 for Swin, T=17, gap 4,
+    B=2, remat 'full') on a 1 x M world with the knob on or off (TP
+    alone), or in one process (`world` without a group). One step: its
+    peak, cuDNN's choice of algorithms included, lay within 3% of the
+    next step's in every run of two. Returns the step's peak memory above
+    the memory held before the model was built and where it lies (the
+    memory held before the step, after its episode's forward and the
+    forward's peak, against the step's), its CUDA-event ms, its halo
+    exchanges and gathers with their bytes, the launches and the loss."""
     from dataclasses import replace
     from rmem_ocu_tpu_torch import build_vos_model, get_config
     from rmem_ocu_tpu_torch.parallel import spatial
@@ -2501,9 +2541,9 @@ def sp_bf16(torch, world, spatial_on: bool, arch=R50_DEAOTL,
              'obj_nums': torch.full((2,), N_OBJ, device=world.device)}
     gen = torch.Generator().manual_seed(7)
     reset_counts()
-    out = {'step_ms': [], 'stats': [], 'losses': [], 'marks': {},
-           'size': tuple(exp.data_randomcrop)}
     above = lambda f: (f(world.device) - base) / 2 ** 30
+    out = {'size': tuple(exp.data_randomcrop),
+           'marks': {'held': above(torch.cuda.memory_allocated)}}
     episode = trainer.engine.episode_loss
 
     def marked(*args, **kw):
@@ -2513,28 +2553,19 @@ def sp_bf16(torch, world, spatial_on: bool, arch=R50_DEAOTL,
             after_forward=above(torch.cuda.memory_allocated),
             forward_peak=above(torch.cuda.max_memory_allocated))
         return result
-    for i in range(steps):
-        trainer.engine.episode_loss = marked if i == 1 else episode
-        if i == 1:
-            out['peak_first'] = (torch.cuda.max_memory_allocated(
-                world.device) - base)
-            torch.cuda.reset_peak_memory_stats(world.device)
-            out['marks']['held'] = above(torch.cuda.memory_allocated)
-        spatial.reset_stats()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, m = trainer.train_step(state, batch, gen)
-        end.record()
-        end.synchronize()
-        out['step_ms'].append(start.elapsed_time(end))
-        out['stats'].append(dict(spatial.STATS))
-        out['losses'].append(float(m['loss']))
-        if i == 1:
-            out['marks']['step_peak'] = above(
-                torch.cuda.max_memory_allocated)
-    out['peak'] = torch.cuda.max_memory_allocated(world.device) - base
-    out['launches'] = read_counts()
+    trainer.engine.episode_loss = marked
+    spatial.reset_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, m = trainer.train_step(state, batch, gen)
+    end.record()
+    end.synchronize()
+    out['marks']['step_peak'] = above(torch.cuda.max_memory_allocated)
+    out.update(step_ms=start.elapsed_time(end), stats=dict(spatial.STATS),
+               loss=float(m['loss']),
+               peak=torch.cuda.max_memory_allocated(world.device) - base,
+               launches=read_counts())
     del model, trainer, state
     torch.cuda.empty_cache()
     return out
@@ -2560,18 +2591,27 @@ def sp_worker(spec_path: str) -> int:
                                tp=TP)
     try:
         parts = spec.get('parts', ('13a', '13b', '13c', '13d'))
-        out = {}
+        out, t0 = {}, time.time()
+
+        def lap(part: str) -> None:
+            """The seconds of `part` on this rank, under ('seconds', part)."""
+            nonlocal t0
+            out['seconds', part] = time.time() - t0
+            t0 = time.time()
         if '13a' in parts:
             out['spatial'] = dp_train(torch, SP_SETTING, world)
+            lap('13a')
         if '13c' in parts:
             for name, arch in SP_ENCODERS:
                 out['13c', name] = dp_train(torch, SP_SETTING, world,
                                             arch=arch, dtype=SP_ENC_DTYPE)
+            lap('13c float64')
         if '13d' in parts:
             for name, arch in SP_SWIN:
                 out['13d', name] = dp_train(
                     torch, SP_SETTING, world, arch=arch, dtype=SP_ENC_DTYPE,
                     size=SP_SWIN_SIZE)
+            lap('13d float64')
         if '13b' in parts:
             for on in (False, True):
                 out['bf16', on] = sp_bf16(torch, world, on)
@@ -2579,15 +2619,18 @@ def sp_worker(spec_path: str) -> int:
                 out['bf16_one'] = sp_bf16(torch, World(device=world.device),
                                           True)
             dist.agree(False, world)
+            lap('13b bf16')
         if '13c' in parts:
             for name, arch in SP_ENCODERS[:2]:
                 for on in (False, True):
-                    out['13c bf16', name, on] = sp_bf16(
-                        torch, world, on, arch, SP_ENC_STEPS)
+                    out['13c bf16', name, on] = sp_bf16(torch, world,
+                                                        on, arch)
+            lap('13c bf16')
         if '13d' in parts:
             for on in (False, True):
                 out['13d bf16', on] = sp_bf16(torch, world, on,
-                                              SP_SWIN[0][1], SP_ENC_STEPS)
+                                              SP_SWIN[0][1])
+            lap('13d bf16')
         torch.save(out, f'{spec["out"]}.rank{world.rank}')
     finally:
         dist.destroy(world)
@@ -2639,12 +2682,13 @@ def phase_spatial(torch, ranks: list, dp_one: dict, tp_train: dict):
     largest and its update within 1e-2, the ranks alike, 0 launches), and
     against 12d's 1 x 2 world without the knob (losses 1e-5, weights and
     EMA 1e-4, step 1's gradients within GRAD_TOL of each leaf's largest).
-    13b: bf16 AMP at the recipe shape, SP_STEPS steps each with the knob
+    13b: bf16 AMP at the recipe shape, one step each with the knob
     off (tensor parallelism alone), on, and in one process: the peak
     memory a rank, the halo exchanges and gathers a step with their MB,
     the step time (gloo through the host on one card: written down, not
-    compared), finite losses and 0 launches. Gate: the peak a rank of
-    steps 2 on lower with the knob than without. Returns the launches."""
+    compared), finite losses and 0 launches. Gate: the peak a rank
+    lower with the knob than without (print_sp_bf16). Returns the
+    launches."""
     from rmem_ocu_tpu_torch.parallel.dist import World
     t0 = time.time()
     one_world = World(device=torch.device('cuda'))
@@ -2675,46 +2719,41 @@ def phase_spatial(torch, ranks: list, dp_one: dict, tp_train: dict):
     for on, label in ((False, 'TP alone'), (True, 'spatial')):
         for r, x in enumerate(ranks):
             runs[f'{label} rank {r}'] = x['bf16', on]
-    print_sp_bf16('sp 13b', R50_DEAOTL, runs, SP_STEPS)
+    print_sp_bf16('sp 13b', R50_DEAOTL, runs)
     print(f'sp 13a/13b gates ok in {time.time() - t0:.1f} s')
     return {'sp_train': launches,
             'sp_bf16': ranks[0]['bf16', True]['launches']}
 
 
-def print_sp_bf16(tag: str, arch, runs: dict, steps: int) -> None:
-    """13b-13d's gates and lines for bf16 runs of `arch` at the
-    recipe shape (label -> sp_bf16's result): finite losses and 0
-    launches in each; the peak a rank lower with the knob ('spatial rank
-    r') than with TP alone ('TP alone rank r')."""
+def print_sp_bf16(tag: str, arch, runs: dict) -> None:
+    """13b-13d's gates and lines for bf16 steps of `arch` at the recipe
+    shape (label -> sp_bf16's result): a finite loss and 0 launches in
+    each; the peak a rank lower with the knob ('spatial rank r') than
+    with TP alone ('TP alone rank r')."""
     for label, x in runs.items():
         check(x['launches'] == (0, 0, 0), f'{tag} {label}: launches '
                                           f'{x["launches"]}')
-        check(all(np.isfinite(x['losses'])), f'{tag} {label}: losses '
-                                              f'{x["losses"]}')
+        check(bool(np.isfinite(x['loss'])), f'{tag} {label}: loss '
+                                            f'{x["loss"]}')
     peak = {k: v['peak'] / 2 ** 30 for k, v in runs.items()}
-    first = {k: v['peak_first'] / 2 ** 30 for k, v in runs.items()}
     sp_peak = max(peak[f'spatial rank {r}'] for r in range(TP))
     tp_peak = max(peak[f'TP alone rank {r}'] for r in range(TP))
     check(sp_peak < tp_peak, f'{tag} {arch[0]}: peak a rank {sp_peak:.3f} '
                              f'GiB with the knob, {tp_peak:.3f} without')
     for label, x in runs.items():
-        st = x['stats'][-1]
+        st = x['stats']
         size = 'x'.join(map(str, x['size']))
         print(f'{tag} {label}: {arch[0]} {arch[1] or ""} bf16 AMP {size} '
-              f'T=17 B=2 remat full, {steps} steps: peak memory '
-              f'{peak[label]:.3f} GiB above the start in steps 2-{steps} '
-              f'({first[label]:.3f} in step 1); step '
-              f'{statistics.median(x["step_ms"][1:]):.1f} ms median of '
-              f'steps 2-{steps} '
-              f'({[round(t, 1) for t in x["step_ms"]]}); '
-              f'a step: {st["halo"]} halo exchanges, '
+              f'T=17 B=2 remat full, one step: peak memory '
+              f'{peak[label]:.3f} GiB above the start; step '
+              f'{x["step_ms"]:.1f} ms; {st["halo"]} halo exchanges, '
               f'{st["halo_bytes"] / 2 ** 20:.2f} MiB sent, {st["gather"]} '
-              f'gathers, {st["gather_bytes"] / 2 ** 20:.2f} MiB; losses '
-              f'{[round(v, 4) for v in x["losses"]]}; launches '
-              f'{x["launches"]}; step 2 in GiB above the start: '
+              f'gathers, {st["gather_bytes"] / 2 ** 20:.2f} MiB; loss '
+              f'{x["loss"]:.4f}; launches {x["launches"]}; in GiB above '
+              f'the start: '
               f'{ {k: round(v, 3) for k, v in x["marks"].items()} }')
-    print(f'{tag} {arch[0]} peak a rank in steps 2-{steps} {sp_peak:.3f} '
-          f'GiB with the knob against {tp_peak:.3f} GiB with TP alone '
+    print(f'{tag} {arch[0]} peak a rank {sp_peak:.3f} GiB with the knob '
+          f'against {tp_peak:.3f} GiB with TP alone '
           f'({sp_peak / tp_peak:.3f}x)' + (
               f' and {peak["one process"]:.3f} GiB in one process'
               if 'one process' in peak else ''))
@@ -2783,7 +2822,7 @@ def phase_spatial_encoders(torch, ranks: list, ones=None) -> dict:
     full-depth rs101_aotl, r50_topdown_aotl, the same with oracle=True,
     aotl on MobileNetV3) at 129x129, T=5, gap 1, against one process
     (sp_against_one; `ones`, sp_one_process's). (b) For the first two,
-    bf16 AMP at the recipe shape, SP_ENC_STEPS steps each with the knob
+    bf16 AMP at the recipe shape, one step each with the knob
     and with TP alone: 13b's lines and gates (print_sp_bf16). Returns the
     launches."""
     t0 = time.time()
@@ -2792,7 +2831,7 @@ def phase_spatial_encoders(torch, ranks: list, ones=None) -> dict:
         runs = {f'{label} rank {r}': x['13c bf16', name, on]
                 for on, label in ((False, 'TP alone'), (True, 'spatial'))
                 for r, x in enumerate(ranks)}
-        print_sp_bf16(f'sp 13c {name}', arch, runs, SP_ENC_STEPS)
+        print_sp_bf16(f'sp 13c {name}', arch, runs)
         launches[f'sp_{name}_bf16'] = runs['spatial rank 0']['launches']
     print(f'sp 13c ok in {time.time() - t0:.1f} s')
     return launches
@@ -2804,7 +2843,7 @@ def phase_spatial_swin(torch, ranks: list, ones=None) -> dict:
     (spatial_ranks). (a) SP_SWIN (the full-width swinb_deaotl and
     swinb_aotl) at SP_SWIN_SIZE, T=5, gap 1, against one process
     (sp_against_one; `ones`, sp_one_process's). (b) swinb_deaotl in bf16
-    AMP at the recipe shape (464x464, T=17, B=2), SP_ENC_STEPS steps each
+    AMP at the recipe shape (464x464, T=17, B=2), one step each
     with the knob and with TP alone: 13b's lines and gates
     (print_sp_bf16). Returns the launches."""
     t0 = time.time()
@@ -2813,7 +2852,7 @@ def phase_spatial_swin(torch, ranks: list, ones=None) -> dict:
     runs = {f'{label} rank {r}': x['13d bf16', on]
             for on, label in ((False, 'TP alone'), (True, 'spatial'))
             for r, x in enumerate(ranks)}
-    print_sp_bf16(f'sp 13d {name}', arch, runs, SP_ENC_STEPS)
+    print_sp_bf16(f'sp 13d {name}', arch, runs)
     launches[f'sp_{name}_bf16'] = runs['spatial rank 0']['launches']
     print(f'sp 13d ok in {time.time() - t0:.1f} s')
     return launches
@@ -2954,6 +2993,9 @@ def phase_tp_cli(torch, root: str, data: str, result: str, one_dir: str,
 
 # ------------------------------------------------------ 14: the census
 B_GROUPS = ('B1 memory_read', 'B2 local_attn', 'B3 memory_read_attention')
+# frames a clip of the CLI's `train` census (9b profiles a step of the
+# recipe's 17; this one checks the CLI's sums and attribution)
+CENSUS_TRAIN_T = 5
 
 
 def census_cli(argv) -> dict:
@@ -2977,17 +3019,19 @@ def phase_census(torch, rows, main_runs, trace_dir: str) -> dict:
     """14: the census tool (rmem_ocu_tpu_torch/tools/census.py) on the
     card: `stages` of deaot_1head at 1 and 8 streams beside phase 5's p50;
     `frames --stage_by_stage` of deaot_1head (B1, B2) and deaot_2heads (B3)
-    at 1 stream on a bank filled to steady state, its B1/B2/B3 launches equal to the expected counts and to
-    the wrappers' counters, each group's ms a call beside phase 3's row;
-    `train` at the recipe shape (B=2): its components and unmatched sum to
-    the step's device busy time within 1%, the matched share at least 0.5,
-    no B1/B2/B3 launch; `trace` of phase 5's deaot_1head trace, its device
+    at 1 stream on a bank filled to steady state, its B1/B2/B3 launches
+    equal to the expected counts and to the wrappers' counters, each
+    group's ms a call beside phase 3's row; `train` at 465x465, B=2,
+    T=CENSUS_TRAIN_T: its components and unmatched sum to the step's
+    device busy time within 1%, the matched share at least 0.5, no
+    B1/B2/B3 launch; `trace` of phase 5's deaot_1head trace, its device
     total equal to that profile's busy time within 1%. Returns the census
     ms a call of B1, B2 and B3."""
     from rmem_ocu_tpu_torch.tools import census
     from rmem_ocu_tpu_torch.utils.profiling import format_census
     frame_stages = ('propagate (enc+lstt+decode @4x)', 'update_memory',
                     'predict_mask (upsample+argmax)')
+    t0 = time.time()
     for streams in (1, 8):
         st = census_cli(['stages', '--streams', str(streams)])['stages']
         parts = sum(st[k]['median_ms'] for k in frame_stages)
@@ -2999,6 +3043,8 @@ def phase_census(torch, rows, main_runs, trace_dir: str) -> dict:
               f'ms = {parts / full:.3f} x the full frame; phase 5 p50 '
               f'{main_runs[("deaot_1head", streams)][1]:.3f} ms')
 
+    print(f'census stages: {time.time() - t0:.1f} s')
+    t0 = time.time()
     per_call = {}
     n = 5
     for path, row_of in (('deaot_1head', {B_GROUPS[0]: 'b1_bf16_B1',
@@ -3030,11 +3076,15 @@ def phase_census(torch, rows, main_runs, trace_dir: str) -> dict:
                   f'calls a frame), phase 3 row {row}: '
                   f'{rows[row]["ms"]:.4f} ms')
 
-    c = census_cli(['train', '--batch', '2'])
+    print(f'census frames: {time.time() - t0:.1f} s')
+    t0 = time.time()
+    c = census_cli(['train', '--batch', '2', '--seq', str(CENSUS_TRAIN_T)])
+    print(f'census train: {time.time() - t0:.1f} s')
     comps = c['components']
     total = sum(sum(v.values()) for v in comps.values())
     bwd = sum(v['backward'] for v in comps.values())
-    print(f'census train r50_deaotl B=2: components and unmatched '
+    print(f'census train r50_deaotl B=2 T={CENSUS_TRAIN_T}: components '
+          f'and unmatched '
           f'{total:.3f} ms against device busy {c["busy_ms"]:.3f} ms; '
           f'matched share {c["matched_share"]:.4f}, of the backward '
           f'{c["backward_matched_share"]:.4f}; forward / backward / '
@@ -3049,7 +3099,8 @@ def phase_census(torch, rows, main_runs, trace_dir: str) -> dict:
     check(all(c['group_launches'][g] == 0 for g in B_GROUPS),
           f'census train: kernels launched {c["group_launches"]}')
 
-    t = census_cli(['trace', trace_dir, '--steps', str(n)])
+    t = census_cli(['trace', trace_dir, '--steps',
+                    str(MAIN_CENSUS_FRAMES)])
     main = main_runs[('deaot_1head', 1)][2]
     print(f'census trace of phase 5 deaot_1head streams=1: device '
           f'{t["total_ms"]:.4f} ms a frame ({t["kernel_ms"]:.4f} kernels) '
@@ -3060,6 +3111,295 @@ def phase_census(torch, rows, main_runs, trace_dir: str) -> dict:
           <= 0.01 * main['kernel_ms'],
           f'census trace {t["total_ms"]} ms, profile {main["busy_ms"]} ms')
     return per_call
+
+
+# ------------------------------------------------------- RMEM_BF16_PROBS
+# 15: the paths whose plain attention sites the switch reaches in eval
+# (deaot_2heads: self-attention, the capacity-1 reference read and the
+# dense two-head window attention beside B3; swinb_deaotl: Swin-B's window
+# attention beside B1 and B2), the runs of each and their frames
+PROBS_PATHS = ('deaot_2heads', 'swinb_deaotl')
+PROBS_MODES = ('default', 'f32 probs', 'fp32')
+PROBS_FRAMES, PROBS_CENSUS = 10, 3
+
+
+@contextlib.contextmanager
+def probs_mode(torch, mode: str):
+    """PROBS_MODES' settings inside: RMEM_BF16_PROBS=0 in 'f32 probs' (the
+    variable's value before is restored after, also when the body
+    raises), f32 matmuls and convolutions without TF32 in 'fp32'."""
+    old = os.environ.get('RMEM_BF16_PROBS')
+    if mode == 'f32 probs':
+        os.environ['RMEM_BF16_PROBS'] = '0'
+    try:
+        with no_tf32(torch) if mode == 'fp32' else contextlib.nullcontext():
+            yield
+    finally:
+        if old is None:
+            os.environ.pop('RMEM_BF16_PROBS', None)
+        else:
+            os.environ['RMEM_BF16_PROBS'] = old
+
+
+def probs_run(torch, path: str, mode: str) -> dict:
+    """One serving run of `path` at 1 stream in `mode` (PROBS_MODES: bf16
+    at the default, bf16 with RMEM_BF16_PROBS=0, fp32 without TF32), the
+    weights of seed 0, a reference frame and PROBS_FRAMES frames, each
+    frame's mask written into its own memory. Returns the logits and masks
+    of each frame (on the CPU), the launches, the frames' CUDA-event ms,
+    the peak memory and (engine, state, frames) for probs_census."""
+    from rmem_ocu_tpu_torch import InferEngine, build_vos_model, get_config
+    spec = spec_of(path)
+    size = spec['size']
+    bf16 = mode != 'fp32'
+    exp = get_config('pre_vost_2',
+                     compute_dtype='bfloat16' if bf16 else 'float32',
+                     **spec['overrides'])
+    with probs_mode(torch, mode):
+        # the runs before stay held for their census
+        base = torch.cuda.memory_allocated()
+        model = build_vos_model(exp.model, seed=0)
+        eng = InferEngine(model.to(torch.bfloat16) if bf16 else model, exp,
+                          long_term_mem_gap=spec['gap'])
+        img0, mask0, frames = make_inputs(1, PROBS_FRAMES, seed=15,
+                                          size=size)
+        frames = [torch.from_numpy(f).cuda() for f in frames]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state = eng.init_state(1, grid_of(size, exp.model.align_corners))
+        state = eng.add_reference_frame(state, torch.from_numpy(img0),
+                                        torch.from_numpy(mask0),
+                                        torch.tensor([N_OBJ]))
+        out = {'logits': [], 'masks': [], 'ms': []}
+        for f in frames:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, state = eng.propagate(state, f)
+            pred = eng.predict_mask(logits, size)
+            state = eng.update_memory(state, pred)
+            end.record()
+            out['logits'].append(logits[..., :N_OBJ + 1].float().cpu())
+            out['masks'].append(pred.cpu())
+            end.synchronize()
+            out['ms'].append(start.elapsed_time(end))
+        out['launches'] = read_counts()
+        out['peak'] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    out['align_corners'] = exp.model.align_corners
+    out['live'] = (eng, state, frames)
+    return out
+
+
+def probs_census(torch, run: dict, mode: str, size) -> dict:
+    """The census of PROBS_CENSUS frames after a probs_run in `mode`, on
+    its engine."""
+    from rmem_ocu_tpu_torch.tools import census
+    eng, state, frames = run.pop('live')
+    with probs_mode(torch, mode):
+        c, _ = census.profile_frames(eng, state, frames, size, PROBS_CENSUS)
+    return c
+
+
+def mask_agreement(run: dict, ref: dict, size) -> tuple:
+    """(share of pixels equal over the frames, the same with a differing
+    pixel excused where `ref`'s two best logits lie within twice the
+    frame's largest logit difference, the largest logit difference, the
+    mean one): the tie rule of phase 4."""
+    from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
+    equal = excused = n = 0
+    worst, total = 0.0, 0.0
+    for a, b, la, lb in zip(run['masks'], ref['masks'], run['logits'],
+                            ref['logits']):
+        diff = float((la - lb).abs().max())
+        worst = max(worst, diff)
+        total += float((la - lb).abs().mean())
+        up = interpolate_bilinear(lb.permute(0, 3, 1, 2), size,
+                                  ref['align_corners'])
+        top2 = up.topk(2, dim=1).values
+        differ = a != b
+        equal += int((~differ).sum())
+        excused += int((differ & (top2[:, 0] - top2[:, 1]
+                                  <= 2 * diff)).sum())
+        n += a.numel()
+    return equal / n, (equal + excused) / n, worst, total / len(run['masks'])
+
+
+def phase_probs_serving(torch, path: str) -> dict:
+    """15(a): `path` in PROBS_MODES on the same weights and frames. Gates:
+    the kernels launch as often with the switch as at the default, and as
+    expected; every logit finite; the switch's masks agree with the
+    default's and with fp32's on more than 99.9% of pixels, a differing
+    pixel excused only by the tie rule. Prints each bf16 mode's largest
+    (and mean) logit difference to fp32, the agreements, p50 and
+    device-busy ms a frame and the peak memory of each mode: every mode is
+    timed before any is profiled (a profile slows the frames timed after
+    it in its process). Returns the switch's launches."""
+    t0 = time.time()
+    spec = spec_of(path)
+    runs = {mode: probs_run(torch, path, mode) for mode in PROBS_MODES}
+    for mode, r in runs.items():
+        r['census'] = probs_census(torch, r, mode, spec['size'])
+    torch.cuda.empty_cache()
+    want = expected_counts(path, PROBS_FRAMES)
+    for mode, r in runs.items():
+        check(r['launches'] == want, f'15 {path} {mode}: launches '
+              f'(B1, B2, B3) {r["launches"]}, expected {want}')
+        check(all(bool(torch.isfinite(x).all()) for x in r['logits']),
+              f'15 {path} {mode}: non-finite logits')
+    on = runs['f32 probs']
+    for ref in ('default', 'fp32'):
+        raw, agree, diff, _ = mask_agreement(on, runs[ref],
+                                             spec['size'])
+        check(agree > 0.999, f'15 {path}: f32 probs against {ref}: masks '
+              f'agree on {agree:.6f} with ties excused ({raw:.6f} raw)')
+        print(f'probs 15a {path}: f32 probs against {ref}: masks agree on '
+              f'{raw:.6f} of pixels, {agree:.6f} with ties excused, largest '
+              f'|logit diff| {diff:.4e}')
+    for mode, r in runs.items():
+        err = ''
+        if mode != 'fp32':
+            raw, _, worst, mean = mask_agreement(r, runs['fp32'],
+                                                 spec['size'])
+            err = (f', |logit - fp32 logit| largest {worst:.4e}, mean '
+                   f'{mean:.4e}, masks equal to fp32\'s on {raw:.6f}')
+        c = r['census']
+        print(f'probs 15a {path} {mode} {spec["size"][0]}x'
+              f'{spec["size"][1]} streams=1: p50 frame '
+              f'{statistics.median(r["ms"]):.3f} ms ({PROBS_FRAMES} frames), '
+              f'device busy {c["busy_ms"]:.3f} ms a frame (census of '
+              f'{PROBS_CENSUS}), peak memory {r["peak"]:.3f} GiB, launches '
+              f'(B1, B2, B3) {r["launches"]}{err}')
+    print(f'probs 15a {path}: ok in {time.time() - t0:.1f} s')
+    return on['launches']
+
+
+def probs_grads(torch, mode: str) -> tuple:
+    """(loss, trainable leaves' gradients) of one r50_deaotl episode at
+    129x129, T=5 (9a's clip and weights, every rate 0, no id shuffle) in
+    `mode` (PROBS_MODES; the bf16 ones in AMP)."""
+    from dataclasses import replace
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.engine.train_engine import TrainEngine
+    from rmem_ocu_tpu_torch.models.vos_model import zero_dropout
+    from rmem_ocu_tpu_torch.train import optim
+    exp = replace(get_config('pre_vost_2', model='r50_deaotl',
+                             latter_mem_len=2, data_seq_len=5,
+                             train_lstt_droppath=0.0,
+                             train_amp=mode != 'fp32'),
+                  train_long_term_mem_gap=1)
+    frames, masks = train_clip(1, 5, (129, 129), seed=21)
+    with probs_mode(torch, mode):
+        model = zero_dropout(build_vos_model(exp.model, seed=0,
+                                             exp=exp)).train()
+        loss, _ = TrainEngine(model, exp).episode_loss(
+            torch.from_numpy(frames), torch.from_numpy(masks),
+            torch.tensor([N_OBJ]), 1000, None, enable_id_shuffle=False)
+        loss.backward()
+    frozen = optim.make_masks(dict(model.named_parameters()), exp).frozen
+    return float(loss.detach()), {n: p.grad.detach().float()
+                                  for n, p in model.named_parameters()
+                                  if not frozen[n]}
+
+
+def probs_recipe_steps(torch, mode: str) -> dict:
+    """Two r50_deaotl steps at the recipe shape (465x465, T=17, gap 4,
+    B=2, bf16 AMP, remat 'full'; 9b's B=2 clip and weights) in `mode`
+    ('default' or 'f32 probs'): each step's CUDA-event ms, the losses,
+    the last grad norm and the peak memory above what was held before the
+    model was built."""
+    from dataclasses import replace
+    from rmem_ocu_tpu_torch import build_vos_model, get_config
+    from rmem_ocu_tpu_torch.train.trainer import Trainer
+    exp = replace(get_config('pre_vost_2', model='r50_deaotl',
+                             train_amp=True), train_remat_policy='full')
+    frames, masks = train_clip(2, exp.data_seq_len, exp.data_randomcrop,
+                               seed=2)
+    out = {'ms': [], 'losses': []}
+    with probs_mode(torch, mode):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(build_vos_model(exp.model, seed=0, exp=exp), exp)
+        state = trainer.init_state()
+        batch = {'frames': torch.from_numpy(frames).cuda(),
+                 'masks': torch.from_numpy(masks).cuda(),
+                 'obj_nums': torch.full((2,), N_OBJ, device='cuda')}
+        gen = torch.Generator().manual_seed(7)
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = trainer.train_step(state, batch, gen)
+            end.record()
+            end.synchronize()
+            out['ms'].append(start.elapsed_time(end))
+            out['losses'].append(float(metrics['loss']))
+        out['peak'] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        out['grad_norm'] = float(metrics['grad_norm'])
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_probs_training(torch, default_step: dict) -> tuple:
+    """15(b): r50_deaotl at the recipe shape (465x465, T=17, gap 4, B=2,
+    bf16 AMP, remat 'full'), one warm-up and one timed step at the default
+    and with RMEM_BF16_PROBS=0, beside 9b's default B=2 step
+    (`default_step`); then the 129x129, T=5 episode in bf16 AMP at the
+    default and with the switch, each leaf's gradient cosine to the fp32
+    episode's. Gates: no kernel launched, finite losses and gradients.
+    Returns the launches."""
+    t0 = time.time()
+    reset_counts()
+    for mode in ('default', 'f32 probs'):
+        r = probs_recipe_steps(torch, mode)
+        check(all(np.isfinite(r['losses'])) and np.isfinite(r['grad_norm'])
+              and r['grad_norm'] > 0, f'15b {mode}: losses {r["losses"]}, '
+                                      f'grad norm {r["grad_norm"]}')
+        print(f'probs 15b r50_deaotl B=2 remat=full 465x465 T=17 gap 4, '
+              f'bf16 AMP, {mode}: step {r["ms"][1]:.1f} ms (after 1 '
+              f'warm-up, {r["ms"][0]:.1f}), peak memory {r["peak"]:.3f} GiB '
+              f'above the start, losses {[round(x, 4) for x in r["losses"]]}, '
+              f'grad norm {r["grad_norm"]:.3f}; 9b default: step '
+              f'{default_step["ms"]:.1f} ms, peak memory '
+              f'{default_step["peak"]:.3f} GiB')
+    loss32, g32 = probs_grads(torch, 'fp32')
+    cos = lambda a, b: float((a * b).sum() / (a.norm() * b.norm())
+                             .clamp_min(1e-30))
+    result = {}
+    for mode in ('default', 'f32 probs'):
+        loss, g = probs_grads(torch, mode)
+        check(np.isfinite(loss) and all(bool(torch.isfinite(x).all())
+                                        for x in g.values()),
+              f'15b 129x129 {mode}: non-finite loss or gradient')
+        result[mode] = {n: cos(g[n], g32[n]) for n in g32
+                        if float(g32[n].norm()) > 0}
+        c = sorted(result[mode].items(), key=lambda kv: kv[1])
+        print(f'probs 15b r50_deaotl 129x129 T=5 bf16 AMP {mode}: loss '
+              f'{loss:.6f} (fp32 {loss32:.6f}); gradient cosine to fp32 '
+              f'over {len(c)} leaves: lowest {c[0][1]:.6f} ({c[0][0]}), '
+              f'median {statistics.median(v for _, v in c):.6f}, '
+              f'{sum(v < 0.99 for _, v in c)} below 0.99')
+    closer = sum(result['f32 probs'][n] > result['default'][n]
+                 for n in result['default'])
+    counts = read_counts()
+    check(counts == (0, 0, 0), f'15b: training launched kernels {counts}')
+    print(f'probs 15b: the f32-probs gradient lies closer to fp32 than the '
+          f'default on {closer} of {len(result["default"])} leaves; '
+          f'launches (B1, B2, B3) {counts}; ok in {time.time() - t0:.1f} s')
+    return counts
+
+
+def phase_probs(torch, smi: str, default_step: dict) -> dict:
+    """15: RMEM_BF16_PROBS=0 on the card, serving (15a) and training
+    (15b). Returns the launches by run."""
+    print(f'probs 15 on {smi}')
+    counts = {f'probs_{path}': phase_probs_serving(torch, path)
+              for path in PROBS_PATHS}
+    counts['probs_train'] = phase_probs_training(torch, default_step)
+    return counts
 
 
 def print_resources(logs) -> None:
@@ -3117,6 +3457,19 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.time()
+    marks, laps = [t_start], [t_start]
+
+    def done(phase: int) -> None:
+        """The end of a phase: seconds since the start and its own."""
+        marks.append(time.time())
+        laps.append(marks[-1])
+        print(f'phase {phase} done at {marks[-1] - t_start:.1f} s '
+              f'({marks[-1] - marks[-2]:.1f} s)')
+
+    def lap(part: str) -> None:
+        """The end of a part of a phase: its seconds."""
+        laps.append(time.time())
+        print(f'part {part}: {laps[-1] - laps[-2]:.1f} s')
     from rmem_ocu_tpu_torch.utils.profiling import card_line
     smi = card_line('cuda')
     print(f'device: {smi}; torch {torch.__version__}, CUDA '
@@ -3128,10 +3481,10 @@ def main() -> int:
     print_resources(build.BUILD_LOGS)
 
     rows = phase_kernels(torch)
-    print(f'phase 3 done at {time.time() - t_start:.1f} s')
+    done(3)
     for path in PATHS:
         phase_engine_fp32(torch, path)
-    print(f'phase 4 done at {time.time() - t_start:.1f} s')
+    done(4)
     counts, main_runs = {}, {}
     # phase 5's trace of deaot_1head at 1 stream, read by phase 14 (removed
     # at exit also when a phase fails)
@@ -3139,64 +3492,83 @@ def main() -> int:
     trace_dir = traces.name
     runs = [(path, batch) for path in PATHS
             for batch in spec_of(path)['streams']]
+    live = {}
     for path, batch in runs:
-        main_runs[(path, batch)] = phase_main_path(torch, path, batch)
+        *main_runs[(path, batch)], live[(path, batch)] = phase_main_path(
+            torch, path, batch)
         if batch == 1:
             counts[path] = main_runs[(path, batch)][0]
+    lap('5 timed runs')
     for run in runs:
-        main_runs[run] += (main_path_census(
-            torch, *run, trace_dir if run == ('deaot_1head', 1) else None),)
-    print(f'phase 5 done at {time.time() - t_start:.1f} s')
+        main_runs[run].append(main_path_census(
+            torch, *run, trace_dir if run == ('deaot_1head', 1) else None,
+            live.pop(run)))
+    torch.cuda.empty_cache()
+    done(5)
     with tempfile.TemporaryDirectory() as tmp:
         phase_eval_fp32(torch, os.path.join(tmp, 'fp32'))
+        lap('6 eval fp32')
         counts['eval_bf16'] = phase_eval_bf16(torch, os.path.join(tmp,
                                                                   'bf16'))
+        lap('7 eval bf16')
         phase_eval_cli(os.path.join(tmp, 'cli'))
-        print(f'phase 7 done at {time.time() - t_start:.1f} s')
+        done(7)
         counts['oracle_bf16'] = phase_oracle(torch, os.path.join(tmp,
                                                                  'oracle'))
-    print(f'phase 8 done at {time.time() - t_start:.1f} s')
+    done(8)
     counts['training_fp32'] = phase_training_fp32(torch)
-    trained = phase_training_bf16(torch)
+    lap('9a')
+    trained, default_step = phase_training_bf16(torch)
+    lap('9b')
     check(trained is not None, 'the batch-2 training run did not finish')
     counts['after_training'] = phase_after_training(torch, trained)
-    print(f'phase 9 done at {time.time() - t_start:.1f} s')
+    done(9)
     del trained
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         counts['pipeline_eval'], pipeline_ms = phase_pipeline(torch, tmp)
-        print(f'phase 10 done at {time.time() - t_start:.1f} s')
+        done(10)
         counts['dp_two_ranks'], dp_one = phase_dp_two_ranks(torch, tmp)
+        lap('11a')
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
             data = os.path.join(tmp, 'data')
             counts['dp_cli'], result = phase_dp_cli(torch, tmp, data,
                                                     pipeline_ms)
+            lap('11b')
             counts['dp_eval'], eval_one, one_counts = phase_dp_eval(
                 torch, tmp, data, result, counts['pipeline_eval'])
-            print(f'phase 11 done at {time.time() - t_start:.1f} s')
+            done(11)
             tp_rows = phase_tp_kernels(torch, rows)
+            lap('12a')
             tp_counts, tp_train = phase_tp_serving(torch, tmp, dp_one)
+            lap('12b and 12d trainer')
             counts.update(tp_counts)
             counts.update(phase_tp_cli(torch, tmp, data, result, eval_one,
                                        one_counts))
-            print(f'phase 12 done at {time.time() - t_start:.1f} s')
+            done(12)
             # 13c's and 13d's one process runs while the ranks train
             ones = {}
             ranks = spatial_ranks(torch, tmp, meanwhile=lambda: ones.update(
                 {part: sp_one_process(torch, part)
                  for part in ('13c', '13d')}))
+            lap('13 ranks')
+            print('part 13 on rank 0, in its pair: ' + ', '.join(
+                f'{k[1]} {v:.1f} s' for k, v in ranks[0].items()
+                if isinstance(k, tuple) and k[0] == 'seconds'))
             counts.update(phase_spatial(torch, ranks, dp_one, tp_train))
             counts.update(phase_spatial_encoders(torch, ranks, ones['13c']))
             counts.update(phase_spatial_swin(torch, ranks, ones['13d']))
             del ranks, ones
         finally:
             os.chdir(cwd)
-    print(f'phase 13 done at {time.time() - t_start:.1f} s')
+    done(13)
     census_ms = phase_census(torch, rows, main_runs, trace_dir)
     traces.cleanup()
-    print(f'phase 14 done at {time.time() - t_start:.1f} s')
+    done(14)
+    counts.update(phase_probs(torch, smi, default_step))
+    done(15)
 
     kernels = []
     for (name, src, replaces, row_name, idx, path), group in zip(

@@ -10,10 +10,11 @@ patch-merging concatenation keep their order; the outputs are NCHW.
 The window attention is plain torch ops in the JAX order: q scaled in its
 dtype, Q.K^T, the relative bias plus the shifted-window mask (additive
 -100, not -inf), an f32 softmax, P.V. On bf16 inputs the logits and the
-probabilities are stored in bf16 around the f32 softmax, as in the JAX
-package. The MLP's GELU is the exact erf form on f32 and the tanh form on
-bf16. nn.LayerNorm reduces bf16 input in f32 and rounds once, as flax's
-LayerNorm does.
+probabilities are stored in bf16 around the f32 softmax by default, as in
+the JAX package; `RMEM_BF16_PROBS=0` keeps them in f32, the bias and mask
+then added in f32 (ops/attention.py's `bf16_probs`). The MLP's GELU is the
+exact erf form on f32 and the tanh form on bf16. nn.LayerNorm reduces bf16
+input in f32 and rounds once, as flax's LayerNorm does.
 
 Under spatial sharding (parallel/spatial.py) the encoder runs on a band
 of the image's rows. The patch embedding, the merges, the norms and the
@@ -31,8 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rmem_ocu_tpu_torch.ops.attention import _compact
-from rmem_ocu_tpu_torch.ops.layers import EPS, scale_in_dtype
+from rmem_ocu_tpu_torch.ops.attention import _compact, qk_logits
+from rmem_ocu_tpu_torch.ops.layers import EPS
 from rmem_ocu_tpu_torch.parallel import spatial
 
 
@@ -87,8 +88,7 @@ class WindowAttention(nn.Module):
         heads, hd = self.num_heads, self.dim // self.num_heads
         q, k, v = (t.reshape(b, n, heads, hd).transpose(1, 2)
                    for t in self.qkv(x).chunk(3, dim=-1))
-        # a bf16 matmul accumulates in f32 and rounds once on write
-        logits = scale_in_dtype(q, hd ** -0.5) @ k.transpose(-1, -2)
+        logits = qk_logits(q, k, hd ** -0.5)
         bias = self.relative_position_bias_table[
             self.relative_position_index].reshape(n, n, heads)
         extra = bias.permute(2, 0, 1)[None]                  # [1, H, N, N]

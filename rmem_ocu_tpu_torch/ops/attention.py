@@ -31,13 +31,21 @@ same channels), so that every rank computes the same probabilities, and
 the same eviction mass, with no collective but the gather of the query.
 
 bf16 storage policy (the JAX package's `_qk_out_dtype` /
-`_maybe_compact_logits` at their default): on bf16 inputs the QK logits are
+`_maybe_compact_logits`): by default, on bf16 inputs the QK logits are
 emitted in bf16 and the probabilities are stored in bf16; the softmax
-arithmetic is f32. f32 inputs keep f32 throughout.
+arithmetic is f32. f32 inputs keep f32 throughout. `RMEM_BF16_PROBS=0`
+(or `false`, `False`), read at each call as the JAX package reads it at
+each trace, keeps the logits and probabilities of bf16 inputs in f32
+storage at the plain attention sites: `scaled_dot_attention`,
+`GatedPropagation.multi_value_call`, `LocalGatedPropagation._dense_core`
+and Swin's `WindowAttention`. The PV product still reads the
+probabilities in the values' dtype. The kernels B1, B2 and B3 ignore the
+switch, as the JAX package's Pallas kernels do.
 """
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -82,11 +90,35 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, h * d)
 
 
+def bf16_probs() -> bool:
+    """Whether bf16 attention stores its logits and probabilities in bf16:
+    true unless RMEM_BF16_PROBS is '0', 'false' or 'False' (the JAX
+    package's values), read at each call."""
+    return os.environ.get('RMEM_BF16_PROBS', '1') not in ('0', 'false',
+                                                          'False')
+
+
 def _compact(x: torch.Tensor, in_dtype: torch.dtype) -> torch.Tensor:
-    """bf16 storage of logits/probs on bf16 inputs."""
-    if in_dtype == torch.bfloat16 and x.dtype != torch.bfloat16:
+    """bf16 storage of logits/probs on bf16 inputs (unless bf16_probs()
+    is off)."""
+    if (in_dtype == torch.bfloat16 and x.dtype != torch.bfloat16
+            and bf16_probs()):
         return x.to(torch.bfloat16)
     return x
+
+
+def qk_logits(q: torch.Tensor, k: torch.Tensor, scale: float
+              ) -> torch.Tensor:
+    """(q * scale) @ k^T over the last two axes, the scale applied in q's
+    dtype. A bf16 matmul accumulates in f32 and rounds once on write; with
+    bf16_probs() off the bf16 operands are upcast after the scale, so the
+    logits are the same sums emitted in f32 (a bf16 value is exact in f32
+    and in TF32, whose 10-bit mantissa is wider than bf16's 7, and the
+    product of two is exact in f32)."""
+    q = scale_in_dtype(q, scale)
+    if q.dtype == torch.bfloat16 and not bf16_probs():
+        q, k = q.float(), k.float()
+    return q @ k.transpose(-1, -2)
 
 
 def scaled_dot_attention(q, k, v, num_heads: int,
@@ -105,8 +137,7 @@ def scaled_dot_attention(q, k, v, num_heads: int,
     vh = split_heads(v, num_heads)
     if scale is None:
         scale = qh.shape[-1] ** -0.5
-    # a bf16 matmul accumulates in f32 and rounds once on write
-    logits = scale_in_dtype(qh, scale) @ kh.transpose(-1, -2)
+    logits = qk_logits(qh, kh, scale)
     if key_bias is not None:
         logits = logits + key_bias.to(logits.dtype)
     probs = _compact(torch.softmax(logits.float(), dim=-1), q.dtype)
@@ -273,7 +304,7 @@ class GatedPropagation(nn.Module):
         the keys' T slots when mass_capacity=T, else None)."""
         if self.num_heads != 1:
             raise ValueError('shared-probs split requires one head')
-        logits = scale_in_dtype(q, self.att_dim ** -0.5) @ k.transpose(1, 2)
+        logits = qk_logits(q, k, self.att_dim ** -0.5)
         if key_bias is not None:
             logits = logits + key_bias.reshape(
                 key_bias.shape[0], 1, -1).to(logits.dtype)
@@ -385,11 +416,10 @@ class LocalGatedPropagation(nn.Module):
             return tokens_from_2d(F.pad(tokens_to_2d(x, size_2d),
                                         (md, md, md, md)))
 
-        qh = scale_in_dtype(split_heads(q, self.num_heads),
-                            self.d_att ** -0.5)
         kh = split_heads(padded(k), self.num_heads)
         vh = split_heads(padded(v), self.num_heads)
-        logits = qh @ kh.transpose(-1, -2)
+        logits = qk_logits(split_heads(q, self.num_heads), kh,
+                           self.d_att ** -0.5)
         bias = torch.gather(F.pad(rel, (0, 1)), 3,          # sentinel -> 0
                             idx.expand(b, self.num_heads, -1, -1))
         extra = bias + torch.where(inside, 0.0, NEG_INF).to(bias.dtype)

@@ -775,3 +775,128 @@ def test_spatial_over_nccl_trains_as_one(tmp_path):
         tmp_path, [dict(name='nccl14', model='r50_deaotl', steps=2, batch=2,
                         capture=True, remat='full', overrides=sp,
                         size=113)], 4, 4, None, 'nccl')
+
+
+def _switch_sites(name):
+    """(module or None, activations (bf16), key bias or window mask
+    (f32), call(module, activations, extras), whether its last output is
+    the f32 eviction mass) of one of the four plain attention sites that
+    RMEM_BF16_PROBS=0 keeps in f32 storage, at small shapes, weights from
+    a seed."""
+    from rmem_ocu_tpu_torch.models.encoders.swin import (
+        WindowAttention, shifted_window_mask)
+    from rmem_ocu_tpu_torch.ops.attention import (GatedPropagation,
+                                                  LocalGatedPropagation,
+                                                  scaled_dot_attention)
+    torch.manual_seed(0)
+    rng = np.random.RandomState(11)
+    r = lambda *s: rng.randn(*s).astype(np.float32)
+    bias = np.where(rng.rand(2, 1, 1, 90) < 0.2, -1e9, 0.0).astype(
+        np.float32)
+    if name == 'scaled_dot_attention':
+        return (None, (r(2, 30, 32), r(2, 90, 32), r(2, 90, 48)), (bias,),
+                lambda m, x, e: scaled_dot_attention(
+                    *x, 2, key_bias=e[0], mass_capacity=3), True)
+    if name == 'multi_value_call':
+        mod = GatedPropagation(d_qk=48, d_vu=24, num_heads=1, d_att=16,
+                               use_linear=False).eval()
+        return (mod, (r(2, 30, 16), r(2, 90, 16), r(2, 90, 24),
+                      r(2, 90, 24), r(2, 30, 48)), (bias,),
+                lambda m, x, e: m.multi_value_call(
+                    x[0], x[1], [x[2], x[3]], x[4], (5, 6), key_bias=e[0],
+                    mass_capacity=3), True)
+    if name.startswith('local'):
+        heads = 2 if name == 'local_2heads_eval' else 1
+        mod = LocalGatedPropagation(d_qk=32 * heads, d_vu=16,
+                                    num_heads=heads, max_dis=7, d_att=16)
+        mod.dw_conv.dropout = 0.0
+        mod.train(name == 'local_1head_train')
+        return (mod, (r(2, 154, 16 * heads), r(2, 154, 16 * heads),
+                      r(2, 154, 32), r(2, 154, 32)), (),
+                lambda m, x, e: (m(*x, (11, 14)),), False)
+    mod = WindowAttention(64, 7, 4).eval()
+    with torch.no_grad():
+        mod.relative_position_bias_table.normal_()
+    mask = (shifted_window_mask(14, 14, 7, 3),) if name == 'window_shifted' \
+        else ()
+    return mod, (r(8, 49, 64),), mask, lambda m, x, e: (m(*x, *e),), False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', [
+    'scaled_dot_attention', 'multi_value_call', 'local_2heads_eval',
+    'local_1head_train', 'window', 'window_shifted'])
+def test_switch_sites_on_the_card_match_the_cpu(name, monkeypatch):
+    """Each plain attention site in bf16 with RMEM_BF16_PROBS=0 on the card
+    against the same module on the CPU with the switch: outputs within two
+    bf16 ulps of their largest (at least 1) plus 2% of their RMS, the
+    mass within 1e-5, and each closer on average than the CPU at the
+    default (the card followed the switch). No kernel launches: these are
+    the plain sites."""
+    dev = _cuda()
+    mod, acts, extras, call, with_mass = _switch_sites(name)
+
+    def run(device, value):
+        if value is None:
+            monkeypatch.delenv('RMEM_BF16_PROBS', raising=False)
+        else:
+            monkeypatch.setenv('RMEM_BF16_PROBS', value)
+        x = [torch.from_numpy(a).to(device, torch.bfloat16) for a in acts]
+        e = [torch.from_numpy(a).to(device) for a in extras]
+        m = None if mod is None else mod.to(device, torch.bfloat16)
+        with torch.no_grad():
+            return [o.float().cpu() for o in call(m, x, e)]
+    counts = lambda: (memory_read_fused.launches,
+                      local_window_attention.launches,
+                      memory_read_attention.launches)
+    before = counts()
+    got = run(dev, '0')
+    assert counts() == before
+    want, default = run('cpu', '0'), run('cpu', None)
+    for i, (g, w, w0) in enumerate(zip(got, want, default)):
+        if with_mass and i == len(got) - 1:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+        else:
+            rms = float(w.square().mean().sqrt())
+            bar = 2 * 2.0 ** -8 * max(1.0, float(w.abs().max())) + 0.02 * rms
+            assert float((g - w).abs().max()) <= bar, (name, i)
+        assert float((g - w).abs().mean()) < float((g - w0).abs().mean()), \
+            (name, i)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_ignore_the_switch_on_the_card(monkeypatch):
+    """B1, B2 and B3 on the card give bit-identical results with
+    RMEM_BF16_PROBS=0 and unset, launching the same kernels."""
+    dev = _cuda()
+    t = lambda x: torch.from_numpy(x).to(dev, torch.bfloat16)
+    q, k, vs, valid, pe, scale = _b1_inputs(1, 2, True)
+    b1 = (t(q), t(k), tuple(t(v) for v in vs),
+          torch.from_numpy(valid).to(dev), 1, scale)
+    q3, k3, v3, id_v3, valid3, scale3 = _b3_inputs(2)
+    b3 = (t(q3), t(k3), (t(v3), t(id_v3)), torch.from_numpy(valid3).to(dev),
+          2, scale3)
+    rng = np.random.RandomState(5)
+    b2 = (t(rng.randn(2, 154, 32).astype(np.float32) / 32 ** 0.5),
+          t(rng.randn(2, 154, 32).astype(np.float32)),
+          t(rng.randn(2, 154, 48).astype(np.float32)),
+          torch.from_numpy(rng.randn(2, 154, 225).astype(np.float32)).to(dev),
+          (11, 14), 7, False)
+    counts = lambda: (memory_read_fused.launches,
+                      local_window_attention.launches,
+                      memory_read_attention.launches)
+
+    def run():
+        before = counts()
+        (o1, o2), m1 = memory_read_fused(*b1, mem_pe=t(pe))
+        o3, m3 = memory_read_multihead(*b3)
+        o4 = local_window_attention(*b2)
+        return [o1, o2, m1, o3, m3, o4], tuple(
+            a - b for a, b in zip(counts(), before))
+    monkeypatch.delenv('RMEM_BF16_PROBS', raising=False)
+    default, n_default = run()
+    monkeypatch.setenv('RMEM_BF16_PROBS', '0')
+    switched, n_switched = run()
+    assert n_default == n_switched == (2, 1, 2)
+    for a, b in zip(default, switched):
+        assert torch.equal(a, b)
