@@ -644,20 +644,17 @@ def expected_counts(path: str, n_frames: int, n_reference: int = 1):
 
 
 def reset_counts():
-    from rmem_ocu_tpu_torch.ops.kernels import (local_attn, memory_read,
-                                                memory_read_mh)
-    memory_read.memory_read_fused.launches = 0
-    local_attn.local_window_attention.launches = 0
-    memory_read_mh.memory_read_attention.launches = 0
+    """Empties the program's counters (and spans)."""
+    from rmem_ocu_tpu_torch.utils import tracing
+    tracing.clear()
 
 
 def read_counts():
     """Launches of (B1, B2, B3) since reset_counts()."""
-    from rmem_ocu_tpu_torch.ops.kernels import (local_attn, memory_read,
-                                                memory_read_mh)
-    return (memory_read.memory_read_fused.launches,
-            local_attn.local_window_attention.launches,
-            memory_read_mh.memory_read_attention.launches)
+    from rmem_ocu_tpu_torch.utils import tracing
+    counts = tracing.counters()
+    return tuple(counts.get(f'kernels.{k}.launches', 0)
+                 for k in ('b1', 'b2', 'b3'))
 
 
 def phase_engine_fp32(torch, path: str):

@@ -13,7 +13,9 @@ owns its weights):
     state = engine.update_memory(state, pred)
 
 Each call updates `state` IN PLACE (bank slot writes, new per-frame
-tensors) and returns it.
+tensors) and returns it. Under torch.profiler each call and its parts
+are spans (`utils/tracing.py`, which lists them), and bank writes and
+evictions are counted.
 
 A model cut into a rank's shard of a model group (parallel/tp.py
 `shard_model`) runs unchanged, every rank of the group calling the same
@@ -35,6 +37,7 @@ from rmem_ocu_tpu_torch.ops.idmask import label_to_one_hot
 from rmem_ocu_tpu_torch.ops.position import interpolated_memory_pe
 from rmem_ocu_tpu_torch.ops.resize import interpolate_bilinear
 from rmem_ocu_tpu_torch.parallel import dist
+from rmem_ocu_tpu_torch.utils import tracing
 from rmem_ocu_tpu_torch.utils.precision import compute_dtype_of
 
 UNUSED_ID_LOGIT = -1e10
@@ -169,48 +172,53 @@ class InferEngine:
         """img: [B, H, W, 3]; mask: int [B, H, W]; obj_nums: [B]. Re-adding
         a reference frame resets the memory (reference init_LSTT_memory,
         aot_engine.py:321-323) and the ConvGRU hidden states."""
-        membank.reset_bank(state.bank)
-        membank.reset_short_term(state.short)
-        state.pending_mass.zero_()
-        for hidden in (state.gru_hidden_k or []) + (state.gru_hidden_v or []):
-            hidden.zero_()
-        img = img.to(self.device, self.dtype)
-        # a mask-conditioned encoder sees the reference label too
-        # (reference aot_engine.py:157-160, 258-260)
-        xs = self.model.encode_image(
-            img, mask[..., None].to(self.device) if self.cfg.use_mask
-            else None)
-        b, _, h, w = xs[-1].shape
-        size_2d = (h, w)
-        id_emb = self._id_emb_from_label(mask, img.dtype)
-        tpe = self._temporal_pe(torch.ones(b, dtype=torch.long,
-                                           device=self.device))
-        if tpe is not None:
-            tpe = (tpe[0], tpe[1][:, :1])            # one virtual slot
-        inters, mems, _ = self.model.lstt_forward(
-            xs[-1], None, None, id_emb,
-            self._self_pos_emb(size_2d, img.dtype), size_2d, temporal_pe=tpe)
-        obj_nums = obj_nums.to(self.device)
-        logits = _mask_unused_ids(self.model.decode_id_logits(inters, xs),
-                                  obj_nums)
+        with tracing.span('add_reference_frame', state.frame_step):
+            membank.reset_bank(state.bank)
+            membank.reset_short_term(state.short)
+            state.pending_mass.zero_()
+            for hidden in ((state.gru_hidden_k or [])
+                           + (state.gru_hidden_v or [])):
+                hidden.zero_()
+            img = img.to(self.device, self.dtype)
+            # a mask-conditioned encoder sees the reference label too
+            # (reference aot_engine.py:157-160, 258-260)
+            xs = self.model.encode_image(
+                img, mask[..., None].to(self.device) if self.cfg.use_mask
+                else None)
+            b, _, h, w = xs[-1].shape
+            size_2d = (h, w)
+            id_emb = self._id_emb_from_label(mask, img.dtype)
+            tpe = self._temporal_pe(torch.ones(b, dtype=torch.long,
+                                               device=self.device))
+            if tpe is not None:
+                tpe = (tpe[0], tpe[1][:, :1])            # one virtual slot
+            inters, mems, _ = self.model.lstt_forward(
+                xs[-1], None, None, id_emb,
+                self._self_pos_emb(size_2d, img.dtype), size_2d,
+                temporal_pe=tpe)
+            obj_nums = obj_nums.to(self.device)
+            logits = _mask_unused_ids(
+                self.model.decode_id_logits(inters, xs), obj_nums)
 
-        def stack(key):
-            return [m[key] for m in mems]
-        long_k = stack('curr_k')
-        if self.is_deaot:
-            long_v, long_id_v = stack('curr_v'), stack('global_id_v_fused')
-            short_k, short_v, short_id_v = long_k, long_v, long_id_v
-        else:
-            long_v, long_id_v = stack('global_v_fused'), None
-            short_k, short_v, short_id_v = (stack('local_k'),
-                                            stack('local_v'), None)
-        membank.append_frame(state.bank, long_k, long_v, long_id_v,
-                             state.frame_step)
-        membank.push_short_term(state.short, short_k, short_v, short_id_v)
-        state.pred_logits_4x = logits
-        state.last_mem_step = state.frame_step
-        state.obj_nums = obj_nums
-        return state
+            def stack(key):
+                return [m[key] for m in mems]
+            long_k = stack('curr_k')
+            if self.is_deaot:
+                long_v = stack('curr_v')
+                long_id_v = stack('global_id_v_fused')
+                short_k, short_v, short_id_v = long_k, long_v, long_id_v
+            else:
+                long_v, long_id_v = stack('global_v_fused'), None
+                short_k, short_v, short_id_v = (stack('local_k'),
+                                                stack('local_v'), None)
+            membank.append_frame(state.bank, long_k, long_v, long_id_v,
+                                 state.frame_step)
+            tracing.count('bank.writes', b)
+            membank.push_short_term(state.short, short_k, short_v, short_id_v)
+            state.pred_logits_4x = logits
+            state.last_mem_step = state.frame_step
+            state.obj_nums = obj_nums
+            return state
 
     @torch.no_grad()
     def propagate(self, state: EngineState, img: torch.Tensor,
@@ -221,47 +229,51 @@ class InferEngine:
         [B, H, W, 1]; reference aot_engine.py:404-417); other models ignore
         it. Returns (logits [B, H4, W4, O+1], state)."""
         state.frame_step += 1
-        img = img.to(self.device, self.dtype)
-        xs = self.model.encode_image(
-            img, None if mask is None else mask.to(self.device))
-        _, _, h, w = xs[-1].shape
-        bank = state.bank
-        tpe = self._temporal_pe(bank.length, bank.pos)
-        short_k, short_v, short_id_v = state.short.read()
-        if self.is_deaot:
-            long_mem = (bank.k, bank.v, bank.id_v, bank.slot_valid)
-            short_mem = (short_k, short_v, short_id_v)
-        else:
-            long_mem = (bank.k, bank.v, bank.slot_valid)
-            short_mem = (short_k, short_v)
-        inters, mems, mass = self.model.lstt_forward(
-            xs[-1], long_mem, short_mem, None,
-            self._self_pos_emb((h, w), img.dtype), (h, w), temporal_pe=tpe,
-            need_mass=True)
-        logits = _mask_unused_ids(self.model.decode_id_logits(inters, xs),
-                                  state.obj_nums)
-        tp = self.model.tp
-        if tp.size > 1 and not self.is_deaot and mass is not None:
-            # the LSTT splits its heads: each rank's mass is the mean over
-            # its own, the same number of heads on every rank
-            dist.all_reduce_([mass], tp)
-            mass /= tp.size
-        state.pending_long_k = [m['curr_k'] for m in mems]
-        state.pending_long_v = [m['curr_v'] for m in mems]
-        if self.is_deaot:
-            d = self.cfg.encoder_embedding_dim
-            state.pending_short_k = state.pending_long_k
-            state.pending_short_v = state.pending_long_v
-            # layer 0 has no id branch input yet; its slot is never read
-            state.pending_id_v = [
-                m['curr_id_v'] if m['curr_id_v'] is not None
-                else torch.zeros_like(m['curr_v'][..., :d]) for m in mems]
-        else:
-            state.pending_short_k = [m['local_k'] for m in mems]
-            state.pending_short_v = [m['local_v'] for m in mems]
-        state.pending_mass = mass
-        state.pred_logits_4x = logits
-        return logits, state
+        with tracing.span('propagate', state.frame_step):
+            img = img.to(self.device, self.dtype)
+            with tracing.span('propagate/encode'):
+                xs = self.model.encode_image(
+                    img, None if mask is None else mask.to(self.device))
+            _, _, h, w = xs[-1].shape
+            with tracing.span('propagate/gpm'):
+                bank = state.bank
+                tpe = self._temporal_pe(bank.length, bank.pos)
+                short_k, short_v, short_id_v = state.short.read()
+                if self.is_deaot:
+                    long_mem = (bank.k, bank.v, bank.id_v, bank.slot_valid)
+                    short_mem = (short_k, short_v, short_id_v)
+                else:
+                    long_mem = (bank.k, bank.v, bank.slot_valid)
+                    short_mem = (short_k, short_v)
+                inters, mems, mass = self.model.lstt_forward(
+                    xs[-1], long_mem, short_mem, None,
+                    self._self_pos_emb((h, w), img.dtype), (h, w),
+                    temporal_pe=tpe, need_mass=True)
+                tp = self.model.tp
+                if tp.size > 1 and not self.is_deaot and mass is not None:
+                    # the LSTT splits its heads: each rank's mass is the mean
+                    # over its own, the same number of heads on every rank
+                    dist.all_reduce_([mass], tp)
+                    mass /= tp.size
+            with tracing.span('propagate/decode'):
+                logits = _mask_unused_ids(
+                    self.model.decode_id_logits(inters, xs), state.obj_nums)
+            state.pending_long_k = [m['curr_k'] for m in mems]
+            state.pending_long_v = [m['curr_v'] for m in mems]
+            if self.is_deaot:
+                d = self.cfg.encoder_embedding_dim
+                state.pending_short_k = state.pending_long_k
+                state.pending_short_v = state.pending_long_v
+                # layer 0 has no id branch input yet; its slot is never read
+                state.pending_id_v = [
+                    m['curr_id_v'] if m['curr_id_v'] is not None
+                    else torch.zeros_like(m['curr_v'][..., :d]) for m in mems]
+            else:
+                state.pending_short_k = [m['local_k'] for m in mems]
+                state.pending_short_v = [m['local_v'] for m in mems]
+            state.pending_mass = mass
+            state.pred_logits_4x = logits
+            return logits, state
 
     @torch.no_grad()
     def update_memory(self, state: EngineState, mask: torch.Tensor
@@ -270,48 +282,56 @@ class InferEngine:
         short-term memory every frame and, every `mem_gap` frames, appends
         to the long-term bank and evicts once over budget (reference
         aot_engine.py:327-369, transformer.py:269-436)."""
-        cfg = self.cfg
-        bank = state.bank
-        id_emb = self._id_emb_from_label(mask, bank.k[0].dtype)
-        per_layer = []
-        for idx in range(cfg.lstt_num):
-            m = dict(curr_k=state.pending_long_k[idx],
-                     curr_v=state.pending_long_v[idx],
-                     local_k=state.pending_short_k[idx],
-                     local_v=state.pending_short_v[idx])
-            if self.is_deaot:
-                m['curr_id_v'] = (None if idx == 0
-                                  else state.pending_id_v[idx])
-            per_layer.append(m)
-        fused = self.model.fuse_memory_values(per_layer, id_emb)
+        with tracing.span('update_memory', state.frame_step):
+            cfg = self.cfg
+            bank = state.bank
+            with tracing.span('update_memory/fuse'):
+                id_emb = self._id_emb_from_label(mask, bank.k[0].dtype)
+                per_layer = []
+                for idx in range(cfg.lstt_num):
+                    m = dict(curr_k=state.pending_long_k[idx],
+                             curr_v=state.pending_long_v[idx],
+                             local_k=state.pending_short_k[idx],
+                             local_v=state.pending_short_v[idx])
+                    if self.is_deaot:
+                        m['curr_id_v'] = (None if idx == 0
+                                          else state.pending_id_v[idx])
+                    per_layer.append(m)
+                fused = self.model.fuse_memory_values(per_layer, id_emb)
 
-        def stack(key):        # the id_v entries are None for AOT
-            return [f[key] for f in fused]
-        membank.push_short_term(state.short, stack('short_k'),
-                                stack('short_v'), stack('short_id_v'))
-        if cfg.no_long_memory:
+            def stack(key):        # the id_v entries are None for AOT
+                return [f[key] for f in fused]
+            with tracing.span('update_memory/short_push'):
+                membank.push_short_term(state.short, stack('short_k'),
+                                        stack('short_v'), stack('short_id_v'))
+            if cfg.no_long_memory:
+                return state
+            if state.frame_step - state.last_mem_step < state.mem_gap:
+                return state
+            with tracing.span('update_memory/bank_append'):
+                membank.append_frame(bank, stack('long_k'), stack('long_v'),
+                                     stack('long_id_v'), state.frame_step)
+                tracing.count('bank.writes', mask.shape[0])
+                over = bank.length > cfg.former_mem_len + cfg.latter_mem_len
+            with tracing.span('update_memory/bank_score'):
+                # GPM scores on every long-term write (reference
+                # transformer.py:880-964 has no early return), LSTT only once
+                # over budget (:332-334)
+                drop_idx = membank.eviction_scores_and_update(
+                    bank, state.pending_mass,
+                    fg_proba=self._foreground_proba(state),
+                    gru_memory=cfg.gru_memory,
+                    enabled=None if self.is_deaot else over,
+                    former_len=cfg.former_mem_len)
+            with tracing.span('update_memory/bank_evict'):
+                compressed = None
+                if cfg.gru_memory and not self.is_deaot:
+                    compressed = self._compress_evicted(state, drop_idx, over)
+                membank.evict_frame(bank, drop_idx, enabled=over,
+                                    compressed_kv=compressed)
+                tracing.count('bank.evictions', over)
+            state.last_mem_step = state.frame_step
             return state
-        if state.frame_step - state.last_mem_step < state.mem_gap:
-            return state
-        membank.append_frame(bank, stack('long_k'), stack('long_v'),
-                             stack('long_id_v'), state.frame_step)
-        over = bank.length > cfg.former_mem_len + cfg.latter_mem_len
-        # GPM scores on every long-term write (reference
-        # transformer.py:880-964 has no early return), LSTT only once over
-        # budget (:332-334)
-        drop_idx = membank.eviction_scores_and_update(
-            bank, state.pending_mass,
-            fg_proba=self._foreground_proba(state),
-            gru_memory=cfg.gru_memory,
-            enabled=None if self.is_deaot else over,
-            former_len=cfg.former_mem_len)
-        compressed = None
-        if cfg.gru_memory and not self.is_deaot:
-            compressed = self._compress_evicted(state, drop_idx, over)
-        membank.evict_frame(bank, drop_idx, enabled=over,
-                            compressed_kv=compressed)
-        state.last_mem_step = state.frame_step
-        return state
 
     def _compress_evicted(self, state: EngineState, drop_idx: torch.Tensor,
                           over: torch.Tensor):
@@ -354,6 +374,7 @@ class InferEngine:
                      output_size: Tuple[int, int]) -> torch.Tensor:
         """Upsample [B, H4, W4, C] logits to output_size and argmax
         (reference aot_engine.py:467-483). Returns int64 [B, H, W]."""
-        logits = interpolate_bilinear(logits_4x.permute(0, 3, 1, 2),
-                                      output_size, self.cfg.align_corners)
-        return logits.argmax(dim=1)
+        with tracing.span('predict_mask'):
+            logits = interpolate_bilinear(logits_4x.permute(0, 3, 1, 2),
+                                          output_size, self.cfg.align_corners)
+            return logits.argmax(dim=1)

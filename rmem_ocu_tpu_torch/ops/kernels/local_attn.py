@@ -24,6 +24,7 @@ from rmem_ocu_tpu_torch.ops.kernels import build
 from rmem_ocu_tpu_torch.ops.kernels.memory_read import (_mm, read_operands,
                                                         refuse_autograd)
 from rmem_ocu_tpu_torch.ops.layers import tokens_from_2d, tokens_to_2d
+from rmem_ocu_tpu_torch.utils import tracing
 
 NEG_INF = -1e8
 MAX_HEAD_DIM = 128
@@ -132,7 +133,7 @@ def _launch(q, k, v, rel, size_2d, max_dis, precise):
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'local_attn kernel launch failed: CUDA error {rc}')
-    local_window_attention.launches += 1
+    tracing.count('kernels.b2.launches')
     return out
 
 
@@ -152,6 +153,3 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor,
         return local_window_attention_plain(q, k, v, rel, size_2d, max_dis,
                                             precise)
     return _launch(q, k, v, rel, size_2d, max_dis, precise)
-
-
-local_window_attention.launches = 0

@@ -7,8 +7,9 @@ falls back from a CUDA tensor. `memory_read_fused_plain` is the plain
 version for any device, the reference the kernel is held to.
 
 On the card the bf16 read is two launches, the read split over slots and
-the combine that merges the splits and yields the mass; the launch
-counter `memory_read_fused.launches` counts both (one for `precise`).
+the combine that merges the splits and yields the mass; the counter
+`kernels.b1.launches` (`utils/tracing.py`) counts both (one for
+`precise`).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from rmem_ocu_tpu_torch.ops.kernels import build
 from rmem_ocu_tpu_torch.ops.layers import scale_in_dtype
+from rmem_ocu_tpu_torch.utils import tracing
 
 M_INIT = -1e30      # running-max init of the reference kernel
 MAX_SLOTS = 32
@@ -235,7 +237,7 @@ def _launch(q, k_bank, v_banks, valid, num_heads, pe, precise):
     if rc != 0:
         raise RuntimeError(f'memory_read kernel launch failed: CUDA error {rc}')
     # the bf16 read is two kernels: the split read and its combine
-    memory_read_fused.launches += 1 if precise else 2
+    tracing.count('kernels.b1.launches', 1 if precise else 2)
     return tuple(outs), mass.mean(1)
 
 
@@ -260,9 +262,6 @@ def memory_read_fused(q: torch.Tensor, k_bank: torch.Tensor,
     if q.device.type == 'cpu':
         return _plain(q, k_bank, v_banks, valid, num_heads, pe, precise)
     return _launch(q, k_bank, v_banks, valid, num_heads, pe, precise)
-
-
-memory_read_fused.launches = 0
 
 
 def memory_read_fused_plain(q, k_bank, v_banks, valid, num_heads, scale,

@@ -15,7 +15,8 @@ the JAX wrapper are not made. The value bank may be given as two banks
 whose channel-wise concatenation is meant (DeAOT's V||ID_V): with an even
 head count each head lies in one of them and no concatenation is
 materialised. On the card a read is two launches (the read split over
-slots and the combine), and `memory_read_attention.launches` counts both.
+slots and the combine), and the counter `kernels.b3.launches`
+(`utils/tracing.py`) counts both.
 Neither wrapper has a backward: each raises on an input that requires grad
 under grad mode, on every device.
 """
@@ -33,6 +34,7 @@ from rmem_ocu_tpu_torch.ops.kernels.memory_read import (MAX_SLOTS,
                                                         read_plan,
                                                         refuse_autograd)
 from rmem_ocu_tpu_torch.ops.layers import scale_in_dtype
+from rmem_ocu_tpu_torch.utils import tracing
 
 ValueBanks = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -100,7 +102,7 @@ def _launch(q, k_bank, v_banks, valid, num_heads):
         raise RuntimeError(f'memory_read_attention kernel launch failed: '
                            f'CUDA error {rc}')
     # two kernels: the read split over slots and its combine
-    memory_read_attention.launches += 2
+    tracing.count('kernels.b3.launches', 2)
     return out, mass
 
 
@@ -135,9 +137,6 @@ def memory_read_attention(q: torch.Tensor, k_bank: torch.Tensor,
                          'only')
     out, mass = _launch(q, k_bank, (v_bank,), valid, 1)
     return out, mass[:, 0]
-
-
-memory_read_attention.launches = 0
 
 
 def _banks(v_bank: ValueBanks) -> Tuple[torch.Tensor, ...]:

@@ -135,7 +135,7 @@ def profile_frames(engine, state, frames, size, n: int = 5,
     """The census of n frames of the engine loop, annotated. Returns
     (census, state)."""
     window = Window(engine.device)
-    with annotate(engine.model, engine=engine):
+    with annotate(engine.model):
         with window:
             for i in range(n):
                 state = frame_step(engine, state, frames[i % len(frames)],
@@ -239,7 +239,7 @@ def profile_eval(evaluator, name: str, seq, first: int, n: int,
         return read(idx)
     seq.frame = frame
     try:
-        with annotate(evaluator.model, engine=evaluator.engine):
+        with annotate(evaluator.model):
             evaluator.evaluate(EvalDataset({name: seq}), verbose=False)
     finally:
         del seq.frame

@@ -7,14 +7,19 @@ drive a workload are in `tools/census.py`. The JAX tools join each XLA
 kernel to the module path in its HLO `op_name`; here the same labels come
 from torch.profiler ranges:
 
-- `annotate(model, engine, trainer)` opens a range around every module
+- The engine's stages are the program's own spans (`utils/tracing.py`):
+  `InferEngine` opens a `stage: ` range around each call and its parts
+  (`propagate/encode`, `update_memory/bank_score`, ...) whenever a
+  profiler runs.
+- `annotate(model, trainer)` opens a range around every module
   whose path starts a component (`classify`; the path changes component
   there) and around the Swin encoder's window attention, its qkv and proj
-  linears and its MLPs (forward hooks), and around the engine's and the
-  trainer's stages (instance attributes: the loss, the optimizer, the
-  episode, and under remat the recompute through the checkpoint's
-  `context_fn`). No range lives in the package's code, so an un-profiled
-  run pays nothing. Everything is removed on exit, also on an exception.
+  linears and its MLPs (forward hooks), and around the trainer's stages
+  (instance attributes: the loss, the optimizer, the episode, and under
+  remat the recompute through the checkpoint's `context_fn`). None of
+  these ranges lives in the package's code, so an un-profiled run pays
+  nothing for them. Everything is removed on exit, also on an
+  exception.
 - `census_from_profile(prof, window_ms, n)` turns a finished profile into
   one dict. Each kernel (each memcpy and memset too) is placed at the
   runtime call that launched it, found by its correlation id; the CPU
@@ -44,6 +49,8 @@ from typing import Dict, List, Tuple
 import torch
 from torch.autograd.profiler import record_function
 from torch.profiler import ProfilerActivity, profile
+
+from rmem_ocu_tpu_torch.utils.tracing import STAGE
 
 # kernel-name fragments -> group, first match wins (cuDNN's implicit-GEMM
 # convolutions before cuBLAS's GEMMs); B1, B2 and B3 are groups of their own
@@ -81,12 +88,9 @@ _COMPONENTS = [
 UNMATCHED = 'unmatched'
 PHASES = ('forward', 'backward', 'recompute')
 MODULE = 'module: '
-STAGE = 'stage: '
-# the stages' range names: the engine's methods, and in training the
-# episode, the loss, the optimizer with the EMA (the name carries the
-# component's key, 'adam'), the remat recompute
-ENGINE_STAGES = ('add_reference_frame', 'propagate', 'predict_mask',
-                 'update_memory')
+# the training stages' range names (the engine's are its own spans,
+# `tracing.ENGINE_STAGES`): the episode, the loss, the optimizer with the
+# EMA (the name carries the component's key, 'adam'), the remat recompute
 EPISODE, LOSS, OPTIMIZER, RECOMPUTE = ('episode', 'loss', 'adam + ema',
                                        'recompute')
 EVALUATOR = 'evaluator'
@@ -162,13 +166,14 @@ def _wrap(obj, name: str, range_name: str, undo: list) -> None:
 
 
 @contextmanager
-def annotate(model, engine=None, trainer=None):
+def annotate(model, trainer=None):
     """Profiler ranges for the census while the block runs: the model's
     component roots and Swin parts (forward hooks, and the attention
-    modules' `CALL_METHODS`; under remat they run again in the recompute), the engine's stages (`ENGINE_STAGES`) and the
-    trainer's (`EPISODE`, `LOSS`, `OPTIMIZER`, and `RECOMPUTE` through the
-    checkpoint's context_fn). The hooks and wrappers are removed and any
-    range left open is closed on exit, also when the block raises."""
+    modules' `CALL_METHODS`; under remat they run again in the recompute)
+    and the trainer's stages (`EPISODE`, `LOSS`, `OPTIMIZER`, and
+    `RECOMPUTE` through the checkpoint's context_fn); the engine opens its
+    stages' ranges itself. The hooks and wrappers are removed and any range
+    left open is closed on exit, also when the block raises."""
     handles, undo, open_ranges = [], [], []
     try:
         for path, mod in ranged_modules(model):
@@ -184,9 +189,6 @@ def annotate(model, engine=None, trainer=None):
             for method in CALL_METHODS:
                 if hasattr(mod, method):
                     _wrap(mod, method, MODULE + path, undo)
-        if engine is not None:
-            for stage in ENGINE_STAGES:
-                _wrap(engine, stage, STAGE + stage, undo)
         if trainer is not None:
             eng = trainer.engine
             _wrap(eng, 'episode_loss', STAGE + EPISODE, undo)
@@ -360,7 +362,8 @@ def census_from_profile(prof, window_ms: float, n: int,
         groups[group] += us
         by_name[name] += us
         name_count[name] += 1
-        stage = _label(c[2]) if c[2] else 'none'
+        # keyed by the top-level stage: 'propagate' for 'propagate/gpm'
+        stage = _label(c[2]).split('/')[0] if c[2] else 'none'
         stages[stage]['ms'] += us
         if launch:
             kernel += us

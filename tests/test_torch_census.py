@@ -14,13 +14,14 @@ from dataclasses import replace
 import numpy as np
 import pytest
 import torch
+from torch.autograd.profiler import record_function
 
 import tests.torch_threads  # noqa: F401  (one torch thread)
 from rmem_ocu_tpu.tools import train_census as jax_train_census
 from rmem_ocu_tpu.tools import trace_census as jax_trace_census
 from rmem_ocu_tpu_torch import build_vos_model, get_config
 from rmem_ocu_tpu_torch.tools import ab_main_path, census
-from rmem_ocu_tpu_torch.utils import profiling
+from rmem_ocu_tpu_torch.utils import profiling, tracing
 
 SIZE = (65, 65)
 # DeAOT-T (MobileNetV2, one GPM layer): the components of DeAOT-L with a
@@ -37,7 +38,7 @@ def _no_annotation_left(model, *objs):
         assert not m._forward_hooks and not m._forward_pre_hooks
         assert not set(vars(m)) & set(profiling.CALL_METHODS)
     for obj in objs:
-        assert not set(vars(obj)) & {*profiling.ENGINE_STAGES, 'episode_loss',
+        assert not set(vars(obj)) & {*tracing.ENGINE_STAGES, 'episode_loss',
                                      '_frame_loss', '_update'}
 
 
@@ -49,7 +50,7 @@ def test_classify_matches_jax(model):
                           device='meta')
     ranges = ([profiling.MODULE + p for p, _ in
                profiling.ranged_modules(net)]
-              + [profiling.STAGE + s for s in profiling.ENGINE_STAGES + (
+              + [profiling.STAGE + s for s in tracing.ENGINE_STAGES + (
                   profiling.EPISODE, profiling.LOSS, profiling.OPTIMIZER,
                   profiling.RECOMPUTE, profiling.EVALUATOR)])
     names = [p for p, _ in net.named_modules()] + ranges + [
@@ -72,13 +73,15 @@ def test_classify_matches_jax(model):
 
 
 def _record(engine):
-    """Every update's mask and the bank's ordered frame ids after it."""
+    """Every update's mask and the bank's ordered frame ids after it (the
+    copies' ops inside the stage's range, as the update's own)."""
     seen = []
     inner = engine.update_memory
 
     def update_memory(state, mask):
         state = inner(state, mask)
-        seen.append((mask.clone(), state.bank.ordered_frame_ids.clone()))
+        with record_function(profiling.STAGE + 'update_memory'):
+            seen.append((mask.clone(), state.bank.ordered_frame_ids.clone()))
         return state
     engine.update_memory = update_memory
     return seen
@@ -129,7 +132,7 @@ def test_frames_census_on_the_cpu():
     _no_annotation_left(engine.model, engine)
     bad = torch.zeros(1, *SIZE, 2)                 # 2 channels: conv raises
     with pytest.raises(RuntimeError):
-        with profiling.annotate(engine.model, engine=engine):
+        with profiling.annotate(engine.model):
             engine.propagate(state, bad)
     _no_annotation_left(engine.model, engine)
 

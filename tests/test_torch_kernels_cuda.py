@@ -17,6 +17,7 @@ from rmem_ocu_tpu_torch.ops.kernels.memory_read import (
 from rmem_ocu_tpu_torch.ops.kernels.memory_read_mh import (
     memory_read_attention, memory_read_attention_plain, memory_read_multihead,
     memory_read_multihead_plain)
+from rmem_ocu_tpu_torch.utils import tracing
 
 
 def _b1_inputs(heads, n_banks, with_pe, seed=0):
@@ -53,6 +54,16 @@ def _b3_inputs(heads, seed=0):
     return q, k, v, id_v, valid, d ** -0.5
 
 
+def _launches(kernel):
+    """Launches of kernel 'b1', 'b2' or 'b3' counted so far."""
+    return tracing.counters().get(f'kernels.{kernel}.launches', 0)
+
+
+def _counts():
+    """Launches of (B1, B2, B3) counted so far."""
+    return tuple(map(_launches, ('b1', 'b2', 'b3')))
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernels run only on the card')
@@ -84,11 +95,11 @@ def test_memory_read_kernel_matches_plain(dtype, precise, tol):
         args = (t(q), t(k), tuple(t(v) for v in vs),
                 torch.from_numpy(valid).to(dev), heads, scale)
         kw = dict(mem_pe=None if pe is None else t(pe), precise=precise)
-        before = memory_read_fused.launches
+        before = _launches('b1')
         got, got_mass = memory_read_fused(*args, **kw)
         want, want_mass = memory_read_fused_plain(*args, **kw)
         # the bf16 read is two launches: the split read and its combine
-        assert memory_read_fused.launches == before + (1 if precise else 2)
+        assert _launches('b1') == before + (1 if precise else 2)
         for g, w in zip(got, want):
             _assert_close(g, w, tol)
         torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
@@ -105,10 +116,10 @@ def test_memory_read_kernel_multihead_one_bank(dtype):
     t = lambda x: torch.from_numpy(x).to(dev, dtype)
     args = (t(q), t(k), (t(vs[0]),), torch.from_numpy(valid).to(dev), 8,
             scale)
-    before = memory_read_fused.launches
+    before = _launches('b1')
     (got,), got_mass = memory_read_fused(*args, mem_pe=t(pe))
     (want,), want_mass = memory_read_fused_plain(*args, mem_pe=t(pe))
-    assert memory_read_fused.launches == before + 2
+    assert _launches('b1') == before + 2
     _assert_close(got, want, None)
     torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
 
@@ -127,9 +138,9 @@ def test_memory_read_attention_kernel_matches_plain(heads, two_banks, dtype):
     v_bank = ((t(v), t(id_v)) if two_banks
               else torch.cat([t(v), t(id_v)], dim=-1))
     args = (t(q), t(k), v_bank, torch.from_numpy(valid).to(dev), heads, scale)
-    before = memory_read_attention.launches
+    before = _launches('b3')
     got, got_mass = memory_read_multihead(*args)
-    assert memory_read_attention.launches == before + 2
+    assert _launches('b3') == before + 2
     want, want_mass = memory_read_multihead_plain(*args)
     assert got.dtype == torch.float32
     _assert_close(got, want, None)
@@ -144,7 +155,7 @@ def test_memory_read_attention_kernel_matches_plain(heads, two_banks, dtype):
     folded = (fold(t(q) * scale, d), fold(t(k), d), fold(cat, dv),
               torch.from_numpy(valid).to(dev).repeat_interleave(heads, dim=0))
     got, got_mass = memory_read_attention(*folded)
-    assert memory_read_attention.launches == before + 4
+    assert _launches('b3') == before + 4
     want, want_mass = memory_read_attention_plain(*folded)
     _assert_close(got, want, None)
     torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
@@ -167,9 +178,9 @@ def test_local_attention_kernel_matches_plain(dtype, tol):
                 torch.from_numpy(rng.randn(b, h * w, (2 * md + 1) ** 2)
                                  .astype(np.float32)).to(dev),
                 (h, w), md, dtype == torch.float32)
-        before = local_window_attention.launches
+        before = _launches('b2')
         got = local_window_attention(*args)
-        assert local_window_attention.launches == before + 1
+        assert _launches('b2') == before + 1
         _assert_close(got, local_window_attention_plain(*args), tol)
 
 
@@ -408,13 +419,10 @@ def test_training_mode_reads_densely_on_the_card(heads):
              r(b, h * w, 2 * d))
     block = zero_dropout(GPMBlock(d, att_heads=heads, layer_idx=1)).to(dev)
     tgt = r(b, h * w, d).requires_grad_()
-    counts = lambda: (memory_read_fused.launches,
-                      local_window_attention.launches,
-                      memory_read_attention.launches)
-    before = counts()
+    before = _counts()
     out, out_id, _, _ = block.train()(tgt, r(b, h * w, d), long_mem, short,
                                       None, (h, w), None)
-    assert counts() == before
+    assert _counts() == before
     assert out.grad_fn is not None and out_id.grad_fn is not None
     (out.square().sum() + out_id.square().sum()).backward()
     assert float(tgt.grad.abs().sum()) > 0
@@ -422,7 +430,7 @@ def test_training_mode_reads_densely_on_the_card(heads):
     with torch.no_grad():
         block.eval()(tgt, r(b, h * w, d), long_mem, short, None, (h, w),
                      None)
-    after = counts()
+    after = _counts()
     if heads == 1:
         assert after[0] > before[0] and after[1] > before[1]
     else:
@@ -438,11 +446,9 @@ def test_census_frames_sees_the_kernels_on_the_card():
     _cuda()
     engine, state, frames, size = census.build_frames(size=(129, 129))
     state = census.frame_step(engine, state, frames[0], size)
-    before = (memory_read_fused.launches, local_window_attention.launches,
-              memory_read_attention.launches)
+    before = _counts()
     c, _ = census.profile_frames(engine, state, frames, size, n=3)
-    after = (memory_read_fused.launches, local_window_attention.launches,
-             memory_read_attention.launches)
+    after = _counts()
     launches = c['group_launches']
     assert (launches['B1 memory_read'], launches['B2 local_attn'],
             launches['B3 memory_read_attention']) == (6, 3, 0)
@@ -533,15 +539,13 @@ def test_two_ranks_on_the_card_step_as_one(tmp_path):
     procs = worker.spawn(2, [worker.__file__, spec], local_ranks=[0, 0])
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    launches = lambda: (memory_read_fused.launches,
-                        local_window_attention.launches)
-    before = launches()
+    before = _counts()[:2]
     try:
         one = worker.run_case(case, World(device=dev))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
         worker.wait(procs, 600)
-    assert launches() == before
+    assert _counts()[:2] == before
     two = torch.load(worker.digest_path(str(tmp_path), 'card', 2))
     assert two['same_on_ranks']
     assert abs(two['steps'][0]['loss'] - one['steps'][0]['loss']) <= 1e-5
@@ -697,15 +701,14 @@ def _spatial_world_matches_one_process(tmp_path, cases, n, tp, device,
     procs = worker.spawn(n, [worker.__file__, spec], local_ranks=local_ranks)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    before = (memory_read_fused.launches, local_window_attention.launches)
+    before = _counts()[:2]
     try:
         one = {c['name']: worker.run_case(c, World(device=dev))
                for c in cases}
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
         worker.wait(procs, 600)
-    assert (memory_read_fused.launches,
-            local_window_attention.launches) == before
+    assert _counts()[:2] == before
     for c in cases:
         a = one[c['name']]
         b = torch.load(worker.digest_path(str(tmp_path), c['name'], n))
@@ -846,12 +849,9 @@ def test_switch_sites_on_the_card_match_the_cpu(name, monkeypatch):
         m = None if mod is None else mod.to(device, torch.bfloat16)
         with torch.no_grad():
             return [o.float().cpu() for o in call(m, x, e)]
-    counts = lambda: (memory_read_fused.launches,
-                      local_window_attention.launches,
-                      memory_read_attention.launches)
-    before = counts()
+    before = _counts()
     got = run(dev, '0')
-    assert counts() == before
+    assert _counts() == before
     want, default = run('cpu', '0'), run('cpu', None)
     for i, (g, w, w0) in enumerate(zip(got, want, default)):
         if with_mass and i == len(got) - 1:
@@ -882,17 +882,14 @@ def test_kernel_wrappers_ignore_the_switch_on_the_card(monkeypatch):
           t(rng.randn(2, 154, 48).astype(np.float32)),
           torch.from_numpy(rng.randn(2, 154, 225).astype(np.float32)).to(dev),
           (11, 14), 7, False)
-    counts = lambda: (memory_read_fused.launches,
-                      local_window_attention.launches,
-                      memory_read_attention.launches)
 
     def run():
-        before = counts()
+        before = _counts()
         (o1, o2), m1 = memory_read_fused(*b1, mem_pe=t(pe))
         o3, m3 = memory_read_multihead(*b3)
         o4 = local_window_attention(*b2)
         return [o1, o2, m1, o3, m3, o4], tuple(
-            a - b for a, b in zip(counts(), before))
+            a - b for a, b in zip(_counts(), before))
     monkeypatch.delenv('RMEM_BF16_PROBS', raising=False)
     default, n_default = run()
     monkeypatch.setenv('RMEM_BF16_PROBS', '0')
