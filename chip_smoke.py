@@ -340,11 +340,11 @@ def print_split(torch, name, batch, heads, hwq, d, cph, t_cap) -> None:
     """How a bank read is split over slots, and the f32 partials it writes
     and the combine reads back (not counted in the bound)."""
     from rmem_ocu_tpu_torch.ops.kernels.memory_read import read_plan
-    n_split, hpb, scratch = read_plan(batch, heads, hwq, d, cph, t_cap,
-                                      hwq, torch.device('cuda'))
-    n_bytes = 2 * sum(x.numel() * 4 for x in scratch)
+    n_split, hpb, scratch, _ = read_plan(batch, heads, hwq, d, cph, t_cap,
+                                         hwq, torch.device('cuda'))
+    n_bytes = 2 * sum(x.numel() * 4 for x in scratch if x is not None)
     kernel = (f'memory_read_heads, {hpb} heads a block' if hpb
-              else 'memory_read_wide')
+              else 'memory_read_ws')
     print(f'kernel {name}: {n_split} splits of the key tiles, {kernel}, '
           f'partials {n_bytes / 1e6:.2f} MB written and read back')
 
@@ -571,11 +571,13 @@ def make_inputs(batch: int, n_frames: int, seed: int, size=(H, W),
 # launches (B1, B2, B3) per propagated frame and per reference frame, and
 # (where not the defaults below) the bf16 run's input size, its stream
 # counts and frame counts, and the fp32 check's input size and frame
-# count. A bank read (B1 or B3) is two launches, the split read and its
-# combine. The first three paths are the ResNet-50 ones of the earlier
-# slices; `swinb_deaotl` is this slice's main path, and one model stands
-# for each other encoder (MobileNetV3 in AOT-L, the only way a registered
-# configuration reaches it).
+# count. A bank read (B1 or B3) counts two launches, the split read and
+# its combine; `expected_counts` halves that where the read's blocks fill
+# the card unsplit and the wide-head kernel finishes it in one. The first
+# three paths are the ResNet-50 ones of the earlier slices; `swinb_deaotl`
+# is this slice's main path, and one model stands for each other encoder
+# (MobileNetV3 in AOT-L, the only way a registered configuration reaches
+# it).
 DEFAULTS = dict(size=(H, W), streams=(1, 8), warm=5, timed=30,
                 check_size=(H, W), check_frames=10, feed_cpu_mask=False)
 NEW = dict(feed_cpu_mask=True)
@@ -637,10 +639,39 @@ def grid_of(size, align_corners: bool):
                  for s in size)
 
 
-def expected_counts(path: str, n_frames: int, n_reference: int = 1):
+def read_launches(path: str, batch: int, grid, shards: int = 1) -> int:
+    """Launches of one bank read of `path` at `batch` streams on `grid`,
+    on a rank's shard of a model group of `shards`: 1 where the wide-head
+    kernel's blocks fill the card unsplit, else 2 (the split read and its
+    combine; always 2 where the small-head kernel reads AOT's heads)."""
+    import torch
+    from rmem_ocu_tpu_torch.ops.kernels.memory_read import (
+        heads_per_block, split_count)
+    per_frame = spec_of(path)['per_frame']
+    if per_frame[2]:        # B3: two heads over V||ID_V
+        heads, d, cph = 2, 128, 512 // shards
+    elif per_frame[1]:      # B1: DeAOT's one head over V||ID_V
+        heads, d, cph = 1, 128, 1024 // shards
+    else:                   # B1: AOT's 8 heads of 32
+        heads, d, cph = 8 // shards, 32, 32
+    hw = grid[0] * grid[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one = (not heads_per_block(heads, d, cph)
+           and split_count(batch, heads, hw, d, cph, hw, sms) == 1)
+    return 1 if one else 2
+
+
+def expected_counts(path: str, n_frames: int, n_reference: int = 1,
+                    batch: int = 1, grid=None, shards: int = 1):
+    """Launches of (B1, B2, B3) of n_frames propagated frames and
+    n_reference reference frames; `per_frame` counts two launches a bank
+    read, which a read that `read_launches` makes one halves."""
     spec = spec_of(path)
+    per_frame = list(spec['per_frame'])
+    if grid is not None and read_launches(path, batch, grid, shards) == 1:
+        per_frame = [per_frame[0] // 2, per_frame[1], per_frame[2] // 2]
     return tuple(f * n_frames + r * n_reference for f, r
-                 in zip(spec['per_frame'], spec['per_reference']))
+                 in zip(per_frame, spec['per_reference']))
 
 
 def reset_counts():
@@ -787,9 +818,11 @@ def phase_main_path(torch, path: str, batch: int):
     torch.cuda.synchronize()
     counts = read_counts()
     n_prop = n_warm + n_timed
-    check(counts == expected_counts(path, n_prop),
+    want = expected_counts(path, n_prop, batch=batch,
+                           grid=grid_of(size, exp.model.align_corners))
+    check(counts == want,
           f'{path}: kernel launches (B1, B2, B3) {counts} for {n_prop} '
-          f'frames, expected {expected_counts(path, n_prop)}')
+          f'frames, expected {want}')
     cut = 3 if exp.model.align_corners else 0
     check(tuple(logits.shape) == (batch, 4 * grid[0] - cut,
                                   4 * grid[1] - cut,
@@ -901,13 +934,19 @@ def eval_sequences(size, frames: tuple, new_at: int, **seq_kw):
             seed=2, **seq_kw)}
 
 
-def eval_counts(seq, n_aug: int):
-    """Launches of (B1, B2, B3) the evaluator makes on a sequence: per
-    augmentation, 6 B1 and 3 B2 per propagated frame and 3 B2 per
-    reference added (frame 0 and every labelled frame after it)."""
+def eval_counts(seq, shards: int = 1):
+    """Launches of (B1, B2, B3) the evaluator makes on a sequence with
+    `r50_deaotl` (on a rank's shard of a model group of `shards`): per
+    augmentation and propagated frame, 3 bank reads of `read_launches` B1
+    launches each (at the augmentation's grid and the frame's groups of 10
+    objects, the engine's batch) and 3 B2; and 3 B2 per reference added
+    (frame 0 and every labelled frame after it)."""
+    grids = [grid_of(s.image.shape[:2], True) for s in seq.frame(0)]
     props = len(seq) - 1
-    refs = len(seq.labels)
-    return (6 * props * n_aug, 3 * (props + refs) * n_aug, 0)
+    b1 = sum(3 * read_launches('deaot_1head', -(-seq.obj_nums[f] // 10), g,
+                               shards)
+             for g in grids for f in range(1, len(seq)))
+    return (b1, 3 * (props + len(seq.labels)) * len(grids), 0)
 
 
 def record_evictions(engine) -> list:
@@ -956,7 +995,6 @@ def phase_eval_fp32(torch, out_root: str):
     gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
     seqs = eval_sequences(EVAL_FP32_SIZE, (12, 5), 3, max_size=1040,
                           multi_scale=(1.0, 1.3), flip=True)
-    n_aug = 4
     evs = {dev: Evaluator(m, exp, os.path.join(out_root, dev))
            for dev, m in (('cpu', cpu_model), ('cuda', gpu_model))}
     t0 = time.time()
@@ -968,9 +1006,9 @@ def phase_eval_fp32(torch, out_root: str):
         counts = read_counts()
         for ev in evs.values():
             del ev.engine.update_memory
-        check(counts == eval_counts(seq, n_aug),
+        check(counts == eval_counts(seq),
               f'eval fp32 {name}: launches (B1, B2, B3) {counts}, expected '
-              f'{eval_counts(seq, n_aug)}')
+              f'{eval_counts(seq)}')
         check(len(ids['cuda']) == len(ids['cpu']) > 0
               and all(torch.equal(a, b) for a, b in zip(ids['cuda'],
                                                         ids['cpu'])),
@@ -1038,9 +1076,9 @@ def phase_eval_bf16(torch, out_root: str):
         stats = ev.evaluate(EvalDataset({name: seq}), verbose=False)
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        check(counts == eval_counts(seq, 4),
+        check(counts == eval_counts(seq),
               f'eval bf16 {name}: launches (B1, B2, B3) {counts}, expected '
-              f'{eval_counts(seq, 4)}')
+              f'{eval_counts(seq)}')
         n_files = len(os.listdir(os.path.join(out_root, name)))
         check(n_files == len(seq) - 1, f'eval bf16 {name}: {n_files} masks')
         print(f'eval bf16 {name} {EVAL_BF16_SIZE[0]}x{EVAL_BF16_SIZE[1]} '
@@ -1594,7 +1632,7 @@ def phase_pipeline(torch, root: str):
           f'pipeline: training launched kernels {legs["train"][0]}')
     out = os.path.join(result, 'eval', 'vost')
     dataset = build_vost_dataset(data, 'val')
-    want = tuple(sum(c) for c in zip(*(eval_counts(seq, 1)
+    want = tuple(sum(c) for c in zip(*(eval_counts(seq)
                                        for _, seq in dataset.items())))
     check(legs['eval'][0] == want, f'pipeline eval: launches (B1, B2, B3) '
                                    f'{legs["eval"][0]}, expected {want}')
@@ -2183,9 +2221,9 @@ def tp_serve_bf16(torch, path: str, batch: int, world):
     torch.cuda.synchronize(world.device)
     counts = read_counts()
     n = TP_WARM + TP_TIMED
-    check(counts == expected_counts(path, n),
-          f'12b {path} B={batch}: launches {counts} for {n} frames, '
-          f'expected {expected_counts(path, n)}')
+    want = expected_counts(path, n, batch=batch, grid=GRID, shards=TP)
+    check(counts == want, f'12b {path} B={batch}: launches {counts} for '
+                          f'{n} frames, expected {want}')
     check(bool(torch.isfinite(logits[..., :N_OBJ + 1].float()).all()),
           f'12b {path} B={batch}: non-finite logits')
     return dict(bank_bytes=held, launches=counts,
@@ -2887,7 +2925,7 @@ def phase_tp_cli(torch, root: str, data: str, result: str, one_dir: str,
     gloo. 12c: `tools.eval --mesh 2` of 11b's step_4 EMA over phase 10's
     val split, one model group serving both sequences; its masks agree
     with 11c's one process (the same checkpoint) on more than 99.9% of
-    pixels, each rank launches what that process launched, print.log is
+    pixels, each rank launches what its shard's reads make, print.log is
     rank 0's. 12d: `tools.train --multihost --mesh 1x2 --zero1` on phase
     10's tree at the recipe shape (465x465, T=17, B=2, fp32), 11b's 4
     steps (the schedule and the loss's ramps follow the total): the
@@ -2896,6 +2934,7 @@ def phase_tp_cli(torch, root: str, data: str, result: str, one_dir: str,
     by a trainer of one process. Returns the launches by run."""
     from PIL import Image
     from rmem_ocu_tpu_torch.config import get_config
+    from rmem_ocu_tpu_torch.data.eval_datasets import build_vost_dataset
     from rmem_ocu_tpu_torch.models import build_vos_model
     from rmem_ocu_tpu_torch.train.trainer import Trainer
     from rmem_ocu_tpu_torch.utils import checkpoint as ckpt
@@ -2917,8 +2956,15 @@ def phase_tp_cli(torch, root: str, data: str, result: str, one_dir: str,
     t_cli = time.time() - t0
 
     ranks = rank_counts(eval_outs)
-    check(len(ranks) == TP and all(r == tuple(one_counts) for r in ranks),
-          f'12c: launches by rank {ranks}, one process {one_counts}')
+    # a rank's shard reads narrower heads, so its reads may split where
+    # one process's do not
+    want = tuple(sum(c) for c in zip(*(
+        eval_counts(seq, TP)
+        for _, seq in build_vost_dataset(data, 'val').items())))
+    check(len(ranks) == TP and all(r == want for r in ranks)
+          and want[1:] == tuple(one_counts)[1:],
+          f'12c: launches by rank {ranks}, expected {want}, one process '
+          f'{one_counts}')
     n = same = n_masks = 0
     for seq in sorted(os.listdir(one_dir)):
         if not os.path.isdir(os.path.join(one_dir, seq)):
@@ -2937,8 +2983,8 @@ def phase_tp_cli(torch, root: str, data: str, result: str, one_dir: str,
         log = f.read()
     check('[rank 0]' in log, '12c: print.log has no rank 0 lines')
     print(f'tp 12c eval CLI --mesh {TP} in {TP} processes on the card '
-          f'(gloo): launches (B1, B2, B3) by rank {ranks} = 11c\'s one '
-          f'process {tuple(one_counts)}; {n_masks} masks, {same} of {n} '
+          f'(gloo): launches (B1, B2, B3) by rank {ranks} as expected '
+          f'(one process {tuple(one_counts)}); {n_masks} masks, {same} of {n} '
           f'pixels ({same / n:.6f}) equal to 11c\'s one process')
 
     check(all(r == (0, 0, 0) for r in rank_counts(train_outs))
@@ -3415,7 +3461,7 @@ def print_resources(logs) -> None:
                 print(f'ptxas {lib} {entry[:80]}: {line.split(":", 1)[-1]}'
                       .rstrip())
     for name, info in (
-            ('B1/B3 memory_read_wide D=128 (deaot_1head, deaot_2heads)',
+            ('B1/B3 memory_read_ws D=128 (deaot_1head, deaot_2heads)',
              memory_read.kernel_info(1, 128, 1024)),
             ('B1 memory_read_heads D=32 Dv=32 (aot)',
              memory_read.kernel_info(8, 32, 32)),

@@ -9,29 +9,37 @@
 // logit term q.pe_t. Dead slots (valid == 0) may sit anywhere and are
 // skipped.
 //
-// What bounds it on the H100: at the main-path shapes (one head, D=128,
-// V and ID_V 512 wide each; 8 heads of D=Dv=32, one bank; 9 live slots of
-// 920 keys, 920 queries) one launch is 7.8-17.6 GFLOP against 10-20 MB of
-// operands, so it is bound by operations: the products belong on the
-// tensor cores, and everything else (loads, softmax, the slot mass) has to
-// hide behind them.
+// What bounds it on the H100: operations. At the VOST cells' shape (8
+// streams, one head of D=128, V and ID_V 512 wide each, 9 live slots of
+// 2,442 keys, 2,442 queries) one read is 0.99 TFLOP against 0.45 GB: 1.0
+// ms at the bf16 tensor-core rate against 0.14 ms for its bytes. So the
+// products belong on the tensor cores at their full rate, and everything
+// else (loads, softmax, the slot mass, the normalisation) has to hide
+// behind them.
 //
 // Two paths, chosen by the operand precision the caller asks for:
 // - bf16 operands (the main path, and the reference's bank read on f32
-//   inputs): the read of memory_read_tc.cuh, which kernel B3 shares. The
+//   inputs): the read of memory_read_tc.cuh, which kernel B3 shares. For
+//   wide heads a warp-specialised Hopper kernel: a producer warpgroup
+//   keeps K and V tiles in flight with TMA, two consumer warpgroups of 64
+//   query rows each run Q.K^T and P.V as wgmma, with P in registers, over
+//   blocks of 128 value columns (the registers that ptxas keeps a wgmma's
+//   accumulators in bound the width; V||ID_V takes 8 blocks), and where
+//   one unit covers a query tile's bank (the cells' shapes) the kernel
+//   normalises and writes the outputs and the mass itself, in one launch;
+//   where the blocks would not fill the card (one stream, a TP shard) the
 //   bank is split over blocks by slot and merged by a second launch that
-//   also yields the per-slot mass; 64-key K/V tiles arrive through a
-//   two-stage cp.async ring while the tensor cores work on the previous
-//   tile; Q.K^T is issued once per key tile and 512 value columns (twice
-//   for V||ID_V); 8 heads of 32 share one block. The header says why.
+//   also yields the mass. 8 heads of 32 share one block (mma.sync). The
+//   header says why.
 // - f32 operands (precise): `simt` below, the same online softmax on the
 //   FP32 pipes, one block per 16 query rows. No path calls it.
 //
 // Design points shared by both:
 // - The Pallas grid (b*h, q-block, slot, k-block) carries m, l, acc and the
-//   slot mass across sequential grid steps. GPU blocks share nothing: the
-//   bf16 read gives each block a share of the slots and merges the shares
-//   afterwards; `simt` loops over every slot inside one block.
+//   slot mass across sequential grid steps. GPU blocks share nothing: a
+//   block loops over its share of the slots' key tiles; shares of one
+//   query tile, where there are several, are merged afterwards; `simt`
+//   loops over every slot inside one block.
 // - HWk = 920 does not tile by a power of two: the tail of the last key
 //   tile gets logit -inf (never 0, which would leak softmax mass).
 // - Rounding follows the reference: q, k, v and p are rounded to bf16
@@ -244,13 +252,13 @@ void launch_simt(const void* q, const void* k, const void* pe, const void* v1,
 
 // One or two banks sharing P (H == 1), or heads by channel slicing of one
 // bank: head h owns columns [h * (Cv1 + Cv2), ...) of [v1 | v2]. q, k, v
-// are bf16, pe f32; outputs TO.
-template <typename TO>
+// are bf16, pe f32; outputs bf16 (is_bf16) or f32.
 int launch_tc(const void* q, const void* k, const void* pe, const void* v1,
               const void* v2, const int* valid, void* o1, void* o2,
               float* mass, float* part_acc, float* part_m, void* slot_ml,
               int B, int H, int T_cap, int HWq, int HWk, int D, int Cv1,
-              int Cv2, int n_split, int heads_per_block, cudaStream_t stream) {
+              int Cv2, int is_bf16, int n_split, int heads_per_block,
+              cudaStream_t stream) {
   using rmem::tc::bf16;
   if (v2 == nullptr) Cv2 = 0;
   const rmem::tc::ReadArgs a = {
@@ -263,8 +271,7 @@ int launch_tc(const void* q, const void* k, const void* pe, const void* v1,
       HWk,                           D,
       Cv1 + Cv2,                     H * Cv1,
       H * Cv2,                       n_split};
-  const rmem::tc::OutArgs<TO> o = {static_cast<TO*>(o1), static_cast<TO*>(o2),
-                                   mass, H * Cv1, H * Cv2};
+  const rmem::tc::OutArgs o = {o1, o2, mass, H * Cv1, H * Cv2, is_bf16};
   return static_cast<int>(rmem::tc::launch<rmem::tc::FusedRead>(
       a, o, B, heads_per_block, stream));
 }
@@ -282,7 +289,8 @@ int launch_tc(const void* q, const void* k, const void* pe, const void* v1,
 //   [B, H, n_split, HWq], slot_ml [B, H, n_split, HWq, T, 2];
 //   heads_per_block (8) picks the several-heads-per-block kernel
 //   (D <= 32, Cv1 <= 32), 0 the one-head kernel (D in {16, 32, 64, 128}).
-//   Two launches: the split read and its combine.
+//   The one-head kernel at n_split == 1 is one launch and reads no
+//   scratch (it may be null); else two: the split read and its combine.
 // - else f32 operands in the storage type (is_bf16) on the FP32 pipes
 //   (D <= 128, Cv % 4 == 0), one launch; the scratch is unused.
 // Returns cudaGetLastError() after the launches.
@@ -296,14 +304,9 @@ extern "C" int rmem_memory_read_fused(
   if (T_cap > MAX_T) return static_cast<int>(cudaErrorInvalidValue);
   if (v2 != nullptr && H != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (round_bf16)
-    return is_bf16 ? launch_tc<__nv_bfloat16>(
-                         q, k, pe, v1, v2, valid, o1, o2, mass, part_acc,
-                         part_m, slot_ml, B, H, T_cap, HWq, HWk, D, Cv1, Cv2,
-                         n_split, heads_per_block, s)
-                   : launch_tc<float>(q, k, pe, v1, v2, valid, o1, o2, mass,
-                                      part_acc, part_m, slot_ml, B, H, T_cap,
-                                      HWq, HWk, D, Cv1, Cv2, n_split,
-                                      heads_per_block, s);
+    return launch_tc(q, k, pe, v1, v2, valid, o1, o2, mass, part_acc, part_m,
+                     slot_ml, B, H, T_cap, HWq, HWk, D, Cv1, Cv2, is_bf16,
+                     n_split, heads_per_block, s);
   if (D > 128) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     simt::launch_simt<__nv_bfloat16>(q, k, pe, v1, v2, valid, o1, o2, mass,
@@ -320,8 +323,11 @@ extern "C" int rmem_memory_read_fused(
 extern "C" int rmem_memory_read_info(int D, int cph, int heads_per_block,
                                      int* out) {
   rmem::tc::ReadArgs a = {};
+  a.H = 1;
   a.D = D;
-  a.cph = cph;
+  a.cph = a.wv1 = cph;
+  a.n_split = 1;
   return static_cast<int>(rmem::tc::dispatch<rmem::tc::FusedRead, true>(
-      a, 1, heads_per_block, nullptr, out));
+      a, rmem::tc::Maps{}, rmem::tc::OutArgs{}, 1, heads_per_block, nullptr,
+      out));
 }

@@ -13,10 +13,11 @@
 // Dv=512 per head, 9 live slots of 920 keys, 920 queries) one launch is
 // ~19.5 GFLOP against ~21 MB of operands, so it is bound by operations and
 // the products run on the tensor cores. The device code is the read of
-// memory_read_tc.cuh, shared with kernel B1: the bank split over blocks by
-// slot and merged by a second launch that yields the mass, a cp.async K/V
-// ring, Q.K^T once per key tile for each head's 512 columns. The header
-// says why.
+// memory_read_tc.cuh, shared with kernel B1: a warp-specialised Hopper
+// kernel (a TMA ring filled by a producer warpgroup, wgmma consumer
+// warpgroups with P in registers), one launch where one unit covers a
+// query tile's bank, else the bank split over blocks by slot and merged by
+// a second launch that yields the mass. The header says why.
 //
 // What the design does about the Pallas kernel's layout needs:
 // - The Pallas caller transposes q, K and V into a head-folded [B*H, ...]
@@ -37,7 +38,9 @@
 // [B, n_split, HWq, H*Dv], part_m [B, H, n_split, HWq], slot_ml
 // [B, H, n_split, HWq, T, 2]. heads_per_block (8) picks the
 // several-heads-per-block kernel (D <= 32, Dv <= 32), 0 the one-head
-// kernel (D in {16, 32, 64, 128}). Dv and wv1 are multiples of 8. Two launches: the split read and its combine. Returns
+// kernel (D in {16, 32, 64, 128}). Dv and wv1 are multiples of 8. The
+// one-head kernel at n_split == 1 is one launch and reads no scratch (it
+// may be null); else two: the split read and its combine. Returns
 // cudaGetLastError() after them.
 extern "C" int rmem_memory_read_attention(
     const void* q, const void* k, const void* v1, const void* v2,
@@ -58,7 +61,7 @@ extern "C" int rmem_memory_read_attention(
       HWk,                          D,
       Dv,                           wv1,
       wv2,                          n_split};
-  const rmem::tc::OutArgs<float> o = {out, nullptr, mass, H * Dv, 0};
+  const rmem::tc::OutArgs o = {out, nullptr, mass, H * Dv, 0, 0};
   return static_cast<int>(rmem::tc::launch<rmem::tc::AttentionRead>(
       a, o, B, heads_per_block, static_cast<cudaStream_t>(stream)));
 }

@@ -1,52 +1,57 @@
 // Tensor-core online-softmax read of the RMem bank, shared by kernel B1
-// (memory_read.cu) and kernel B3 (memory_read_attention.cu).
+// (memory_read.cu) and kernel B3 (memory_read_attention.cu). It replaces
+// the Pallas TPU kernels `memory_read_fused`
+// (rmem_ocu_tpu/ops/pallas/memory_read.py:281) and `memory_read_attention`
+// (:88).
 //
-// What bounds it on the H100: the main-path shapes do 7.8-19.5 GFLOP on
-// 20-40 MB of bank, so the products are the bound (0.008-0.02 ms at the
-// bf16 tensor-core rate). What held the first design 30-66x off it: 120
-// blocks of 4 warps at B=1 (one per SM, nothing to hide a load behind),
-// 32-key tiles loaded by the computing threads between two barriers, Q.K^T
-// and the K loads repeated for each of 8 value chunks, 3/4 of the value
-// tile zero at 8 heads of 32, and a per-tile walk over every slot's mass.
+// What bounds it on the H100: operations. At the VOST cells' shape (8
+// streams, 2,442 queries against 9 live slots of 2,442 keys, D 128, V||ID_V
+// 1,024 columns) one read is 0.99 TFLOP against 0.45 GB: 1.0 ms at the
+// bf16 tensor-core rate, 0.14 ms for its bytes. The products have to keep
+// the tensor cores busy, and the loads, the online softmax and the slot
+// mass have to hide behind them.
 //
-// The design here:
-// - Split over slots, then combine. The work of a query tile is the
-//   sequence of its live slots' 64-key tiles; a work unit is (b, head or
-//   head group, 64 query rows, a contiguous 1/n_split share of that
-//   sequence), so units are balanced whatever the number of live slots. A
-//   unit keeps its own running max m, sum l and f32 output accumulator and
-//   writes them unnormalised to scratch the wrapper allocates; where its
-//   share of a slot ends it writes (m, l_t), l_t the p-sum of its share at
-//   its running max. A second launch (`memory_read_combine`) merges the
-//   units of a query row: M = max m_t, L = sum e^(m_t - M) l_t, out =
-//   sum_u e^(m_u - M) acc_u / max(L, 1e-30), and the per-slot mass is
-//   exactly the sum of e^(m_t - M) l_t over the slot's shares, over L,
-//   with no per-tile bookkeeping. The wrapper picks n_split so that the
-//   blocks fill the card's SMs in one round where the shape allows.
-// - A cp.async ring: 64-key tiles of K and V, two stages in shared memory,
-//   the copies of tile i+1 in flight while the tensor cores (mma.sync
-//   m16n8k16, bf16 in, f32 accumulate) work on tile i. Ragged key rows and
-//   columns outside a head are zero-filled by the copy itself.
-// - Wide heads (`memory_read_wide`, D in {16..128}, any value width): 16
-//   warps own 64 query rows x 512 value columns of one head. Q.K^T is
-//   issued once per key tile and block: 4 row warps x 4 key warps each
-//   compute 16 rows x 16 keys, exchange row maxima and sums through shared
-//   memory and stage P once as bf16. P.V is then 2 row warps x 8 column
-//   warps of 32 rows x 64 columns, so that each value fragment read from
-//   shared memory feeds two products (shared-memory reads, not the tensor
-//   cores, bound mma.sync here). DeAOT's V||ID_V (1024 columns) takes two
-//   blocks, so Q.K^T runs twice per key tile, not eight times.
-// - Small heads (`memory_read_heads`, D <= 32 and Dv <= 32, >= 4 heads):
-//   one block owns 8 heads of a 64-row query tile, each warp 16 rows of
-//   two heads with S, P and the online softmax in registers. A K or V row
-//   of the 8 heads is one contiguous run (512 bytes at the AOT shape) and
-//   the value tile is as wide as the heads, with no zero columns.
-// - Products are mma.sync, not wgmma, in this design: each 16-row warp
-//   reads its fragments from shared memory, and those reads, with one
-//   block per SM (197 KB and 169 KB of ring) and a block barrier per
-//   tile, bound a tile (PERF.md section 6). wgmma, which reads B from
-//   shared memory once per 64-row warpgroup, fed by a TMA ring and a
-//   producer warp, is the next step (ROADMAP queue B).
+// The wide-head kernel (`memory_read_ws`: one head a block, D in {16, 32,
+// 64, 128}, any value width) is warp-specialised for sm_90a:
+// - A producer warpgroup, one thread of which keeps three stages of
+//   64-key K tiles and of V tiles in flight with TMA, K a tile ahead of
+//   V; a tile is a set of 64 x 64 panels in the 128-byte swizzled layout,
+//   its arrival counted on an mbarrier, and the consumers free a stage on
+//   another. setmaxnreg hands the producer's registers to the consumers.
+// - Two consumer warpgroups, each with its own 64 query rows of the
+//   block's 128, share the K and V tiles. A consumer runs Q.K^T as wgmma
+//   (both operands in shared memory), its online softmax in registers,
+//   and P.V as wgmma with P in registers (bf16, rounded at once) and V in
+//   shared memory, into 64 rows x the block's value columns of f32. The
+//   consumers take turns on the tensor cores (two named barriers): in its
+//   turn a consumer issues P.V of tile n and Q.K^T of tile n + 1, and its
+//   softmax of tile n + 1 runs in the other's turn.
+// - Why the columns split where they do: a block takes 128 value columns
+//   (64 where a head has no more), so V||ID_V takes 8 blocks and Q.K^T
+//   runs 8 times per key tile (56% of the executed operations useful at
+//   the cells' shape). ptxas keeps the accumulators of wgmma in flight
+//   within the registers a thread has at entry (168 at 12 warps), and
+//   setmaxnreg does not lift that: with 256 columns (O 128 registers a
+//   thread, S 32) it spills and serialises every wgmma (C7512). Measured
+//   on the H100 at the r50 cell's shape, one read: 6.08 ms with 256-column
+//   blocks, 4.71 ms for 64 rows x 512 columns with Q.K^T shared through P
+//   in shared memory (serialised too), 3.88 ms for this design.
+// - The work of a query tile is the sequence of its live slots' 64-key
+//   tiles; a unit takes a contiguous 1/n_split share of it (balanced
+//   whatever the number of live slots; a slot may be shared by two units).
+//   Where one unit covers the bank (n_split == 1: the wrapper's choice
+//   whenever the blocks fill the card without a split) the kernel finishes
+//   the read: it normalises, writes the outputs and the per-slot mass, in
+//   one launch. Else each unit writes its running max m, its unnormalised
+//   f32 accumulator and, where its share of a slot ends, (m, l_t) to
+//   scratch, and `memory_read_combine` merges the units of a query row:
+//   M = max m_t, L = sum e^(m_t - M) l_t, out = sum_u e^(m_u - M) acc_u /
+//   max(L, 1e-30), mass_t = e^(m_t - M) l_t / max(L, 1e-30).
+// The small-head kernel (`memory_read_heads`: D <= 32 and Dv <= 32, >= 4
+// heads) keeps the earlier design: one block owns 8 heads of a 64-row
+// query tile, each warp 16 rows of two heads with S, P and the online
+// softmax in registers (mma.sync m16n8k16, a two-stage cp.async ring), and
+// it always writes partials for the combine.
 //
 // The values are the VIRTUAL channel-wise concatenation [v1 | v2] of up to
 // two banks (row widths wv1, wv2; v2 may be null): head h owns columns
@@ -59,12 +64,14 @@
 // (the wrappers round f32 storage to bf16 before the launch), the optional
 // temporal-PE term sums q.pe in f32 from the rounded q, p is rounded
 // relative to its unit's running max, l and the mass use the f32 p-sums,
-// outputs are divided by max(L, 1e-30). The tail of the last key tile
-// (HWk = 920 tiles by no power of two) gets logit -inf, never 0. Dead
-// slots (valid == 0) may sit anywhere and are skipped.
+// outputs are divided by max(L, 1e-30). The tail of a slot's last key tile
+// (HWk = 920 tiles by no power of two) gets logit -inf, never 0; TMA's
+// zero fill only keeps its bytes finite. Dead slots (valid == 0) may sit
+// anywhere and are skipped.
 #pragma once
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace rmem {
 namespace tc {
@@ -76,7 +83,7 @@ constexpr float M_INIT = -1e30f;   // the Pallas kernels' running-max init
 constexpr float LOG2E = 1.4426950408889634f;  // e^x = 2^(x log2e)
 constexpr int BQ = 64;             // query rows per block
 constexpr int BK = 64;             // keys per tile
-constexpr int NT = 512;            // threads per block (16 warps)
+constexpr int NT = 512;            // threads of a small-head block
 constexpr int PAD = 8;             // row padding: conflict-free ldmatrix
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -155,8 +162,8 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // k [B, T, HWk, H*D], pe [B, T, H*D] f32 or null, v1 [B, T, HWk, wv1],
 // v2 [B, T, HWk, wv2] or null, valid [B, T]. Scratch (f32): part_acc
 // [B, n_split, HWq, H*cph], part_m [B, H, n_split, HWq], slot_ml
-// [B, H, n_split, HWq, T] (m, l_t). wv1 + wv2 == H * cph; widths are
-// multiples of 8.
+// [B, H, n_split, HWq, T] (m, l_t), unused by the wide-head kernel at
+// n_split == 1. wv1 + wv2 == H * cph; widths are multiples of 8.
 struct ReadArgs {
   const bf16* q;
   const bf16* k;
@@ -171,17 +178,21 @@ struct ReadArgs {
   int cph;        // value columns per head
   int wv1, wv2;
   int n_split;
+  int ncb;        // column blocks of a head (wide-head kernel; dispatch's)
 };
 
-// o1 [B, HWq, wo1], o2 [B, HWq, wo2] or null, mass [B, H, HWq, T] f32;
-// wo1 + wo2 == H * cph.
-template <typename TO>
+// o1 [B, HWq, wo1], o2 [B, HWq, wo2] or null, bf16 or f32; mass
+// [B, H, HWq, T] f32; wo1 + wo2 == H * cph.
 struct OutArgs {
-  TO* o1;
-  TO* o2;
+  void* o1;
+  void* o2;
   float* mass;
   int wo1, wo2;
+  int bf16;       // outputs bf16, else f32
 };
+
+__host__ __device__ constexpr int imin(int x, int y) { return x < y ? x : y; }
+__host__ __device__ constexpr int imax(int x, int y) { return x > y ? x : y; }
 
 constexpr int MAX_H = 64;          // heads (the combine's shared memory)
 
@@ -237,297 +248,492 @@ __device__ __forceinline__ float pe_term(const bf16* qh, int ld, int r,
   return quad_sum(s);
 }
 
-// ------------------------------------------------------------ wide heads
-namespace wide {
+// ------------------------------------------- wide heads (warp-specialised)
+constexpr int NCONS = 2;           // consumer warpgroups: 64 rows each
+constexpr int WS_ROWS = 64 * NCONS;            // query rows of a block
+constexpr int WS_THREADS = 128 * (NCONS + 1);  // and a producer warpgroup
+constexpr int PRODUCER_REGS = 24;
+// a sub-partition's 16,384 registers over its warps: one producer warp
+// at 24 and NCONS consumer warps
+constexpr int CONSUMER_REGS = (512 - PRODUCER_REGS) / NCONS / 8 * 8;
+constexpr int STAGES = 3;          // K and V tiles in flight
+constexpr int PANEL = 64;          // bf16 columns of a 128-byte swizzled row
+constexpr int TILE = 64 * PANEL * 2;     // bytes of a 64 x 64 panel
 
-// Q.K^T: 4 row warps x 4 key warps, each 16 rows x 16 keys of the tile
-constexpr int RW = 4;
-constexpr int KWN = 4;
-constexpr int KPW = BK / KWN;
-// P.V: 2 row warps x 8 column warps, each 32 rows x 64 columns, so that a
-// value fragment read from shared memory serves two 16-row products
-constexpr int PRW = 2;
-constexpr int PCW = 8;
-constexpr int PR = BQ / PRW;       // 32
-constexpr int CW = 64;             // value columns per P.V warp
-constexpr int BN = CW * PCW;       // value columns per block
-constexpr int LDV = BN + PAD;
-constexpr int LDP = BK + PAD;
-
-template <int KD>
-struct Smem {
-  static constexpr int D = 16 * KD;
-  static constexpr int LDK = D + PAD;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(bf16) * BQ * LDK;
-  static constexpr size_t v = k + sizeof(bf16) * 2 * BK * LDK;
-  static constexpr size_t p = v + sizeof(bf16) * 2 * BK * LDV;
-  static constexpr size_t red = p + sizeof(bf16) * BQ * LDP;
-  // row maxima and sums of the key warps, then each row's rescale factor
-  static constexpr size_t bytes = red + sizeof(float) * (2 * KWN + 1) * BQ;
+// TMA descriptors: q [B, HWq, H*D], k [B*T, HWk, H*D], v1 [B*T, HWk, wv1],
+// v2 [B*T, HWk, wv2] (v1 again when there is no second bank)
+struct Maps {
+  CUtensorMap q, k, v1, v2;
 };
 
-// grid (query tiles, n_split, B * H * column blocks)
-template <typename Tag, int KD>
-__global__ void __launch_bounds__(NT, 1)
-    memory_read_wide(const ReadArgs a) {
-  using S = Smem<KD>;
-  constexpr int D = S::D, LDK = S::LDK;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + S::q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + S::k);
-  bf16* vs = reinterpret_cast<bf16*>(smem + S::v);
-  bf16* ps = reinterpret_cast<bf16*>(smem + S::p);
-  float* red_max = reinterpret_cast<float*>(smem + S::red);
-  float* red_sum = red_max + KWN * BQ;
-  float* alpha_s = red_sum + KWN * BQ;
-  __shared__ int live[MAX_T];
-  __shared__ int n_live_s;
+// Where value panel gp of head h comes from. A head's columns are
+// [h * cph, (h + 1) * cph) of [v1 | v2]: n1 of them in v1, the rest in
+// v2, each part cut into 64-column panels from its start, so that a panel
+// lies in one bank. bank: 0 v1, 1 v2; src: its first column in that bank;
+// col: its first column within the head; width: its columns (0: none).
+struct Panel {
+  int bank, src, col, width;
+};
 
-  const int H = a.H, T_cap = a.T_cap, HWq = a.HWq, HWk = a.HWk;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rw = warp % RW, kw = warp / RW;       // Q.K^T role
-  const int prw = warp % PRW, pcw = warp / PRW;   // P.V role
-  const int ncb = (a.cph + BN - 1) / BN;
-  const int cb = blockIdx.z % ncb, bh = blockIdx.z / ncb;
-  const int b = bh / H, h = bh % H, u = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int col0 = cb * BN;               // within the head's columns
-  const int HD = H * D;
-  const int n_kt = (HWk + BK - 1) / BK;
-  int w0, w1;
-  unit_range(live_slots(a, b, live, &n_live_s) * n_kt, a.n_split, u, w0, w1);
-  if (w0 == w1) return;                   // block-uniform
+__host__ __device__ __forceinline__ Panel panel_of(const ReadArgs& a, int h,
+                                                   int gp) {
+  const int c0 = h * a.cph;
+  const int n1 = imax(0, imin(c0 + a.cph, a.wv1) - c0), n2 = a.cph - n1;
+  const int np1 = (n1 + PANEL - 1) / PANEL;
+  if (gp < np1) return {0, c0 + gp * PANEL, gp * PANEL,
+                        imin(PANEL, n1 - gp * PANEL)};
+  const int i = gp - np1;
+  return {1, c0 + n1 - a.wv1 + i * PANEL, n1 + i * PANEL,
+          imax(0, imin(PANEL, n2 - i * PANEL))};
+}
 
-  for (int i = tid; i < BQ * (D / 8); i += NT) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const bool ok = q0 + r < HWq;
-    cp_async16(&qs[r * LDK + c],
-               ok ? a.q + ((size_t)b * HWq + q0 + r) * HD + h * D + c : a.q,
-               ok);
+// value panels of the widest head
+inline int value_panels(const ReadArgs& a) {
+  int most = 0;
+  for (int h = 0; h < a.H; ++h) {
+    int n = 0;
+    while (panel_of(a, h, n).width > 0) ++n;
+    most = imax(most, n);
   }
-  // a thread stages the same 8 value columns of every tile
-  static_assert(NT % (BN / 8) == 0, "a thread's value columns are fixed");
-  const int vc = (tid % (BN / 8)) * 8;
-  const bool v_cols = col0 + vc < a.cph;
-  const int gvc = h * a.cph + col0 + vc;  // within [v1 | v2]
+  return most;
+}
 
-  const int n_tiles = w1 - w0;
-  auto issue = [&](int n) {
-    const int t = live[(w0 + n) / n_kt], kbase = ((w0 + n) % n_kt) * BK;
-    const size_t key0 = ((size_t)b * T_cap + t) * HWk;
-    bf16* kst = ks + (n % 2) * BK * LDK;
-    bf16* vst = vs + (n % 2) * BK * LDV;
-    for (int i = tid; i < BK * (D / 8); i += NT) {
-      const int j = i / (D / 8), c = (i % (D / 8)) * 8;
-      const bool ok = kbase + j < HWk;
-      cp_async16(&kst[j * LDK + c],
-                 ok ? a.k + (key0 + kbase + j) * HD + h * D + c : a.k, ok);
-    }
-    for (int j = tid / (BN / 8); j < BK; j += NT / (BN / 8)) {
-      const bool ok = v_cols && kbase + j < HWk;
-      cp_async16(&vst[j * LDV + vc], v_src(a, gvc, key0 + kbase + j, ok),
-                 ok);
-    }
-  };
+// KP: 64-column panels of Q and K (D = 128: 2; D <= 64: 1, the columns
+// past D zeroed in Q); NC: value columns of a block, 64 or 128
+template <int KP, int NC>
+struct WsSmem {
+  static constexpr int NPV = NC / PANEL;       // value panels of a block
+  static constexpr int q = 0;                  // [NCONS][KP] panels
+  static constexpr int k = q + NCONS * KP * TILE;   // [STAGES][KP]
+  static constexpr int v = k + STAGES * KP * TILE;    // [STAGES][NPV]
+  // each live slot's (m, l_t) where the unit's share of it ends, and its
+  // PE logit term, [live slot][row]
+  static constexpr int ml = v + STAGES * NPV * TILE;
+  static constexpr int pc = ml + MAX_T * WS_ROWS * 8;
+  static constexpr int bar = pc + MAX_T * WS_ROWS * 4;
+  static constexpr int n_bars = 1 + 4 * STAGES;
+  // the base is aligned to 1024 bytes at run time
+  static constexpr int bytes = bar + 8 * n_bars + 1024;
+};
 
-  // Q.K^T role: running max m, sum l and slot sum lt of rows r_lo, r_hi
-  // (the four key warps of a row group keep identical copies)
-  const int r_lo = rw * 16 + lane / 4, r_hi = r_lo + 8;
-  float m_lo = M_INIT, m_hi = M_INIT, l_lo = 0.f, l_hi = 0.f;
-  float lt_lo = 0.f, lt_hi = 0.f, pc_lo = 0.f, pc_hi = 0.f;
-  // P.V role: rows prw * 32 + mi * 16 + {lane / 4, + 8}
-  float acc[2][CW / 8][4];
+// S (the consumer's 64 rows x 64 keys) = Q K^T over KP panels of its Q
+// rows (at q_s) and of the K tile (at k_s)
+template <int KP>
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_s,
+                                         uint32_t k_s) {
+  using namespace hopper;
+  reg_fence(s);
+  wgmma_fence();
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int p = 0; p < KP; ++p)
 #pragma unroll
-    for (int j = 0; j < CW / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+    for (int kk = 0; kk < PANEL / 16; ++kk)
+      wgmma_ss_m64n64<0>(s, desc128(q_s + p * TILE + kk * 32, 16, 1024),
+                         desc128(k_s + p * TILE + kk * 32, 16, 1024), p + kk);
+  wgmma_commit();
+  reg_fence(s);
+}
 
-  issue(0);
-  cp_async_commit();
-  for (int n = 0; n < n_tiles; ++n) {
-    cp_async_wait<0>();
-    // tile n (and the q tile) is in shared memory, and every warp is done
-    // with tile n - 1, whose stage the copy of tile n + 1 now refills
-    __syncthreads();
-    if (n + 1 < n_tiles) {
-      issue(n + 1);
-      cp_async_commit();
-    }
-    const int w = w0 + n, kt = w % n_kt, kbase = kt * BK;
-    const int t = live[w / n_kt];
-    if (n == 0 || kt == 0) {  // a slot starts: its own p-sum and PE term
-      lt_lo = lt_hi = 0.f;
-      if (a.pe != nullptr) {
-        const float* pe_t = a.pe + ((size_t)b * T_cap + t) * HD + h * D;
-        pc_lo = pe_term(qs, LDK, r_lo, pe_t, D, lane);
-        pc_hi = pe_term(qs, LDK, r_hi, pe_t, D, lane);
-      }
-    }
-    const bf16* kst = ks + (n % 2) * BK * LDK;
-    const bf16* vst = vs + (n % 2) * BK * LDV;
+// O (64 rows x NC columns) += P (bf16 in registers: the A fragments of
+// the tile's four 16-key parts) V (NC / 64 panels at v_s)
+template <int NC>
+__device__ __forceinline__ void issue_pv(float (&acc)[NC / 2],
+                                         const uint32_t (&pa)[4][4],
+                                         uint32_t v_s) {
+  using namespace hopper;
+  reg_fence(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<NC, 1>(acc, pa[kk], desc128(v_s + kk * 16 * 128, TILE, 1024),
+                    1);
+  wgmma_commit();
+  reg_fence(acc);
+}
 
-    // S = Q K^T for this warp's 16 rows and 16 keys (two n-tiles of 8),
-    // without the PE term, which is constant along a row
-    float s[2][4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], kb[4];
-      ldmatrix_x4(qa, &qs[(rw * 16 + (lane % 16)) * LDK + kk * 16 +
-                          (lane / 16) * 8]);
-      ldmatrix_x4(kb, &kst[(kw * KPW + (lane % 8) + (lane / 16) * 8) * LDK +
-                           kk * 16 + ((lane / 8) % 2) * 8]);
-      mma(s[0], qa, kb[0], kb[1]);
-      mma(s[1], qa, kb[2], kb[3]);
-    }
-    if (kbase + BK > HWk) {  // the ragged tail: logit -inf, never 0
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (kbase + kw * KPW + nt * 8 + (lane % 4) * 2 + e >= HWk)
-            s[nt][e] = s[nt][2 + e] = -INFINITY;
-    }
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        mx_lo = fmaxf(mx_lo, s[nt][e]);
-        mx_hi = fmaxf(mx_hi, s[nt][2 + e]);
-      }
-    mx_lo = quad_max(mx_lo);
-    mx_hi = quad_max(mx_hi);
-    if (lane % 4 == 0) {
-      red_max[kw * BQ + r_lo] = mx_lo;
-      red_max[kw * BQ + r_hi] = mx_hi;
-    }
-    __syncthreads();  // every key warp's row maxima are in
-#pragma unroll
-    for (int c = 0; c < KWN; ++c) {
-      mx_lo = fmaxf(mx_lo, red_max[c * BQ + r_lo]);
-      mx_hi = fmaxf(mx_hi, red_max[c * BQ + r_hi]);
-    }
-    const float mn_lo = fmaxf(m_lo, mx_lo + pc_lo);
-    const float mn_hi = fmaxf(m_hi, mx_hi + pc_hi);
-    // p = e^(s + pc - m) = 2^(s log2e + (pc - m) log2e)
-    const float c_lo = (pc_lo - mn_lo) * LOG2E, c_hi = (pc_hi - mn_hi) * LOG2E;
-    float ps_lo = 0.f, ps_hi = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[nt][e] = exp2f(fmaf(s[nt][e], LOG2E, c_lo));
-        s[nt][2 + e] = exp2f(fmaf(s[nt][2 + e], LOG2E, c_hi));
-        ps_lo += s[nt][e];
-        ps_hi += s[nt][2 + e];
-      }
-      const int c = kw * KPW + nt * 8 + (lane % 4) * 2;
-      *reinterpret_cast<uint32_t*>(&ps[r_lo * LDP + c]) =
-          pack_bf16(s[nt][0], s[nt][1]);
-      *reinterpret_cast<uint32_t*>(&ps[r_hi * LDP + c]) =
-          pack_bf16(s[nt][2], s[nt][3]);
-    }
-    ps_lo = quad_sum(ps_lo);
-    ps_hi = quad_sum(ps_hi);
-    const float a_lo = exp2f((m_lo - mn_lo) * LOG2E);
-    const float a_hi = exp2f((m_hi - mn_hi) * LOG2E);
-    if (lane % 4 == 0) {
-      red_sum[kw * BQ + r_lo] = ps_lo;
-      red_sum[kw * BQ + r_hi] = ps_hi;
-      if (kw == 0) {
-        alpha_s[r_lo] = a_lo;
-        alpha_s[r_hi] = a_hi;
-      }
-    }
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    __syncthreads();  // P, the row sums and the rescale factors are in
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int c = 0; c < KWN; ++c) {
-      sum_lo += red_sum[c * BQ + r_lo];
-      sum_hi += red_sum[c * BQ + r_hi];
-    }
-    l_lo = l_lo * a_lo + sum_lo;
-    l_hi = l_hi * a_hi + sum_hi;
-    lt_lo = lt_lo * a_lo + sum_lo;
-    lt_hi = lt_hi * a_hi + sum_hi;
-    if ((kt == n_kt - 1 || n == n_tiles - 1) && kw == 0 && cb == 0 &&
-        lane % 4 == 0) {     // the slot's share in this unit ends
-      if (q0 + r_lo < HWq)
-        *slot_rec(a, b, h, u, q0 + r_lo, t) = make_float2(m_lo, lt_lo);
-      if (q0 + r_hi < HWq)
-        *slot_rec(a, b, h, u, q0 + r_hi, t) = make_float2(m_hi, lt_hi);
-    }
+// 2^x on the SFU (ex2.approx.ftz, as exp2f is for normal results; a
+// result below 2^-126 flushes to 0 instead of taking exp2f's slow path)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-    // O = O * alpha + P V over this warp's 32 rows and 64 columns
+// the rows' accumulators times the rescale factors of their new maxima
+template <int NC>
+__device__ __forceinline__ void rescale(float (&acc)[NC / 2], float al_lo,
+                                        float al_hi) {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = prw * PR + mi * 16 + lane / 4;
-      const float al = alpha_s[r], ah = alpha_s[r + 8];
-#pragma unroll
-      for (int j = 0; j < CW / 8; ++j) {
-        acc[mi][j][0] *= al;
-        acc[mi][j][1] *= al;
-        acc[mi][j][2] *= ah;
-        acc[mi][j][3] *= ah;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(pa[mi], &ps[(prw * PR + mi * 16 + (lane % 16)) * LDP +
-                                kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-      for (int jp = 0; jp < CW / 16; ++jp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(
-            vb, &vst[(kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LDV +
-                     pcw * CW + jp * 16 + (lane / 16) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma(acc[mi][2 * jp], pa[mi], vb[0], vb[1]);
-          mma(acc[mi][2 * jp + 1], pa[mi], vb[2], vb[3]);
-        }
-      }
-    }
-  }
-
-  if (kw == 0 && cb == 0 && lane % 4 == 0) {
-    float* pm = a.part_m + (((size_t)b * H + h) * a.n_split + u) * HWq;
-    if (q0 + r_lo < HWq) pm[q0 + r_lo] = m_lo;
-    if (q0 + r_hi < HWq) pm[q0 + r_hi] = m_hi;
-  }
-  const int HC = H * a.cph;
-  float* pa_ = a.part_acc + ((size_t)b * a.n_split + u) * HWq * HC;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int row = q0 + prw * PR + mi * 16 + lane / 4;
-#pragma unroll
-    for (int j = 0; j < CW / 8; ++j) {
-      const int c = col0 + pcw * CW + j * 8 + (lane % 4) * 2;
-      if (c < a.cph) {
-        const int gc = h * a.cph + c;
-        if (row < HWq)
-          store2(pa_ + (size_t)row * HC + gc, acc[mi][j][0], acc[mi][j][1]);
-        if (row + 8 < HWq)
-          store2(pa_ + (size_t)(row + 8) * HC + gc, acc[mi][j][2],
-                 acc[mi][j][3]);
-      }
-    }
+  for (int j = 0; j < NC / 8; ++j) {
+    acc[4 * j] *= al_lo;
+    acc[4 * j + 1] *= al_lo;
+    acc[4 * j + 2] *= al_hi;
+    acc[4 * j + 3] *= al_hi;
   }
 }
 
-}  // namespace wide
+// named barriers 1 .. NCONS: consumer c may issue its wgmma (the one
+// before it has issued its own); they take turns, so that one consumer's
+// softmax runs while another's products keep the tensor cores busy
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (c + 1) % NCONS)
+               : "memory");
+}
+
+// grid (query tiles of 128 rows, n_split, B * H * column blocks)
+template <typename Tag, int KP, int NC>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    memory_read_ws(__grid_constant__ const Maps maps, const ReadArgs a,
+                   const OutArgs o) {
+  using namespace hopper;
+  using S = WsSmem<KP, NC>;
+  constexpr int NPV = S::NPV;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __shared__ int live[MAX_T], slot_pos[MAX_T];
+  __shared__ int n_live_s;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + S::bar);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_v = empty_k + STAGES;
+
+  const int H = a.H, T_cap = a.T_cap, HWq = a.HWq, HWk = a.HWk, D = a.D;
+  const int cb = blockIdx.z % a.ncb, bh = blockIdx.z / a.ncb;
+  const int b = bh / H, h = bh % H, u = blockIdx.y;
+  const int q0 = blockIdx.x * WS_ROWS;
+  const int n_kt = (HWk + BK - 1) / BK;
+  const bool direct = a.n_split == 1;   // this unit covers the bank
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int t = 0; t < T_cap; ++t) {
+      const bool on = a.valid[b * T_cap + t] != 0;
+      slot_pos[t] = on ? n : -1;
+      if (on) live[n++] = t;
+    }
+    n_live_s = n;
+    bar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&full_k[s], 1);
+      bar_init(&full_v[s], 1);
+      bar_init(&empty_k[s], 4 * NCONS);   // one arrival a consumer warp
+      bar_init(&empty_v[s], 4 * NCONS);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+  int w0, w1;
+  unit_range(n_live_s * n_kt, a.n_split, u, w0, w1);
+  if (w0 == w1 && !direct) return;          // block-uniform
+  const int n_tiles = w1 - w0;
+
+  // the warpgroup's role, warp-uniform as the compiler sees it (so that
+  // it allocates each role's registers after its setmaxnreg)
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == NCONS) {
+    // -------------------------------------------- producer warpgroup
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x % 128 != 0) return;
+    bar_expect(full_q, NCONS * KP * TILE);
+#pragma unroll
+    for (int r = 0; r < NCONS; ++r)
+#pragma unroll
+      for (int p = 0; p < KP; ++p)
+        tma_load_3d(smem + S::q + (r * KP + p) * TILE, &maps.q, full_q,
+                    h * D + p * PANEL, q0 + r * 64, b);
+    int n_panels = 0;
+    for (int j = 0; j < NPV; ++j)
+      n_panels += panel_of(a, h, cb * NPV + j).width > 0;
+    // K runs a tile ahead of V: a consumer's turn takes V of tile n and
+    // K of tile n + 1
+    for (int n = 0; n <= n_tiles; ++n) {
+      if (n < n_tiles) {
+        const int s = n % STAGES, w = w0 + n;
+        bar_wait(&empty_k[s], ((n / STAGES) & 1) ^ 1);
+        bar_expect(&full_k[s], KP * TILE);
+#pragma unroll
+        for (int p = 0; p < KP; ++p)
+          tma_load_3d(smem + S::k + (s * KP + p) * TILE, &maps.k, &full_k[s],
+                      h * D + p * PANEL, (w % n_kt) * BK,
+                      b * T_cap + live[w / n_kt]);
+      }
+      if (n > 0) {
+        const int m = n - 1, s = m % STAGES, w = w0 + m;
+        const int kbase = (w % n_kt) * BK, slot = b * T_cap + live[w / n_kt];
+        bar_wait(&empty_v[s], ((m / STAGES) & 1) ^ 1);
+        bar_expect(&full_v[s], n_panels * TILE);
+        for (int j = 0; j < NPV; ++j) {
+          const Panel pn = panel_of(a, h, cb * NPV + j);
+          if (pn.width > 0)
+            tma_load_3d(smem + S::v + (s * NPV + j) * TILE,
+                        pn.bank ? &maps.v2 : &maps.v1, &full_v[s], pn.src,
+                        kbase, slot);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    regs_inc<CONSUMER_REGS>();
+    const int c = role, tid = threadIdx.x % 128;
+    const int lane = tid % 32, warp = tid / 32;
+    // this thread's rows within the block, and in the read
+    const int r_lo = c * 64 + warp * 16 + lane / 4, r_hi = r_lo + 8;
+    const int HD = H * D;
+    const bool keeper = cb == 0;    // writes m and the slot records
+    const uint32_t q_s = smem_u32(smem + S::q) + c * KP * TILE;
+    const uint32_t k_s = smem_u32(smem + S::k), v_s = smem_u32(smem + S::v);
+    float2* ml_s = reinterpret_cast<float2*>(smem + S::ml);
+
+    float acc[NC / 2];
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+    float s[32];          // S of a tile
+    uint32_t pa[4][4];    // its p as the bf16 A fragments of its P.V
+    float m_lo = M_INIT, m_hi = M_INIT, l_lo = 0.f, l_hi = 0.f;
+    float lt_lo = 0.f, lt_hi = 0.f, pc_lo = 0.f, pc_hi = 0.f;
+    float al_lo = 1.f, al_hi = 1.f;   // the rescale P.V of a tile waits for
+
+    bar_wait(full_q, 0);
+    if (D < PANEL) {    // Q's columns past D, the next heads' or zeros: 0
+      const int chunks = (PANEL - D) / 8;
+      for (int i = tid; i < 64 * chunks; i += 128) {
+        const int r = i / chunks, col = D + (i % chunks) * 8;
+        *reinterpret_cast<uint4*>(smem + S::q + c * KP * TILE +
+                                  swizzle128(r, col)) = make_uint4(0, 0, 0, 0);
+      }
+      fence_proxy_async();
+      named_bar(1 + NCONS + c, 128);
+    }
+
+    // The temporal-PE logit terms of this thread's rows for the live
+    // slots of the unit: q.pe_t in f32 from the bf16 q, summed over the
+    // quad, into shared memory ahead of the loop
+    float* pc_s = reinterpret_cast<float*>(smem + S::pc);
+    if (a.pe != nullptr && n_tiles > 0) {
+      for (int pos = w0 / n_kt; pos <= (w1 - 1) / n_kt; ++pos) {
+        const float* pe_t =
+            a.pe + ((size_t)b * T_cap + live[pos]) * HD + h * D;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = half ? r_hi : r_lo, row = q0 + r;
+          float sum = 0.f;
+          if (row < HWq) {
+            const bf16* qr = a.q + ((size_t)b * HWq + row) * HD + h * D;
+            for (int d = lane % 4; d < D; d += 4)
+              sum += __bfloat162float(qr[d]) * pe_t[d];
+          }
+          sum = quad_sum(sum);
+          if (lane % 4 == 0) pc_s[pos * WS_ROWS + r] = sum;
+        }
+      }
+      __syncwarp();
+    }
+
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) bar_arrive(bar);
+    };
+
+    // The online softmax of tile k, S in s: p into pa, the new running
+    // max, sums and rescale factor, the slot record where a slot ends
+    // (live slot, key tile) of the tile the next softmax takes, stepped
+    // along without a division
+    int pos = w0 / n_kt, kt = w0 % n_kt;
+    auto softmax = [&](int k) {
+      const int kbase = kt * BK;
+      if (k == 0 || kt == 0) {     // a slot starts: its p-sum and PE term
+        lt_lo = lt_hi = 0.f;
+        if (a.pe != nullptr) {
+          pc_lo = pc_s[pos * WS_ROWS + r_lo];
+          pc_hi = pc_s[pos * WS_ROWS + r_hi];
+        }
+      }
+      if (kbase + BK > HWk) {      // the ragged tail: logit -inf, never 0
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (kbase + j * 8 + (lane % 4) * 2 + e >= HWk)
+              s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+      }
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          mx_lo = fmaxf(mx_lo, s[4 * j + e]);
+          mx_hi = fmaxf(mx_hi, s[4 * j + 2 + e]);
+        }
+      const float mn_lo = fmaxf(m_lo, quad_max(mx_lo) + pc_lo);
+      const float mn_hi = fmaxf(m_hi, quad_max(mx_hi) + pc_hi);
+      // p = e^(s + pc - m) = 2^(s log2e + (pc - m) log2e), rounded to
+      // bf16 at once into the A fragments of P.V: 16-key part kk holds
+      // keys 16 kk + {2 (lane % 4), + 8} of both rows
+      const float c_lo = (pc_lo - mn_lo) * LOG2E;
+      const float c_hi = (pc_hi - mn_hi) * LOG2E;
+      float ps_lo = 0.f, ps_hi = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float* sj = s + 8 * kk + 4 * jj;
+          const float p0 = exp2_ftz(fmaf(sj[0], LOG2E, c_lo));
+          const float p1 = exp2_ftz(fmaf(sj[1], LOG2E, c_lo));
+          const float p2 = exp2_ftz(fmaf(sj[2], LOG2E, c_hi));
+          const float p3 = exp2_ftz(fmaf(sj[3], LOG2E, c_hi));
+          ps_lo += p0;
+          ps_hi += p2;
+          ps_lo += p1;
+          ps_hi += p3;
+          pa[kk][2 * jj] = pack_bf16(p0, p1);
+          pa[kk][2 * jj + 1] = pack_bf16(p2, p3);
+        }
+      ps_lo = quad_sum(ps_lo);
+      ps_hi = quad_sum(ps_hi);
+      al_lo = exp2_ftz((m_lo - mn_lo) * LOG2E);
+      al_hi = exp2_ftz((m_hi - mn_hi) * LOG2E);
+      l_lo = l_lo * al_lo + ps_lo;
+      l_hi = l_hi * al_hi + ps_hi;
+      lt_lo = lt_lo * al_lo + ps_lo;
+      lt_hi = lt_hi * al_hi + ps_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      if ((kt == n_kt - 1 || k == n_tiles - 1) && lane % 4 == 0) {
+        // the slot's share in this unit ends
+        ml_s[pos * WS_ROWS + r_lo] = make_float2(m_lo, lt_lo);
+        ml_s[pos * WS_ROWS + r_hi] = make_float2(m_hi, lt_hi);
+      }
+      if (++kt == n_kt) {
+        kt = 0;
+        ++pos;
+      }
+    };
+
+    // P.V of tile n and Q.K^T of tile n + 1 go to the tensor cores
+    // together, in this consumer's turn; its softmax of tile n + 1 runs
+    // in the other consumers' turns
+    if (c == NCONS - 1) turn_pass(c);     // consumer 0 issues first
+    if (n_tiles > 0) {
+      turn_wait(c);
+      bar_wait(&full_k[0], 0);
+      issue_qk<KP>(s, q_s, k_s);
+      turn_pass(c);
+      wgmma_wait<0>();
+      reg_fence(s);
+      release(&empty_k[0]);
+      softmax(0);
+    }
+    for (int n = 0; n + 1 < n_tiles; ++n) {
+      const int st = n % STAGES, st1 = (n + 1) % STAGES;
+      turn_wait(c);
+      rescale<NC>(acc, al_lo, al_hi);
+      bar_wait(&full_v[st], (n / STAGES) & 1);
+      issue_pv<NC>(acc, pa, v_s + st * NPV * TILE);
+      bar_wait(&full_k[st1], ((n + 1) / STAGES) & 1);
+      issue_qk<KP>(s, q_s, k_s + st1 * KP * TILE);
+      turn_pass(c);
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence(s);
+      release(&empty_v[st]);
+      release(&empty_k[st1]);
+      softmax(n + 1);
+    }
+    if (n_tiles > 0) {
+      const int n = n_tiles - 1, st = n % STAGES;
+      turn_wait(c);
+      rescale<NC>(acc, al_lo, al_hi);
+      bar_wait(&full_v[st], (n / STAGES) & 1);
+      issue_pv<NC>(acc, pa, v_s + st * NPV * TILE);
+      turn_pass(c);
+      wgmma_wait<0>();
+      reg_fence(acc);
+      release(&empty_v[st]);
+    }
+    if (c == 0) turn_wait(0);     // takes the last consumer's last pass
+
+    // -------------------------------------------------------- epilogue
+    // The slot records, and the mass or the unit's m
+    if (keeper) {
+      __syncwarp();      // the slot records of this warp's rows are in
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r_hi : r_lo, row = q0 + r;
+        const float m = half ? m_hi : m_lo;
+        const float d = fmaxf(half ? l_hi : l_lo, 1e-30f);
+        if (row >= HWq) continue;
+        if (direct) {
+          float* mass = o.mass + (((size_t)b * H + h) * HWq + row) * T_cap;
+          for (int t = lane % 4; t < T_cap; t += 4) {
+            const int p = slot_pos[t];
+            float v = 0.f;
+            if (p >= 0) {
+              const float2 ml = ml_s[p * WS_ROWS + r];
+              v = expf(ml.x - m) * ml.y / d;
+            }
+            mass[t] = v;
+          }
+        } else if (lane % 4 == 0) {
+          a.part_m[(((size_t)b * H + h) * a.n_split + u) * HWq + row] = m;
+          for (int pos = w0 / n_kt; pos <= (w1 - 1) / n_kt; ++pos)
+            *slot_rec(a, b, h, u, row, live[pos]) = ml_s[pos * WS_ROWS + r];
+        }
+      }
+    }
+    // O through shared memory (the Q, K and V tiles, free now), 64
+    // columns at a time: normalised outputs in the output type, or the
+    // unit's f32 partial accumulator; rows of contiguous 16-byte stores
+    constexpr int EW = 64;
+    constexpr int LDO = EW + 8;    // floats a staged row
+    static_assert(NCONS * 64 * LDO * 4 <= S::ml - S::q, "staging fits");
+    float* stage = reinterpret_cast<float*>(smem + S::q) + c * 64 * LDO;
+    const float d_lo = direct ? fmaxf(l_lo, 1e-30f) : 1.f;
+    const float d_hi = direct ? fmaxf(l_hi, 1e-30f) : 1.f;
+    const int HC = H * a.cph;
+    float* part = a.part_acc + ((size_t)b * a.n_split + u) * HWq * HC;
+    named_bar(2 * NCONS + 1, 128 * NCONS);   // all products are done
+#pragma unroll
+    for (int i = 0; i < NC / EW; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < EW / 8; ++jj) {
+        const int j = i * (EW / 8) + jj;        // 8-column group of O
+        const int col = jj * 8 + (lane % 4) * 2;
+        const int rl = r_lo - c * 64, rh = r_hi - c * 64;
+        *reinterpret_cast<float2*>(stage + rl * LDO + col) =
+            make_float2(acc[4 * j] / d_lo, acc[4 * j + 1] / d_lo);
+        *reinterpret_cast<float2*>(stage + rh * LDO + col) =
+            make_float2(acc[4 * j + 2] / d_hi, acc[4 * j + 3] / d_hi);
+      }
+      named_bar(1 + NCONS + c, 128);   // this consumer's rows are in
+      for (int e = tid; e < 64 * (EW / 4); e += 128) {
+        const int r = e / (EW / 4), cc = (e % (EW / 4)) * 4;
+        const int row = q0 + c * 64 + r;
+        const int bc = i * EW + cc;             // column of the block
+        const Panel pn = panel_of(a, h, cb * NPV + bc / PANEL);
+        if (row >= HWq || bc % PANEL >= pn.width) continue;
+        const int hc = h * a.cph + pn.col + bc % PANEL;  // of [o1 | o2]
+        float v[4];
+        load4(stage + r * LDO + cc, v);
+        if (!direct) {
+          store4(part + (size_t)row * HC + hc, v);
+          continue;
+        }
+        const bool first = hc < o.wo1;
+        const int ld = first ? o.wo1 : o.wo2, x = first ? hc : hc - o.wo1;
+        const size_t at = ((size_t)b * HWq + row) * ld + x;
+        if (o.bf16)
+          store4(static_cast<bf16*>(first ? o.o1 : o.o2) + at, v);
+        else
+          store4(static_cast<float*>(first ? o.o1 : o.o2) + at, v);
+      }
+      named_bar(1 + NCONS + c, 128);   // read out before the next part
+    }
+  }
+}
 
 // ----------------------------------------------------------- small heads
 namespace heads {
@@ -810,7 +1016,7 @@ constexpr int NT_COMBINE = 256;
 // the mass.
 template <typename Tag, typename TO>
 __global__ void __launch_bounds__(NT_COMBINE)
-    memory_read_combine(const ReadArgs a, const OutArgs<TO> o) {
+    memory_read_combine(const ReadArgs a, const OutArgs o) {
   __shared__ int live[MAX_T];
   __shared__ int n_live_s;
   __shared__ float M_s[MAX_H], L_s[MAX_H];
@@ -857,9 +1063,12 @@ __global__ void __launch_bounds__(NT_COMBINE)
 #pragma unroll
     for (int e = 0; e < 4; ++e) out[e] /= d;
     if (c < o.wo1)
-      store4(o.o1 + ((size_t)b * HWq + row) * o.wo1 + c, out);
+      store4(static_cast<TO*>(o.o1) + ((size_t)b * HWq + row) * o.wo1 + c,
+             out);
     else
-      store4(o.o2 + ((size_t)b * HWq + row) * o.wo2 + (c - o.wo1), out);
+      store4(static_cast<TO*>(o.o2) + ((size_t)b * HWq + row) * o.wo2 +
+                 (c - o.wo1),
+             out);
   }
   for (int i = tid; i < H * T_cap; i += NT_COMBINE) {
     const int h = i / T_cap, t = i % T_cap;
@@ -885,9 +1094,9 @@ struct FusedRead {};
 struct AttentionRead {};
 
 // Raise kernel K's dynamic shared-memory limit once, then launch it.
-template <auto K>
-cudaError_t launch_dyn(dim3 grid, size_t smem, cudaStream_t st,
-                       const ReadArgs& a) {
+template <auto K, typename... Args>
+cudaError_t launch_dyn(dim3 grid, int threads, size_t smem, cudaStream_t st,
+                       const Args&... args) {
   static bool raised = false;  // one flag per kernel instantiation
   if (!raised) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -896,7 +1105,7 @@ cudaError_t launch_dyn(dim3 grid, size_t smem, cudaStream_t st,
     if (err != cudaSuccess) return err;
     raised = true;
   }
-  K<<<grid, NT, smem, st>>>(a);
+  K<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
@@ -913,61 +1122,96 @@ cudaError_t info_of(size_t smem, int out[3]) {
   return cudaSuccess;
 }
 
+// The wide-head kernel's block width NC for a head of `panels` value
+// panels: 64 columns where one panel holds the head, else 128 over as
+// many column blocks as it takes.
+inline int block_cols(int panels) { return panels <= 1 ? 64 : 128; }
+
 // One body for launching and for reporting the kernel a set of arguments
 // selects: heads_per_block 8 picks memory_read_heads (D <= 32, cph <= 32),
-// 0 memory_read_wide (D in {16, 32, 64, 128}).
+// 0 memory_read_ws (D in {16, 32, 64, 128}). `maps` is read only to
+// launch memory_read_ws.
 template <typename Tag, bool INFO>
-cudaError_t dispatch(const ReadArgs& a, int B, int heads_per_block,
-                     cudaStream_t st, int info[3]) {
-#define RMEM_GO(KERNEL, SMEM, GRID)                                     \
-  return INFO ? info_of<KERNEL>(SMEM, info)                             \
-              : launch_dyn<KERNEL>(GRID, SMEM, st, a)
+cudaError_t dispatch(const ReadArgs& a, const Maps& maps, const OutArgs& o,
+                     int B, int heads_per_block, cudaStream_t st,
+                     int info[3]) {
   const int n_qt = (a.HWq + BQ - 1) / BQ;
   if (heads_per_block == heads::HPB && a.cph <= 32) {
+#define RMEM_GO(KERNEL, SMEM)                                     \
+  return INFO ? info_of<KERNEL>(SMEM, info)                       \
+              : launch_dyn<KERNEL>(grid, NT, SMEM, st, a)
     const dim3 grid(n_qt, a.n_split,
                     B * ((a.H + heads::HPB - 1) / heads::HPB));
     if (a.D == 16 && a.cph <= 16)
       RMEM_GO((heads::memory_read_heads<Tag, 1, 1>),
-              (heads::Smem<1, 1>::bytes), grid);
+              (heads::Smem<1, 1>::bytes));
     if (a.D == 16)
       RMEM_GO((heads::memory_read_heads<Tag, 1, 2>),
-              (heads::Smem<1, 2>::bytes), grid);
+              (heads::Smem<1, 2>::bytes));
     if (a.D == 32 && a.cph <= 16)
       RMEM_GO((heads::memory_read_heads<Tag, 2, 1>),
-              (heads::Smem<2, 1>::bytes), grid);
+              (heads::Smem<2, 1>::bytes));
     if (a.D == 32)
       RMEM_GO((heads::memory_read_heads<Tag, 2, 2>),
-              (heads::Smem<2, 2>::bytes), grid);
+              (heads::Smem<2, 2>::bytes));
+#undef RMEM_GO
     return cudaErrorInvalidValue;
   }
-  if (heads_per_block != 0) return cudaErrorInvalidValue;
-  const dim3 grid(n_qt, a.n_split,
-                  B * a.H * ((a.cph + wide::BN - 1) / wide::BN));
-  if (a.D == 16)
-    RMEM_GO((wide::memory_read_wide<Tag, 1>), (wide::Smem<1>::bytes), grid);
-  if (a.D == 32)
-    RMEM_GO((wide::memory_read_wide<Tag, 2>), (wide::Smem<2>::bytes), grid);
-  if (a.D == 64)
-    RMEM_GO((wide::memory_read_wide<Tag, 4>), (wide::Smem<4>::bytes), grid);
-  if (a.D == 128)
-    RMEM_GO((wide::memory_read_wide<Tag, 8>), (wide::Smem<8>::bytes), grid);
+  if (heads_per_block != 0 ||
+      (a.D != 16 && a.D != 32 && a.D != 64 && a.D != 128))
+    return cudaErrorInvalidValue;
+  ReadArgs w = a;
+  const int panels = value_panels(a), nc = block_cols(panels);
+  w.ncb = (panels + nc / PANEL - 1) / (nc / PANEL);
+  const dim3 grid((a.HWq + WS_ROWS - 1) / WS_ROWS, a.n_split,
+                  B * a.H * w.ncb);
+#define RMEM_WS(KP, NC)                                                 \
+  return INFO ? info_of<memory_read_ws<Tag, KP, NC>>(                   \
+                    WsSmem<KP, NC>::bytes, info)                        \
+              : launch_dyn<memory_read_ws<Tag, KP, NC>>(                \
+                    grid, WS_THREADS, WsSmem<KP, NC>::bytes, st, maps, w, o)
+  if (a.D == 128) {
+    if (nc == 64) RMEM_WS(2, 64);
+    RMEM_WS(2, 128);
+  }
+  if (nc == 64) RMEM_WS(1, 64);
+  RMEM_WS(1, 128);
+#undef RMEM_WS
   return cudaErrorInvalidValue;
-#undef RMEM_GO
 }
 
-// The read and its combine, on `st`.
-template <typename Tag, typename TO>
-cudaError_t launch(const ReadArgs& a, const OutArgs<TO>& o, int B,
+// The read on `st`: one launch of the wide-head kernel at n_split == 1,
+// else the split read and its combine.
+template <typename Tag>
+cudaError_t launch(const ReadArgs& a, const OutArgs& o, int B,
                    int heads_per_block, cudaStream_t st) {
   if (a.T_cap > MAX_T || a.H > MAX_H || a.n_split < 1 || a.cph % 8 ||
-      a.wv1 % 8 ||
-      a.wv2 % 8 || o.wo1 % 8 || a.wv1 + a.wv2 != a.H * a.cph ||
+      a.wv1 % 8 || a.wv2 % 8 || o.wo1 % 8 || a.wv1 + a.wv2 != a.H * a.cph ||
       o.wo1 + o.wo2 != a.H * a.cph)
     return cudaErrorInvalidValue;
+  Maps maps = {};
+  if (heads_per_block == 0) {
+    using hopper::tensor_map;
+    const uint64_t hd = (uint64_t)a.H * a.D, bt = (uint64_t)B * a.T_cap;
+    cudaError_t err = tensor_map(&maps.q, a.q, hd, a.HWq, B);
+    if (err == cudaSuccess) err = tensor_map(&maps.k, a.k, hd, a.HWk, bt);
+    if (err == cudaSuccess)
+      err = tensor_map(&maps.v1, a.v1, a.wv1, a.HWk, bt);
+    if (err == cudaSuccess)
+      err = a.v2 != nullptr ? tensor_map(&maps.v2, a.v2, a.wv2, a.HWk, bt)
+                            : tensor_map(&maps.v2, a.v1, a.wv1, a.HWk, bt);
+    if (err != cudaSuccess) return err;
+  }
   const cudaError_t err =
-      dispatch<Tag, false>(a, B, heads_per_block, st, nullptr);
-  if (err != cudaSuccess) return err;
-  memory_read_combine<Tag, TO><<<dim3(a.HWq, B), NT_COMBINE, 0, st>>>(a, o);
+      dispatch<Tag, false>(a, maps, o, B, heads_per_block, st, nullptr);
+  if (err != cudaSuccess || (heads_per_block == 0 && a.n_split == 1))
+    return err;
+  if (o.bf16)
+    memory_read_combine<Tag, bf16>
+        <<<dim3(a.HWq, B), NT_COMBINE, 0, st>>>(a, o);
+  else
+    memory_read_combine<Tag, float>
+        <<<dim3(a.HWq, B), NT_COMBINE, 0, st>>>(a, o);
   return cudaGetLastError();
 }
 

@@ -6,10 +6,12 @@ CUDA tensor and runs the plain PyTorch version on a CPU tensor; it never
 falls back from a CUDA tensor. `memory_read_fused_plain` is the plain
 version for any device, the reference the kernel is held to.
 
-On the card the bf16 read is two launches, the read split over slots and
-the combine that merges the splits and yields the mass; the counter
-`kernels.b1.launches` (`utils/tracing.py`) counts both (one for
-`precise`).
+On the card the bf16 read is one launch where one unit of the kernel
+covers a query tile's whole bank (`split_count` gives 1: the blocks fill
+the card without a split), else two, the read split over slots and the
+combine that merges the splits and yields the mass; the counter
+`kernels.b1.launches` (`utils/tracing.py`) counts the launches made (one
+for `precise`).
 """
 from __future__ import annotations
 
@@ -26,9 +28,10 @@ from rmem_ocu_tpu_torch.utils import tracing
 M_INIT = -1e30      # running-max init of the reference kernel
 MAX_SLOTS = 32
 # tiles of the bf16 read (csrc/memory_read_tc.cuh)
-BLOCK_ROWS = 64     # query rows per block
+WIDE_ROWS = 128     # query rows per block of the wide-head kernel
+HEADS_ROWS = 64     # query rows per block of the small-head kernel
 BLOCK_KEYS = 64     # keys per tile
-BLOCK_COLS = 512    # value columns per block of the wide-head kernel
+PANEL = 64          # value columns of a panel of the wide-head kernel
 HEADS_PER_BLOCK = 8  # heads per block of the small-head kernel
 
 
@@ -132,32 +135,61 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def column_blocks(cph: int) -> int:
+    """Blocks of the wide-head kernel across a head's cph value columns:
+    a block takes 64 columns where that holds the head, else 128
+    (`block_cols`)."""
+    panels = -(-cph // PANEL)
+    return 1 if panels <= 1 else -(-panels // 2)
+
+
+def split_count(b: int, h: int, hwq: int, d: int, cph: int, hwk: int,
+                sm_count: int) -> int:
+    """Units the key tiles of a query tile's live slots are shared out to:
+    as many as keep every block in one round on `sm_count` SMs (one block
+    is resident per SM: its shared memory) and no more than a slot has
+    tiles, so that no unit is empty. 1 when the blocks of one share each
+    fill the card already: the wide-head kernel then finishes the read in
+    one launch."""
+    hpb = heads_per_block(h, d, cph)
+    if hpb:
+        blocks = -(-hwq // HEADS_ROWS) * b * -(-h // hpb)
+    else:
+        blocks = -(-hwq // WIDE_ROWS) * b * h * column_blocks(cph)
+    return max(1, min(sm_count // blocks, -(-hwk // BLOCK_KEYS)))
+
+
 def read_plan(b: int, h: int, hwq: int, d: int, cph: int, t_cap: int,
               hwk: int, device: torch.device):
-    """(n_split, heads_per_block, scratch) of one bf16 read. The key tiles
-    of a query tile's live slots are shared out to n_split units, as many
-    as keep every block in one round on the card and no more than a slot
-    has tiles, so that no unit is empty; the f32 scratch holds each unit's
-    accumulator [B, n_split, HWq, H*cph], running max [B, H, n_split, HWq]
-    and the (max, p-sum) of each slot share [B, H, n_split, HWq, T, 2]."""
+    """(n_split, heads_per_block, scratch, launches) of one bf16 read.
+    n_split from `split_count` at the card's SM count; the f32 scratch
+    (None where the read is one launch) holds each unit's accumulator
+    [B, n_split, HWq, H*cph], running max [B, H, n_split, HWq] and the
+    (max, p-sum) of each slot share [B, H, n_split, HWq, T, 2]."""
     hpb = heads_per_block(h, d, cph)
-    groups = -(-h // hpb) if hpb else h * -(-cph // BLOCK_COLS)
-    base = -(-hwq // BLOCK_ROWS) * b * groups    # blocks of one share each
-    # one block is resident per SM (its shared memory)
-    n_split = max(1, min(_sm_count(device.index) // base,
-                         -(-hwk // BLOCK_KEYS)))
+    n_split = split_count(b, h, hwq, d, cph, hwk, _sm_count(device.index))
+    if n_split == 1 and not hpb:
+        return n_split, hpb, (None, None, None), 1
     f32 = dict(dtype=torch.float32, device=device)
     scratch = (torch.empty((b, n_split, hwq, h * cph), **f32),
                torch.empty((b, h, n_split, hwq), **f32),
                torch.empty((b, h, n_split, hwq, t_cap, 2), **f32))
-    return n_split, hpb, scratch
+    return n_split, hpb, scratch, 2
 
 
 def read_operands(*xs):
     """The kernels multiply bf16 operands: round f32 storage to bf16 (the
-    rounding the plain version applies), keep bf16 as it is."""
-    return tuple(None if x is None else x.to(torch.bfloat16).contiguous()
-                 for x in xs)
+    rounding the plain version applies), keep bf16 as it is. TMA reads
+    them from 16-byte aligned addresses: a view that starts elsewhere is
+    copied."""
+    out = []
+    for x in xs:
+        if x is not None:
+            x = x.to(torch.bfloat16).contiguous()
+            if x.data_ptr() % 16:
+                x = x.clone()
+        out.append(x)
+    return tuple(out)
 
 
 def _lib():
@@ -220,10 +252,10 @@ def _launch(q, k_bank, v_banks, valid, num_heads, pe, precise):
                        device=q.device)
     two = len(v_banks) == 2
     if precise:
-        n_split, hpb, scratch = 1, 0, (None, None, None)
+        n_split, hpb, scratch, launches = 1, 0, (None, None, None), 1
     else:
-        n_split, hpb, scratch = read_plan(b, h, hwq, hd // h, sum(dvs),
-                                          t_cap, hwk, q.device)
+        n_split, hpb, scratch, launches = read_plan(
+            b, h, hwq, hd // h, sum(dvs), t_cap, hwk, q.device)
         q, k_bank, *v_banks = read_operands(q, k_bank, *v_banks)
         pe = None if pe is None else pe.float()
     ptr = lambda x: None if x is None else x.data_ptr()
@@ -236,8 +268,7 @@ def _launch(q, k_bank, v_banks, valid, num_heads, pe, precise):
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'memory_read kernel launch failed: CUDA error {rc}')
-    # the bf16 read is two kernels: the split read and its combine
-    tracing.count('kernels.b1.launches', 1 if precise else 2)
+    tracing.count('kernels.b1.launches', launches)
     return tuple(outs), mass.mean(1)
 
 

@@ -14,9 +14,10 @@ layout the kernel reads each head by stride, so the head-fold transposes of
 the JAX wrapper are not made. The value bank may be given as two banks
 whose channel-wise concatenation is meant (DeAOT's V||ID_V): with an even
 head count each head lies in one of them and no concatenation is
-materialised. On the card a read is two launches (the read split over
-slots and the combine), and the counter `kernels.b3.launches`
-(`utils/tracing.py`) counts both.
+materialised. On the card a read is one launch, or two (the read split
+over slots and the combine) where `memory_read.split_count` splits it,
+and the counter `kernels.b3.launches` (`utils/tracing.py`) counts the
+launches made.
 Neither wrapper has a backward: each raises on an input that requires grad
 under grad mode, on every device.
 """
@@ -88,21 +89,20 @@ def _launch(q, k_bank, v_banks, valid, num_heads):
     out = torch.empty((b, hwq, hdv), dtype=torch.float32, device=q.device)
     mass = torch.empty((b, h, hwq, t_cap), dtype=torch.float32,
                        device=q.device)
-    n_split, hpb, scratch = read_plan(b, h, hwq, hd // h, dv, t_cap, hwk,
-                                      q.device)
+    n_split, hpb, scratch, launches = read_plan(b, h, hwq, hd // h, dv,
+                                                t_cap, hwk, q.device)
     q, k_bank, *v_banks = read_operands(q, k_bank, *v_banks)
     two = len(v_banks) == 2
-    rc = _lib()(q.data_ptr(), k_bank.data_ptr(), v_banks[0].data_ptr(),
-                v_banks[1].data_ptr() if two else None, valid_i.data_ptr(),
-                out.data_ptr(), mass.data_ptr(),
-                *(x.data_ptr() for x in scratch), b, h, t_cap, hwq, hwk,
+    ptr = lambda x: None if x is None else x.data_ptr()
+    rc = _lib()(ptr(q), ptr(k_bank), ptr(v_banks[0]),
+                ptr(v_banks[1]) if two else None, ptr(valid_i), ptr(out),
+                ptr(mass), *map(ptr, scratch), b, h, t_cap, hwq, hwk,
                 hd // h, dv, v_banks[0].shape[3], n_split, hpb,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f'memory_read_attention kernel launch failed: '
                            f'CUDA error {rc}')
-    # two kernels: the read split over slots and its combine
-    tracing.count('kernels.b3.launches', 2)
+    tracing.count('kernels.b3.launches', launches)
     return out, mass
 
 

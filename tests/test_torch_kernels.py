@@ -212,3 +212,51 @@ def test_split_combine_read_matches_one_pass_and_pallas(heads, n_banks,
         interpret=True)
     np.testing.assert_allclose(got_mass.numpy(), np.asarray(pallas_mass),
                                rtol=1e-4, atol=1e-4)
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize('b,h,hw,d,cph,want', [
+    (8, 1, 37 * 66, 128, 1024, 1),     # r50_deaotl.vost_b8
+    (8, 1, 37 * 65, 128, 1024, 1),     # swinb_deaotl.vost_b8
+    (1, 1, 23 * 40, 128, 1024, 2),     # one stream at 23x40
+    (1, 1, 23 * 40, 128, 512, 4),      # B1 on a TP shard, M = 2
+    (1, 1, 23 * 40, 128, 256, 8),      # B1 on a TP shard, M = 4
+    (1, 2, 23 * 40, 128, 256, 4),      # B3 on a TP shard, M = 2
+    (1, 2, 23 * 40, 128, 128, 8),      # B3 on a TP shard, M = 4
+], ids=['r50_vost_b8', 'swinb_vost_b8', 'b1_23x40', 'tp_m2', 'tp_m4',
+        'b3_tp_m2', 'b3_tp_m4'])
+def test_split_count_of_the_main_shapes(b, h, hw, d, cph, want):
+    """The cells' reads are one launch (n_split 1); one stream at 23x40
+    and the TP shards split over slots."""
+    from rmem_ocu_tpu_torch.ops.kernels.memory_read import split_count
+    assert split_count(b, h, hw, d, cph, hw, H100_SMS) == want
+
+
+def test_split_count_leaves_no_unit_empty():
+    """Over batches, grids, heads, widths and SM counts, no unit of the
+    split is empty for any number of live slots, and more blocks than
+    SMs never split."""
+    from rmem_ocu_tpu_torch.ops.kernels.memory_read import (
+        BLOCK_KEYS, HEADS_ROWS, WIDE_ROWS, column_blocks, heads_per_block,
+        split_count)
+    for b in (1, 2, 8):
+        for hw in (36, 81, 858, 920, 2405, 2442, 4080):
+            for h, d, cph in ((1, 128, 1024), (1, 128, 512), (2, 128, 256),
+                              (2, 32, 32), (8, 32, 32), (1, 64, 80)):
+                for sms in (1, 78, 132):
+                    n = split_count(b, h, hw, d, cph, hw, sms)
+                    n_kt = -(-hw // BLOCK_KEYS)
+                    hpb = heads_per_block(h, d, cph)
+                    if hpb:
+                        blocks = -(-hw // HEADS_ROWS) * b * -(-h // hpb)
+                    else:
+                        blocks = (-(-hw // WIDE_ROWS) * b * h
+                                  * column_blocks(cph))
+                    assert 1 <= n <= n_kt
+                    assert n == 1 or blocks * n <= sms
+                    for n_live in range(1, 11):
+                        work = n_live * n_kt
+                        bounds = [u * work // n for u in range(n + 1)]
+                        assert all(x < y for x, y in zip(bounds, bounds[1:]))

@@ -13,7 +13,7 @@ import torch
 from rmem_ocu_tpu_torch.ops.kernels.local_attn import (
     local_window_attention, local_window_attention_plain)
 from rmem_ocu_tpu_torch.ops.kernels.memory_read import (
-    memory_read_fused, memory_read_fused_plain)
+    memory_read_fused, memory_read_fused_plain, read_plan)
 from rmem_ocu_tpu_torch.ops.kernels.memory_read_mh import (
     memory_read_attention, memory_read_attention_plain, memory_read_multihead,
     memory_read_multihead_plain)
@@ -64,6 +64,14 @@ def _counts():
     return tuple(map(_launches, ('b1', 'b2', 'b3')))
 
 
+def _plan_launches(b, heads, hwq, d, cph, hwk):
+    """Launches of one bf16 bank read at these shapes: 1 where one unit
+    covers the bank (the wide-head kernel finishes the read), else 2 (the
+    split read and its combine)."""
+    return read_plan(b, heads, hwq, d, cph, 1, hwk,
+                     torch.device('cuda'))[3]
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernels run only on the card')
@@ -98,8 +106,10 @@ def test_memory_read_kernel_matches_plain(dtype, precise, tol):
         before = _launches('b1')
         got, got_mass = memory_read_fused(*args, **kw)
         want, want_mass = memory_read_fused_plain(*args, **kw)
-        # the bf16 read is two launches: the split read and its combine
-        assert _launches('b1') == before + (1 if precise else 2)
+        b, hwq, hd = q.shape
+        assert _launches('b1') == before + (1 if precise else _plan_launches(
+            b, heads, hwq, hd // heads, sum(v.shape[-1] for v in vs) // heads,
+            k.shape[2]))
         for g, w in zip(got, want):
             _assert_close(g, w, tol)
         torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
@@ -138,24 +148,27 @@ def test_memory_read_attention_kernel_matches_plain(heads, two_banks, dtype):
     v_bank = ((t(v), t(id_v)) if two_banks
               else torch.cat([t(v), t(id_v)], dim=-1))
     args = (t(q), t(k), v_bank, torch.from_numpy(valid).to(dev), heads, scale)
+    b, hwq, _ = q.shape
+    d, dv = q.shape[-1] // heads, 2 * v.shape[-1] // heads
+    hwk = k.shape[2]
+    launches = _plan_launches(b, heads, hwq, d, dv, hwk)
     before = _launches('b3')
     got, got_mass = memory_read_multihead(*args)
-    assert _launches('b3') == before + 2
+    assert _launches('b3') == before + launches
     want, want_mass = memory_read_multihead_plain(*args)
     assert got.dtype == torch.float32
     _assert_close(got, want, None)
     torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
 
     # the folded layout: one head per leading row
-    b, hwq, _ = q.shape
-    d, dv = q.shape[-1] // heads, 2 * v.shape[-1] // heads
     cat = torch.cat([t(v), t(id_v)], dim=-1)
     fold = lambda x, n: x.reshape(*x.shape[:-1], heads, n).movedim(
         -2, 1).reshape(b * heads, *x.shape[1:-1], n).contiguous()
     folded = (fold(t(q) * scale, d), fold(t(k), d), fold(cat, dv),
               torch.from_numpy(valid).to(dev).repeat_interleave(heads, dim=0))
     got, got_mass = memory_read_attention(*folded)
-    assert _launches('b3') == before + 4
+    assert _launches('b3') == before + launches + _plan_launches(
+        b * heads, 1, hwq, d, dv, hwk)
     want, want_mass = memory_read_attention_plain(*folded)
     _assert_close(got, want, None)
     torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
@@ -379,6 +392,41 @@ def test_memory_read_kernel_at_swin_grid(heads, d, dvs, b):
     torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
 
 
+# The benchmark cells' grids: VOST 577x1041 (37x66 = 2,442 tokens) through
+# ResNet-50 and 592x1040 (37x65 = 2,405) through Swin-B, 8 streams; and
+# one stream at 23x40, where the read is split over slots.
+CELL_GRIDS = [((37, 66), 8, 1), ((37, 65), 8, 1), ((23, 40), 1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size_2d,b,launches', CELL_GRIDS,
+                         ids=['r50_vost_b8', 'swinb_vost_b8', 'b1_23x40'])
+def test_memory_read_kernel_at_cell_shapes(size_2d, b, launches):
+    """B1 as the DeAOT read of the benchmark cells calls it: one head of
+    128, V and ID_V of 512 each, T_cap 10 with a dead slot, the temporal
+    PE. At 8 streams the blocks fill the card unsplit and the kernel
+    finishes the read in one launch; one stream at 23x40 splits it over
+    slots and combines (two launches)."""
+    dev = _cuda()
+    rng = np.random.RandomState(size_2d[1] + b)
+    hw, t_cap, d = size_2d[0] * size_2d[1], 10, 128
+    t = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    q = t(rng.randn(b, hw, d))
+    k = t(rng.randn(b, t_cap, hw, d))
+    vs = tuple(t(rng.randn(b, t_cap, hw, 512)) for _ in range(2))
+    valid = torch.from_numpy(np.stack([_dead_slots(t_cap, 'middle')] * b))
+    pe = t(rng.randn(1, t_cap, d) * 0.05)
+    args = (q, k, vs, valid.to(dev), 1, d ** -0.5)
+    before = _launches('b1')
+    got, got_mass = memory_read_fused(*args, mem_pe=pe)
+    assert _launches('b1') == before + launches
+    want, want_mass = memory_read_fused_plain(*args, mem_pe=pe)
+    for g, w in zip(got, want):
+        _assert_close(g, w, None)
+    torch.testing.assert_close(got_mass, want_mass, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('b', [1, 8])
 def test_local_attention_kernel_at_swin_grid(b):
@@ -568,7 +616,7 @@ TP_GRID = (23, 40)
     (2, 32, (64,))], ids=['deaot_m2', 'deaot_m4', 'aot_m2', 'aot_m4'])
 def test_memory_read_kernel_at_tp_shards(heads, d, dvs, b):
     """B1 on a rank's shard: one head with V and ID_V of 512/M each, and
-    8/M AOT heads of 32 (2 heads a rank takes memory_read_wide)."""
+    8/M AOT heads of 32 (2 heads a rank takes memory_read_ws)."""
     dev = _cuda()
     rng = np.random.RandomState(heads + b + dvs[0])
     hw, t_cap = TP_GRID[0] * TP_GRID[1], 10
@@ -894,6 +942,9 @@ def test_kernel_wrappers_ignore_the_switch_on_the_card(monkeypatch):
     default, n_default = run()
     monkeypatch.setenv('RMEM_BF16_PROBS', '0')
     switched, n_switched = run()
-    assert n_default == n_switched == (2, 1, 2)
+    # one key tile a slot: each bank read is one launch
+    want = (_plan_launches(2, 1, 40, 16, 48, 36), 1,
+            _plan_launches(2, 2, 40, 16, 48, 36))
+    assert n_default == n_switched == want
     for a, b in zip(default, switched):
         assert torch.equal(a, b)
