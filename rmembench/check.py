@@ -1,7 +1,8 @@
 """The comparison that decides `correct`.
 
 Once the window has closed and the program's state is freed, the plain
-float32 reference (`reference/`, TF32 off) follows the checked streams
+float32 reference of the configuration's family
+(`reference/<family>.py`, TF32 off) follows the checked streams
 from their reference frame through every frame the program propagated,
 set-up and traced steps included: it reads the same frames, writes its
 memory with the program's masks and, where the program evicted, drops the
@@ -28,11 +29,12 @@ of the benchmark's limits.
 from __future__ import annotations
 
 import time
+from types import ModuleType
 from typing import Dict, List
 
 import torch
 
-from rmembench.reference.model import DeAOTReference, upsample
+from rmembench.reference.model import upsample
 from rmembench.reference.stream import ReferenceStream
 from rmembench.traffic import ping_pong
 
@@ -43,22 +45,22 @@ def _held(ids_row) -> set:
     return {int(i) for i in ids_row.tolist() if i >= 0}
 
 
-def judge(weights: Dict[str, torch.Tensor], config: dict, traffic: dict,
-          clips, streams: List[int], masks: torch.Tensor,
-          bank_ids: torch.Tensor, device, control: bool = False,
-          log=None) -> Dict[str, float]:
+def judge(family: ModuleType, weights: Dict[str, torch.Tensor],
+          config: dict, traffic: dict, clips, streams: List[int],
+          masks: torch.Tensor, bank_ids: torch.Tensor, device,
+          control: bool = False, log=None) -> Dict[str, float]:
     """masks [n, S, H, W] uint8 and bank_ids [n, S, T] (-1 free): the
     program's masks and bank frame ids of the checked streams after each
     frame t < n (masks[0] is unused: the reference frame has no
-    prediction)."""
+    prediction). `family` is the configuration's reference module."""
     t0 = time.perf_counter()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        out = _judge(weights, config, traffic, clips, streams, masks,
-                     bank_ids, device, control)
+        out = _judge(family, weights, config, traffic, clips, streams,
+                     masks, bank_ids, device, control)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
@@ -68,13 +70,13 @@ def judge(weights: Dict[str, torch.Tensor], config: dict, traffic: dict,
     return out
 
 
-def _judge(weights, config, traffic, clips, streams, masks, bank_ids,
-           device, control):
+def _judge(family, weights, config, traffic, clips, streams, masks,
+           bank_ids, device, control):
     mc = config['model']
     w32 = {k: v.float() for k, v in weights.items()}
 
     def stream(operands):
-        return ReferenceStream(DeAOTReference(w32, mc, operands),
+        return ReferenceStream(family.Reference(w32, mc, operands),
                                traffic['objects'], traffic['gap'],
                                mc['former_mem_len'], mc['latter_mem_len'])
     sides = {'': stream('float32')}

@@ -3,9 +3,11 @@ check, the metrics.
 
 Everything that belongs to a cell comes from files, found by name:
 `BENCHMARK.json` names the cell's configuration and traffic; the
-configuration's file (`configs/`), the traffic file (`traffic/`), the
-cell's limits (`limits/<cell>.json`) and one reader per per-layer metric
-(`metrics/<metric>.py`) hold the rest.
+configuration's file (`configs/`), whose `reference` key names its
+reference family (`reference/<family>.py`: the plain model the check
+follows, the FLOP count and each kernel's work), the traffic file
+(`traffic/`), the cell's limits (`limits/<cell>.json`) and one reader per
+per-layer metric (`metrics/<metric>.py`) hold the rest.
 
 Set-up: the model through the package's entry points, its weights drawn
 on the device from the seed, the clips' pool staged in pinned memory,
@@ -24,26 +26,57 @@ census's ranges.
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
 import json
 import os
 import random
+import re
 import statistics
 import sys
 import time
 from contextlib import nullcontext
 from pathlib import Path
-from types import SimpleNamespace
+from types import ModuleType, SimpleNamespace
 from typing import Callable, List
 
 import torch
 from torch.autograd.profiler import record_function
 
-from rmembench import census, check, flops, program, trace
+from rmembench import census, check, program, trace
 from rmembench import traffic as traffic_mod
 from rmembench.weights import seeded_weights
 
 GIB = 2 ** 30
+# what the harness reaches a reference family through
+FAMILY_INTERFACE = ('Reference', 'step_flops', 'kernel_work')
+
+
+def load_family(config: dict) -> ModuleType:
+    """The module `rmembench.reference.<family>` that the configuration's
+    `reference` key names; raises where the key, the module or a part of
+    the family's interface is missing."""
+    family = config.get('reference')
+    if not isinstance(family, str) or not re.fullmatch(r'[A-Za-z0-9_]+',
+                                                       family):
+        raise KeyError(f'configuration {config.get("name")!r}: no '
+                       f'"reference" key naming its reference family, '
+                       f'the module rmembench/reference/<family>.py')
+    module = f'rmembench.reference.{family}'
+    try:
+        mod = importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise ModuleNotFoundError(
+            f'configuration {config.get("name")!r} names the reference '
+            f'family {family!r}: no module {module} '
+            f'(rmembench/reference/{family}.py)', name=module) from None
+    missing = [n for n in FAMILY_INTERFACE if not hasattr(mod, n)]
+    if missing:
+        raise AttributeError(f'{module} is no reference family: it has no '
+                             f'{", ".join(missing)}')
+    return mod
 
 
 def load_cell(root: Path, workload: str) -> dict:
@@ -64,6 +97,7 @@ def load_cell(root: Path, workload: str) -> dict:
         'name': workload,
         'chips': cell['chips'],
         'config': config,
+        'family': load_family(config),
         'traffic': traffic_mod.load(root, cell['traffic']),
         'limits': json.loads((root / 'rmembench' / 'limits'
                               / f'{workload}.json').read_text()),
@@ -346,8 +380,9 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, device,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    readings = check.judge(weights, config, tr, clips, streams, masks,
-                           bank_ids, device, control=control, log=log)
+    family = cell['family']
+    readings = check.judge(family, weights, config, tr, clips, streams,
+                           masks, bank_ids, device, control=control, log=log)
     correct = check.verdict(readings, cell['limits'])
 
     # ---------------------------------------------------------- metrics
@@ -356,8 +391,9 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, device,
         steps_ms=step_ms, host_ms=host_ms, window_s=window_s,
         n_steps=n_steps, census=cen, timeline=timeline,
         bank_bytes=bank_bytes, shapes=shapes,
-        flops_per_frame=lambda: flops.step_flops(
-            shapes, mc, size, mc['former_mem_len'] + mc['latter_mem_len']))
+        flops_per_frame=lambda: family.step_flops(
+            shapes, mc, size, mc['former_mem_len'] + mc['latter_mem_len']),
+        kernel_work=lambda: family.kernel_work(mc, b, grid))
     metrics = {}
     if traced:
         for m in cell['per_layer']:

@@ -1,7 +1,8 @@
 """The whole step's share of the card's peak, %: the operations of a step
-(counted on the reference at the cell's shapes, `rmembench/flops.py`,
-times the streams) times the steps of the traced run's untraced window,
-over its seconds times the bf16 dense peak."""
+(counted on the configuration's reference family at the cell's shapes,
+its `step_flops` through `rmembench/flops.py`, times the streams) times
+the steps of the traced run's untraced window, over its seconds times the
+bf16 dense peak."""
 from rmembench.roofline import PEAK_FLOPS
 
 

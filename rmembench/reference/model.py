@@ -1,15 +1,15 @@
-"""Plain PyTorch reference of one DeAOT-L inference step (R50 or Swin-B).
+"""The parts of the plain PyTorch references that every family shares.
 
-A frozen, self-contained copy of the mathematics of DeAOT-L with RMem
-(Yang & Yang 2022, DeAOT; Zhou et al. 2024, RMem), written for clarity,
-not speed: float32 throughout, every convolution and product a plain
-torch call, the long-term read and the self-attention dense softmax
-attention, the short-term read a softmax over each query's 15x15 window
-(a block of query rows at a time against the key rows their windows
-reach, every key outside a query's window masked). It imports nothing of
-the program it judges. It reads the weights as a flat dict under the
-state_dict keys the measured package uses, so that one set of seeded
-weights loads into both.
+A frozen, self-contained copy of the mathematics that the families of
+`rmembench/reference/<family>.py` build on, written for clarity, not
+speed: float32 throughout, every convolution and product a plain torch
+call. It holds the encoders (ResNet-50 stages 1-3, Swin-B stages 0-2) and
+their projection, the norms, the id bank's strided convolution, RMem's
+temporal PE (Zhou et al. 2024), the FPN decoder, the float8 rounding of
+the control, the window plan of a 15x15 short-term read, and
+`mask_unused` / `upsample`. It imports nothing of the program it judges.
+It reads the weights as a flat dict under the state_dict keys the
+measured package uses, so that one set of seeded weights loads into both.
 
 `operands='float8'` rounds both operands of every product (linear,
 convolution, attention) to float8 e4m3 with one scale per tensor (its
@@ -21,7 +21,7 @@ Run it with TF32 off (`torch.backends.cuda.matmul.allow_tf32 = False`,
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,10 +113,19 @@ def local_window_plan(rows: int, h: int, w: int, r0: int) -> torch.Tensor:
     return torch.stack([index, inside.long()])
 
 
-class DeAOTReference:
-    """DeAOT-L's inference step on float32 weights `weights` (state_dict
-    keys of the measured package). `model` is the configuration file's
-    `model` block (encoder, widths, id and bank sizes, align_corners)."""
+def grid_of(size: Sequence[int], align_corners: bool) -> Tuple[int, int]:
+    """The 16x grid of an input of `size` (h, w)."""
+    h, w = size
+    if align_corners:
+        return (h - 1) // 16 + 1, (w - 1) // 16 + 1
+    return h // 16, w // 16
+
+
+class ModelParts:
+    """The shared parts of a family's reference on float32 weights
+    `weights` (state_dict keys of the measured package). `model` is the
+    configuration file's `model` block (encoder, widths, id and bank
+    sizes, align_corners)."""
 
     def __init__(self, weights: Dict[str, torch.Tensor], model: dict,
                  operands: str = 'float32'):
@@ -126,7 +135,6 @@ class DeAOTReference:
         self.m = model
         self.q = fp8_round if operands == 'float8' else _identity
         self.d = model['encoder_embedding_dim']
-        self.d_att = self.d // 2
         self._local = {}
 
     def _cached(self, key, make, device):
@@ -271,10 +279,10 @@ class DeAOTReference:
         return xs[:3] + [self.conv(xs[3], 'encoder_projector')]
 
     # ------------------------------------------------------------ identities
-    def id_tokens(self, label):
-        """label int [B, H, W] -> id tokens [B, hw, d]: the one-hot of the
-        ids (ids 0..max_obj_num, 255 on the ignore channel), a strided conv
-        down to the 16x grid, a layer norm."""
+    def id_conv(self, label):
+        """label int [B, H, W] -> [B, hw, d]: the one-hot of the ids (ids
+        0..max_obj_num, 255 on the ignore channel) through the id bank's
+        strided conv down to the 16x grid, as tokens."""
         n_ids = self.m['max_obj_num'] + 1
         n_ch = self.m['id_dim']
         raw = label.long()
@@ -285,176 +293,19 @@ class DeAOTReference:
         pad = 8 if self.m['align_corners'] else 0
         x = self.conv(one_hot.permute(0, 3, 1, 2), 'patch_wise_id_bank', 16,
                       pad)
-        return self.ln(x.flatten(2).transpose(1, 2), 'id_norm')
-
-    # ----------------------------------------------------------- attentions
-    def _gate_project(self, out, u, p, size_2d):
-        """The gated attentions' tail: out * u, a 5x5 depthwise conv, the
-        output projection."""
-        b, hw, c = out.shape
-        x = (out * u).transpose(1, 2).reshape(b, c, *size_2d)
-        x = self.conv(x, p + '.dw_conv.conv', 1, 2, groups=c)
-        return self.linear(x.flatten(2).transpose(1, 2), p + '.projection')
-
-    def bank_read(self, q, keys, values, scale):
-        """Softmax attention of q [B, hw, D] over every token of the bank's
-        frames, keys [B, L, hw, D] and values [B, L, hw, E]. Returns
-        (out [B, hw, E], mass [B, hw, L]: each query's probability on each
-        frame)."""
-        b, n_frames, hw_k, _ = keys.shape
-        k = keys.reshape(b, n_frames * hw_k, -1)
-        v = values.reshape(b, n_frames * hw_k, -1)
-        outs, masses = [], []
-        for s in range(0, q.shape[1], BANK_CHUNK):
-            p = torch.softmax(self.mm(q[:, s:s + BANK_CHUNK] * scale,
-                                      k.transpose(1, 2)), dim=-1)
-            outs.append(self.mm(p, v))
-            masses.append(p.reshape(b, p.shape[1], n_frames, hw_k).sum(-1))
-        return torch.cat(outs, 1), torch.cat(masses, 1)
-
-    def local_read(self, q, k, v, rel, size_2d, scale):
-        """Softmax attention of each query over the keys of its 15x15
-        window inside the image, with the relative bias rel [B, hw, 225]
-        of each window offset: q, k [B, hw, D], v [B, hw, E]. Computed a
-        block of LOCAL_ROWS query rows at a time against the rows of keys
-        their windows reach, every other key of the block at -inf."""
-        h, w = size_2d
-        md = LOCAL_MAX_DIS
-        b = q.shape[0]
-
-        def padded(x):
-            x2 = x.reshape(b, h, w, -1)
-            return F.pad(x2, (0, 0, md, md, md, md))
-        kp, vp = padded(k), padded(v)
-        qs = (q * scale).reshape(b, h, w, -1)
-        rel = rel.reshape(b, h, w, -1)
-        outs = []
-        for r0 in range(0, h, LOCAL_ROWS):
-            rows = min(LOCAL_ROWS, h - r0)
-            index, inside = self._cached(
-                ('local', rows, h, w, r0),
-                lambda: local_window_plan(rows, h, w, r0), q.device)
-            inside = inside.bool()
-            keys = kp[:, r0:r0 + rows + 2 * md].reshape(b, -1, kp.shape[-1])
-            vals = vp[:, r0:r0 + rows + 2 * md].reshape(b, -1, vp.shape[-1])
-            bias = torch.full((b, rows * w, keys.shape[1]), float('-inf'),
-                              device=q.device)
-            window = rel[:, r0:r0 + rows].reshape(b, rows * w, -1)
-            bias.scatter_(2, index.expand(b, -1, -1),
-                          window.masked_fill(~inside, float('-inf')))
-            logits = self.mm(qs[:, r0:r0 + rows].reshape(b, rows * w, -1),
-                             keys.transpose(1, 2)) + bias
-            outs.append(self.mm(torch.softmax(logits, dim=-1), vals))
-        return torch.cat(outs, 1)
-
-    # ------------------------------------------------------------------ GPM
-    def gpm_layer(self, i, tgt, tgt_id, bank, short, id_emb, size_2d, pe):
-        """One gated propagation layer. bank: (k [B,L,hw,Da] with the
-        temporal PE not yet added, v, id_v [B,L,hw,E]) or None on the
-        reference frame, which reads itself; short: (k, v, id_v) of the
-        previous frame or None; pe: (cur [Da], mem [L, Da]) or None.
-        Returns (tgt, tgt_id, memories, mass [B, hw, L])."""
-        p = f'LSTT.layers.{i}'
-        da = self.d_att
-        x = self.ln(tgt, p + '.norm1')
-        curr_q, curr_v = self.linear(x, p + '.linear_QV').split(
-            [da, 2 * self.d], dim=-1)
-        curr_k, curr_v = curr_q, F.silu(curr_v)
-        curr_u = self.linear(x, p + '.linear_U')
-        if tgt_id is None:
-            u = torch.cat([F.silu(curr_u), torch.ones_like(curr_u)], dim=-1)
-            curr_id_v = None
-        else:
-            curr_id_v = self.ln(tgt_id, p + '.id_norm1')
-            u = F.silu(torch.cat([curr_u, self.linear(
-                curr_id_v, p + '.linear_ID_U')], dim=-1))
-        mems = {'k': curr_k, 'v': curr_v, 'id_v': curr_id_v}
-        if bank is None:
-            fused = self.fuse_id(i, curr_id_v, id_emb)
-            mems['fused_id_v'] = fused
-            bank = (curr_k[:, None], curr_v[:, None], fused[:, None])
-            short = (curr_k, curr_v, fused)
-        mem_k, mem_v, mem_id_v = bank
-        q_time = curr_q
-        if pe is not None:
-            q_time = curr_q + pe[0]
-            mem_k = mem_k + pe[1][None, :, None, :]
-        scale = da ** -0.5
-        long_out, mass = self.bank_read(
-            q_time, mem_k, torch.cat([mem_v, mem_id_v], dim=-1), scale)
-        long_out = self._gate_project(long_out, u, p + '.long_term_attn',
-                                      size_2d)
-        lp = p + '.short_term_attn.relative_emb_k'
-        rel = F.linear(self.q(curr_q), self.q(
-            self.w[lp + '.weight'].flatten(1)), self.w[lp + '.bias'])
-        short_out = self.local_read(curr_q, short[0],
-                                    torch.cat([short[1], short[2]], dim=-1),
-                                    rel, size_2d, scale)
-        short_out = self._gate_project(short_out, u, p + '.short_term_attn',
-                                       size_2d)
-        lst, lst_id = (long_out + short_out).chunk(2, dim=-1)
-        tgt = tgt + lst
-        tgt_id = lst_id if tgt_id is None else tgt_id + lst_id
-        cat = torch.cat([self.ln(tgt, p + '.norm2'),
-                         self.ln(tgt_id, p + '.id_norm2')], dim=-1)
-        tgt2, tgt_id2 = self.self_attention(cat, p + '.self_attn',
-                                            size_2d).chunk(2, dim=-1)
-        return tgt + tgt2, tgt_id + tgt_id2, mems, mass
-
-    def self_attention(self, x, p, size_2d):
-        """The GPM's gated self-attention (one head, query = key)."""
-        qk = self.linear(x, p + '.linear_QK')
-        x1, x2 = x.chunk(2, dim=-1)
-        v = F.silu(torch.cat([self.linear(x1, p + '.linear_V1'),
-                              self.linear(x2, p + '.linear_V2')], dim=-1))
-        u = F.silu(torch.cat([self.linear(x1, p + '.linear_U1'),
-                              self.linear(x2, p + '.linear_U2')], dim=-1))
-        scale = self.d_att ** -0.5
-        p_attn = torch.softmax(self.mm(qk * scale, qk.transpose(1, 2)), -1)
-        return self._gate_project(self.mm(p_attn, v), u, p, size_2d)
-
-    def fuse_id(self, i, value, id_emb):
-        """The id value a layer writes to memory: SiLU(linear_ID_V([value,
-        id])), of the id tokens alone in layer 0."""
-        x = id_emb if value is None else torch.cat([value, id_emb], dim=-1)
-        return F.silu(self.linear(x, f'LSTT.layers.{i}.linear_ID_V'))
+        return x.flatten(2).transpose(1, 2)
 
     def temporal_pe(self, length: int):
+        """(the current frame's PE, the bank's [length, C]) or None."""
         if 'cur_pos_emb' not in self.w:
             return None
         return (self.w['cur_pos_emb'][0],
                 memory_pe(self.w['mem_pos_emb'], length))
 
-    def propagate(self, img, bank, short, id_label=None):
-        """One frame. bank: per layer (k, v, id_v) of the live frames in
-        logical order, or None with `id_label` (the reference frame's
-        label map) to read the frame itself. Returns (logits [B, O+1, H4,
-        W4] before the unused ids are masked, per-layer memories, layer
-        0's mass [B, hw, L])."""
-        xs = self.encode(img)
-        b, _, h, w = xs[-1].shape
-        size_2d = (h, w)
-        tgt = xs[-1].flatten(2).transpose(1, 2)
-        tgt_id = None
-        id_emb = None if id_label is None else self.id_tokens(id_label)
-        length = 1 if bank is None else bank[0][0].shape[1]
-        pe = self.temporal_pe(length)
-        mems, mass0 = [], None
-        for i in range(self.m['lstt_num']):
-            tgt, tgt_id, mem, mass = self.gpm_layer(
-                i, tgt, tgt_id, None if bank is None else bank[i],
-                None if short is None else short[i], id_emb, size_2d, pe)
-            mems.append(mem)
-            mass0 = mass if i == 0 else mass0
-        out = self.gn(torch.cat([tgt, tgt_id], dim=-1).transpose(1, 2),
-                      'LSTT.decoder_norms.0.gn', 2)
-        return (self.decode(out.reshape(b, -1, h, w), xs), mems, mass0,
-                size_2d)
-
     # -------------------------------------------------------------- decoder
     def decode(self, x, xs):
-        """The FPN head: the last GPM output with the encoder's 16x, 8x and
-        4x maps, to id logits at 4x."""
+        """The FPN head: the family's features x [B, C, h, w] on the 16x
+        grid with the encoder's 16x, 8x and 4x maps, to id logits at 4x."""
         ac = self.m['align_corners']
         p = 'decoder.'
 

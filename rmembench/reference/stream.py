@@ -10,6 +10,14 @@ by the labels it is given (the judged program's masks) and, where a
 caller passes them, by the program's eviction choices, so that it stays
 on the judged program's trajectory; it reports its own scores beside each
 choice.
+
+The stream holds whatever entries its family's reference writes (a tuple
+of tensors a layer, the same for every frame): the model's `propagate`
+returns the reference frame's entries and `write` a later frame's, each
+per layer (bank entry, short-term entry). The family's
+`scores_every_write` says whether the usage and visit counts move at every
+bank write (RMem's GPM) or only at the writes that put the bank over its
+budget (RMem's LSTT).
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from rmembench.reference.model import DeAOTReference, mask_unused
+from rmembench.reference.model import mask_unused
 
 MOVING_MEAN = 0.8
 UCB_ADD = 8.0
@@ -26,7 +34,7 @@ UCB_MUL = 1.5
 
 
 class ReferenceStream:
-    def __init__(self, model: DeAOTReference, obj_num: int, gap: int,
+    def __init__(self, model, obj_num: int, gap: int,
                  former: int = 1, latter: int = 8):
         self.model = model
         self.obj_num = obj_num
@@ -37,12 +45,12 @@ class ReferenceStream:
     def start(self, img: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         """The reference frame: img [B, H, W, 3], label [B, H, W]. Returns
         its 4x logits [B, C, H4, W4] with unused ids masked."""
-        logits, mems, _, self.grid = self.model.propagate(
+        logits, entries, _, self.grid = self.model.propagate(
             img, None, None, id_label=label)
         b = img.shape[0]
-        self.bank = [(m['k'][:, None], m['v'][:, None],
-                      m['fused_id_v'][:, None]) for m in mems]
-        self.short = [(m['k'], m['v'], m['fused_id_v']) for m in mems]
+        self.bank = [tuple(x[:, None] for x in long)
+                     for long, _ in entries]
+        self.short = [short for _, short in entries]
         self.frame_ids = torch.zeros((b, 1), dtype=torch.long)
         dev = img.device
         self.ema = torch.zeros((b, 1), device=dev)
@@ -65,38 +73,40 @@ class ReferenceStream:
         bank write, else {'frame_ids' [B, L] of the bank after the append,
         'score' [B, L] with inf where a frame may not be dropped, 'over':
         a frame has to go}; the caller then calls `evict`."""
-        m = self.model
-        id_emb = m.id_tokens(label)
-        fused = [m.fuse_id(i, p['id_v'], id_emb)
-                 for i, p in enumerate(self.pending)]
-        self.short = [(p['k'], p['v'], f) for p, f in zip(self.pending, fused)]
+        entries = self.model.write(self.pending, label)
+        self.short = [short for _, short in entries]
         if self.step - self.last_write < self.gap:
             return None
         self.last_write = self.step
         self.bank = [tuple(torch.cat([x, y[:, None]], dim=1)
-                           for x, y in zip(layer, (p['k'], p['v'], f)))
-                     for layer, p, f in zip(self.bank, self.pending, fused)]
+                           for x, y in zip(layer, long))
+                     for layer, (long, _) in zip(self.bank, entries)]
         b = label.shape[0]
         self.frame_ids = torch.cat(
             [self.frame_ids, torch.full((b, 1), self.step)], dim=1)
         n_old = self.frame_ids.shape[1] - 1
+        over = n_old + 1 > self.budget
         dev = self.ema.device
         zeros = torch.zeros((b, 1), device=dev)
-        # the usage of each old frame at the last propagation, weighted by
-        # the foreground probability on the 16x grid
-        fg = 1.0 - torch.softmax(F.interpolate(
-            self.logits, size=self.grid, mode='bilinear', align_corners=True),
-            dim=1)[:, 0].reshape(b, -1)
-        usage = (self.mass * fg[..., None]).sum(1)
-        usage = usage / usage.sum(-1, keepdim=True).clamp_min(1e-20)
-        ema = torch.where(self.present,
-                          (1 - MOVING_MEAN) * self.ema + MOVING_MEAN * usage,
-                          usage)
-        self.ema = torch.cat([ema, zeros], dim=1)
-        self.present = torch.cat(
-            [torch.ones_like(self.present),
-             torch.zeros((b, 1), dtype=torch.bool, device=dev)], dim=1)
-        self.visits = torch.cat([self.visits, zeros], dim=1) + 1.0
+        absent = torch.zeros((b, 1), dtype=torch.bool, device=dev)
+        if self.model.scores_every_write or over:
+            # the usage of each old frame at the last propagation, weighted
+            # by the foreground probability on the 16x grid
+            fg = 1.0 - torch.softmax(F.interpolate(
+                self.logits, size=self.grid, mode='bilinear',
+                align_corners=True), dim=1)[:, 0].reshape(b, -1)
+            usage = (self.mass * fg[..., None]).sum(1)
+            usage = usage / usage.sum(-1, keepdim=True).clamp_min(1e-20)
+            ema = torch.where(self.present, (1 - MOVING_MEAN) * self.ema
+                              + MOVING_MEAN * usage, usage)
+            self.ema = torch.cat([ema, zeros], dim=1)
+            self.present = torch.cat([torch.ones_like(self.present), absent],
+                                     dim=1)
+            self.visits = torch.cat([self.visits, zeros], dim=1) + 1.0
+        else:
+            self.ema = torch.cat([self.ema, zeros], dim=1)
+            self.present = torch.cat([self.present, absent], dim=1)
+            self.visits = torch.cat([self.visits, zeros], dim=1)
         # the reference frame's count is pinned to the number scored
         n = self.visits.clone()
         n[:, 0] = n_old
@@ -108,7 +118,7 @@ class ReferenceStream:
         score[:, 0] = float('inf')
         score[:, n_old] = float('inf')
         return {'frame_ids': self.frame_ids.clone(), 'score': score,
-                'over': n_old + 1 > self.budget}
+                'over': over}
 
     def evict(self, drop: torch.Tensor) -> None:
         """Drop the frame at logical position drop[b] of each stream."""

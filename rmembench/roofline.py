@@ -58,3 +58,19 @@ def b2_work(batch: int, grid: Tuple[int, int], d: int, e_dim: int,
     n_bytes = batch * (e * (2 * hw * d + 2 * hw * e_dim) + 4 * hw * ws2)
     n_flops = 2 * batch * n_pairs * (d + e_dim)
     return n_bytes, n_flops
+
+
+def share(run, group: str):
+    """A kernel group's share of its roofline in a traced step, %: the
+    least time of its calls (the family's `kernel_work`: bytes, operations
+    and calls a step at the cell's shapes, against the published peaks)
+    over the group's device time in the census. None where the census
+    holds no time for the group or the family launches no such group."""
+    if run.census is None or not run.census['groups'].get(group):
+        return None
+    work = run.kernel_work().get(group)
+    if work is None:
+        return None
+    n_bytes, n_flops, calls = work
+    least_s = bound_s(n_bytes, n_flops, run.config['compute_dtype'])[0]
+    return 100.0 * least_s * calls / (run.census['groups'][group] / 1e3)

@@ -1,7 +1,7 @@
 """In a fresh interpreter: a whole run of the harness (on the CPU, at a
 tiny size) loads no module whose top-level name is jax, jaxlib, flax or
 rmem_ocu_tpu (the JAX package; the port's name only begins with it), and
-the reference loads nothing of the port."""
+the reference, every family of it included, loads nothing of the port."""
 import json
 import subprocess
 import sys
@@ -21,6 +21,7 @@ REFERENCE = """
 import json, sys
 sys.path.insert(0, {root!r})
 import rmembench.reference.model, rmembench.reference.stream
+import rmembench.reference.deaot, rmembench.reference.aot
 import rmembench.check, rmembench.flops, rmembench.roofline
 top = sorted({{m.split('.', 1)[0] for m in sys.modules}})
 print(json.dumps(top))

@@ -1,12 +1,13 @@
 """The benchmark's own arithmetic, on the CPU: the census copy and the
 device timeline on synthetic profiler events, the roofline bounds against
-the kernel table's, and the FLOP count at tiny shapes."""
+the kernel table's, and each family's FLOP count and kernel work."""
 import json
 from types import SimpleNamespace
 
 import pytest
 
-from rmembench import census, flops, program, roofline, trace
+from rmembench import census, harness, program, roofline, trace, traffic
+from rmembench.test_rmembench_families import R50_AOTL
 from rmembench.testutil import ROOT
 
 
@@ -93,19 +94,63 @@ def test_roofline_matches_the_kernel_table():
     assert round(s * 1e3, 4) == 0.0113
 
 
-@pytest.mark.parametrize('name', ['r50_deaotl', 'swinb_deaotl'])
+def _config(name):
+    if name == 'r50_aotl':
+        return R50_AOTL
+    return json.loads((ROOT / 'rmembench' / 'configs'
+                       / f'{name}.json').read_text())
+
+
+# what each family's step multiplies per key token of a bank frame, q.k
+# and p.v together: DeAOT one head of d/2 and values V, ID_V of 2d each,
+# AOT heads of d in all and values of d
+PER_KEY = {'deaot': lambda d: d // 2 + 4 * d, 'aot': lambda d: 2 * d}
+
+
+@pytest.mark.parametrize('name', ['r50_deaotl', 'swinb_deaotl', 'r50_aotl'])
 def test_flops_of_a_bank_frame_are_the_read_of_its_tokens(name):
-    config = json.loads((ROOT / 'rmembench' / 'configs'
-                         / f'{name}.json').read_text())
+    config = _config(name)
     mc = config['model']
+    family = harness.load_family(config)
     _, model = program.build_model(config, 'meta')
     shapes = program.shapes_of(model)
     size = (65, 97) if mc['align_corners'] else (64, 96)
     grid = program.grid_of(size, mc['align_corners'])
     hw = grid[0] * grid[1]
-    f8, f9 = (flops.step_flops(shapes, mc, size, n) for n in (8, 9))
+    f8, f9 = (family.step_flops(shapes, mc, size, n) for n in (8, 9))
     d = mc['encoder_embedding_dim']
     # one more frame in the bank: q.k and p.v over its hw tokens, in each
-    # of the GPM's layers
-    assert f9 - f8 == mc['lstt_num'] * 2 * hw * hw * (d // 2 + 4 * d)
+    # layer
+    per_key = PER_KEY[config['reference']](d)
+    assert f9 - f8 == mc['lstt_num'] * 2 * hw * hw * per_key
     assert f9 > 10 * (f9 - f8)
+
+
+# the parent tree's numbers at the cells' shapes (577x1041 and 592x1040, 8
+# streams, a bank of 9 live frames in 10 slots): `flops.step_flops` and
+# what `metrics/b1_roofline.py` and `metrics/b2_roofline.py` computed
+# before the count and the kernels' work moved behind the family
+PARENT = {
+    'r50_deaotl.vost_b8': (570190653568, {
+        'B1 memory_read': (450909632, 989295538176, 3),
+        'B2 local_attn': (107604288, 8590528512, 3)}),
+    'swinb_deaotl.vost_b8': (840814433280, {
+        'B1 memory_read': (444077952, 959544668160, 3),
+        'B2 local_attn': (105973920, 8452564992, 3)}),
+}
+
+
+@pytest.mark.parametrize('workload', sorted(PARENT))
+def test_the_family_counts_what_the_harness_counted_before(workload):
+    cell = harness.load_cell(ROOT, workload)
+    config, tr = cell['config'], cell['traffic']
+    mc = config['model']
+    size = traffic.input_size(tr, mc['align_corners'])
+    grid = program.grid_of(size, mc['align_corners'])
+    _, model = program.build_model(config, 'meta')
+    family = cell['family']
+    flops, work = PARENT[workload]
+    assert family.step_flops(program.shapes_of(model), mc, size,
+                             mc['former_mem_len'] + mc['latter_mem_len']) \
+        == flops
+    assert family.kernel_work(mc, tr['streams'], grid) == work
